@@ -1,0 +1,44 @@
+"""Carry the JAX package's inputs across to the port.
+
+The JAX package's arrays cross over as numpy (``np.asarray`` of a jax
+array), so nothing here imports jax or ``repro``:
+
+  dataset(x, y, x_test, y_test, device)  -> core.objectives.Dataset
+  vector(w0, device)                     -> float32 tensor
+  key(raw)                               -> a prng key from uint32[2]
+
+With the same inputs and the same key both packages compute on identical
+data and draw identical sketches, masks and fleet timelines.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.objectives import Dataset
+
+
+def vector(a, device=None) -> torch.Tensor:
+    """A float32 numpy array (or anything np.asarray takes) as a tensor on
+    ``device`` (the CUDA device when none is given)."""
+    device = resolve_device(device)
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def dataset(x, y, x_test=None, y_test=None, device=None) -> Dataset:
+    device = resolve_device(device)
+
+    def opt(a) -> Optional[torch.Tensor]:
+        return None if a is None else vector(a, device)
+    return Dataset(x=vector(x, device), y=vector(y, device),
+                   x_test=opt(x_test), y_test=opt(y_test))
+
+
+def key(raw) -> torch.Tensor:
+    """A raw threefry key, the two uint32 words of
+    ``jax.random.key_data(k)``, as a port key."""
+    words = np.asarray(raw, dtype=np.uint32).reshape(2)
+    return torch.tensor(words.astype(np.int64))

@@ -1,0 +1,493 @@
+"""OverSketched Newton (paper Alg. 3 / Alg. 4): the master loop; port of
+``repro/core/newton.py`` in ``sketch_mode="blocks"``.
+
+Each iteration:
+
+  1. gradient  - exact and straggler-resilient through the 2-D product-coded
+     matvecs of Alg. 1 (``CodedMatvecEngine``);
+  2. Hessian   - approximate and straggler-resilient through the OverSketch
+     count-sketch blocks of Alg. 2 (``_hessian_phase``); with
+     ``use_kernels`` on a CUDA device it runs the fused sketch -> Gram
+     kernel;
+  3. direction - Cholesky/CG or pinv/MINRES (``_solve_direction``);
+  4. step size - the Armijo (Eq. 5) or gradient-norm (Eq. 6) line search.
+
+Every phase is timed and billed by the simulated fleet (``SimClock``), on
+the host.  The tensors live on the entry point's device: CUDA unless the
+caller passes ``device="cpu"``.
+
+Not ported yet, and refused with ``NotImplementedError`` rather than
+ignored: ``sketch_mode="distributed-avg"``, ``debias``,
+``adaptive_sketch`` and the degraded paths after a fleet phase exhausts
+its retry budget (ROADMAP Queue 1 item 7).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import obs, prng, resolve_device, scheduler, sketching
+from repro_torch.core import coded, linesearch, solvers, straggler
+from repro_torch.core.objectives import Dataset
+from repro_torch.core.sketch import OverSketchConfig
+from repro_torch.runtime.faults import PhaseExhaustedError
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item 7)")
+
+
+def _exhausted(e: PhaseExhaustedError, where: str) -> NotImplementedError:
+    """The reference degrades here after an exhausted phase; the port
+    refuses."""
+    err = _not_ported(f"the degraded {where} after an exhausted fleet phase")
+    err.__cause__ = e
+    return err
+
+
+def _decodable(erased_grid: np.ndarray) -> bool:
+    """Host-side peeling feasibility on the (g+1)x(g+1) erasure grid: a
+    line with exactly one missing cell can be recovered; iterate."""
+    known = ~erased_grid.copy()
+    for _ in range(2 * known.shape[0]):
+        if known.all():
+            return True
+        progress = False
+        for axis in (0, 1):
+            missing = (~known).sum(axis=axis)
+            for i in np.where(missing == 1)[0]:
+                if axis == 0:
+                    known[int(np.argmin(known[:, i])), i] = True
+                else:
+                    known[i, int(np.argmin(known[i, :]))] = True
+                progress = True
+        if not progress:
+            return False
+    return bool(known.all())
+
+
+@dataclasses.dataclass(frozen=True)
+class NewtonConfig:
+    """The reference's configuration, field for field, so one config means
+    the same in both packages (see the module docstring for what the port
+    refuses)."""
+
+    iters: int = 20
+    sketch: OverSketchConfig = dataclasses.field(
+        default_factory=lambda: OverSketchConfig(
+            sketch_dim=2048, block_size=256, straggler_tolerance=0.25))
+    beta: float = 0.1
+    candidates: tuple = linesearch.DEFAULT_CANDIDATES
+    unit_step: bool = False
+    solver: str = "auto"            # auto | chol | cg | pinv | minres
+    cg_iters: int = 64
+    gradient_policy: str = "coded"  # coded | wait_all | ignore | speculative | exact
+    hessian_policy: str = "oversketch"   # oversketch | exact | exact_speculative
+    sketch_family: str = "oversketch"
+    debias: bool = False
+    sketch_mode: str = "blocks"
+    distavg_solver: str = "chol"
+    coded_block_rows: int = 256
+    overlap_encode: bool = True
+    schedule: str = "dag"           # dag | sequential
+    phase_memory: bool = False
+    seed: int = 0
+    use_kernels: bool = False       # route the Hessian through the kernels
+    track_test_error: bool = False
+    adaptive_sketch: bool = False
+    adaptive_stall_ratio: float = 0.25
+    adaptive_max_growth: int = 4
+    adaptive_metric: str = "stall"
+    adaptive_mp_target: float = 0.75
+    fault_fallback: str = "degrade"
+    survivor_floor: float = 0.5
+    corruption_detection: bool = True
+
+
+@dataclasses.dataclass
+class NewtonResult:
+    w: torch.Tensor
+    history: Dict[str, List[float]]
+
+
+def _phase_mem(enabled: bool, working_set_bytes: float) -> Optional[float]:
+    """Declared Lambda size for a phase, or None for the fleet-wide 3 GB."""
+    return scheduler.lambda_memory_gb(working_set_bytes) if enabled else None
+
+
+def _ws_gb(working_set_bytes: float) -> float:
+    return float(working_set_bytes) / 2.0 ** 30
+
+
+class CodedMatvecEngine:
+    """Holds the one-time 2-D product-code encodings of X and X^T and serves
+    straggler-resilient matvecs.  Each operand's encode is billed as a
+    fleet phase on first use; with ``overlap_encode`` both encodes launch
+    when the engine comes up and the later one hides behind the compute
+    dispatched since (Sec. 4.1)."""
+
+    def __init__(self, data: Dataset, block_rows: int,
+                 model: Optional[straggler.StragglerModel],
+                 overlap_encode: bool = True, phase_memory: bool = False):
+        self.model = model
+        self.overlap_encode = overlap_encode
+        self.phase_memory = phase_memory
+        self._encode_pending = {"X", "XT"}
+        self._encode_t0: Optional[float] = None
+        n, d = data.x.shape
+        self.code_x = coded.make_code(n, max(1, min(block_rows, n)))
+        self.code_xt = coded.make_code(d, max(1, min(block_rows, d)))
+        self.enc_x = coded.encode_2d(data.x, self.code_x)
+        self.enc_xt = coded.encode_2d(data.x.T, self.code_xt)
+        self.out_rows = {"X": n, "XT": d}
+        self.fallbacks = 0
+
+    def code_for(self, tag: str) -> coded.ProductCode:
+        return self.code_x if tag == "X" else self.code_xt
+
+    def _mv(self, tag: str, v: torch.Tensor,
+            erased: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        enc = self.enc_x if tag == "X" else self.enc_xt
+        return coded.coded_matvec(enc, v, self.code_for(tag),
+                                  self.out_rows[tag], erased)
+
+    def matvec(self, tag: str, v: torch.Tensor, clock: straggler.SimClock,
+               key: torch.Tensor, policy: str,
+               dag: Optional[scheduler.DagRun] = None,
+               name: Optional[str] = None,
+               after: Tuple[str, ...] = ()) -> torch.Tensor:
+        """One straggler-resilient coded matvec.  With ``dag`` the compute
+        phase (and, on decode failure, the retry phase) is a named DAG node
+        with deps ``after``."""
+        code = self.code_for(tag)
+        w = code.num_workers
+        enc = self.enc_x if tag == "X" else self.enc_xt
+        flops = 2.0 * code.block_rows * enc.shape[-1]   # one block matvec
+        mem_bytes = scheduler.matvec_worker_bytes(code.block_rows,
+                                                  enc.shape[-1])
+        mem = _phase_mem(self.phase_memory, mem_bytes)
+        ws = _ws_gb(mem_bytes)
+        enc_floor = None     # set if this call bills an encode phase
+
+        def phase(k, policy, *, kk=None, decodable=None):
+            try:
+                if dag is not None:
+                    # The compute phase consumes this operand's encode:
+                    # floor its launch at the encode's finish.
+                    res = dag.dispatch(scheduler.PhaseSpec(
+                        name=name or tag, workers=w, policy=policy, k=kk,
+                        flops_per_worker=flops, comm_units=1.0,
+                        memory_gb=mem, working_set_gb=ws,
+                        decodable=decodable, deps=after),
+                        key=k, min_start=enc_floor)
+                    return res.mask
+                return clock.phase(k, w, policy=policy, k=kk,
+                                   flops_per_worker=flops, comm_units=1.0,
+                                   decodable=decodable, memory_gb=mem,
+                                   working_set_gb=ws,
+                                   phase_name=name or tag)[1]
+            except PhaseExhaustedError as e:
+                raise _exhausted(e, "coded matvec") from e
+
+        if self.model is not None and tag in self._encode_pending:
+            # One-time product-code encode of this operand, billed on first
+            # use; launching "now" overlaps nothing, so it then takes the
+            # sequential path (bit-identical clock).
+            self._encode_pending.discard(tag)
+            if self._encode_t0 is None:
+                self._encode_t0 = clock.time
+            nb = self._encode_t0 if self.overlap_encode else None
+            if nb is not None and nb == clock.time:
+                nb = None
+            try:
+                clock.phase(prng.fold_in(key, 555), w, policy="wait_all",
+                            flops_per_worker=float(code.block_rows
+                                                   * enc.shape[-1]),
+                            comm_units=1.0, not_before=nb, memory_gb=mem,
+                            working_set_gb=ws, phase_name=f"encode:{tag}")
+            except PhaseExhaustedError as e:
+                raise _exhausted(e, "encode") from e
+            enc_floor = clock.time
+        erased = None
+        if self.model is not None and policy == "coded":
+            # Decode starts as soon as the arrived set is peelable (Alg. 1
+            # step 8): the coded_decode policy with the peeling predicate.
+            g1 = code.grid + 1
+            k_min = max(1, w - (2 * code.grid + 1))
+            mask = phase(key, "coded_decode", kk=k_min,
+                         decodable=lambda m: _decodable(~m.reshape(g1, g1)))
+            erased = (~mask).reshape(g1, g1).to(v.device)
+        elif self.model is not None and policy in ("wait_all", "speculative"):
+            phase(key, policy)
+        elif self.model is not None and policy == "ignore":
+            # mini-batch style: pay the k-of-n time, use the exact product.
+            phase(key, "k_of_n", kk=max(1, int(0.95 * w)))
+        y, ok = self._mv(tag, v, erased)
+        if erased is not None and not bool(ok):
+            # Erasure pattern beyond the code: the master re-launches the
+            # stragglers; charge a full re-execution round.
+            self.fallbacks += 1
+            y, _ = self._mv(tag, v, None)
+            kf = prng.fold_in(key, 1)
+            try:
+                if dag is not None and (name or tag) in dag.results:
+                    dag.dispatch(scheduler.PhaseSpec(
+                        name=(name or tag) + "/retry", workers=w,
+                        policy="wait_all", comm_units=1.0, memory_gb=mem,
+                        working_set_gb=ws, deps=((name or tag),)), key=kf)
+                else:
+                    clock.phase(kf, w, policy="wait_all", comm_units=1.0,
+                                memory_gb=mem, working_set_gb=ws,
+                                phase_name=(name or tag) + "/retry")
+            except PhaseExhaustedError as e:
+                raise _exhausted(e, "coded matvec relaunch") from e
+        return y
+
+
+def _solve_direction(objective, h_hat: torch.Tensor, g: torch.Tensor,
+                     cfg: NewtonConfig) -> torch.Tensor:
+    solver = cfg.solver
+    if solver == "auto":
+        solver = "chol" if objective.strongly_convex else "pinv"
+    if solver == "chol":
+        return -solvers.psd_solve(h_hat, g)
+    if solver == "cg":
+        return -solvers.conjugate_gradient(lambda v: h_hat @ v, g,
+                                           torch.zeros_like(g), cfg.cg_iters)
+    if solver == "pinv":
+        return -solvers.psd_pinv_solve(h_hat, g)
+    if solver == "minres":
+        return -solvers.minres(lambda v: h_hat @ v, g, cfg.cg_iters)
+    raise ValueError(solver)
+
+
+def _hessian_phase(objective, data: Dataset, w: torch.Tensor,
+                   cfg: NewtonConfig, key: torch.Tensor,
+                   clock: Optional[straggler.SimClock],
+                   dag: Optional[scheduler.DagRun] = None,
+                   tag: str = "hessian") -> Tuple[torch.Tensor, Optional[float]]:
+    """Returns (H_hat including hess_reg * I, surviving sketch rows m_eff;
+    None on the exact path).
+
+    A sketched Hessian invokes (N+e) block workers, each output tile
+    waiting for any N of them (Alg. 2); the exact one ceil(n/b) (d/b)^2
+    workers.  With ``dag`` the phase is a root node, concurrent with the
+    gradient round; the phase key is the same either way, so the survivor
+    mask and the iterate do not depend on the schedule."""
+    a = objective.hess_sqrt(w, data)
+    n_rows, d = a.shape
+    b = max(cfg.sketch.block_size, 1)
+    d_blocks = max(1, -(-d // b))
+
+    def run(workers, policy, k=None, flops=0.0, comm=0.0, mem=None, ws=None):
+        try:
+            if dag is not None:
+                return dag.dispatch(scheduler.PhaseSpec(
+                    name=tag, workers=workers, policy=policy, k=k,
+                    flops_per_worker=flops, comm_units=comm, memory_gb=mem,
+                    working_set_gb=ws), key=key).mask
+            return clock.phase(key, workers, policy=policy, k=k,
+                               flops_per_worker=flops, comm_units=comm,
+                               memory_gb=mem, working_set_gb=ws,
+                               phase_name=tag)[1]
+        except PhaseExhaustedError as e:
+            if cfg.fault_fallback == "raise":
+                raise
+            raise _exhausted(e, "Hessian round") from e
+
+    eye = torch.eye(d, dtype=a.dtype, device=a.device)
+    if cfg.hessian_policy == "oversketch":
+        scfg = cfg.sketch
+        fam = sketching.get(cfg.sketch_family, scfg)
+        survivors = torch.ones(scfg.total_blocks, dtype=torch.bool)
+        if clock is not None:
+            # Per output tile, any N of its N+e sketch-block workers; the
+            # master I/O scales with the full worker count.
+            total_workers = scfg.total_blocks * d_blocks * d_blocks
+            mem_bytes = scheduler.sketch_worker_bytes(scfg.block_size,
+                                                      min(d, b))
+            survivors = run(scfg.total_blocks, "k_of_n", k=scfg.num_blocks,
+                            flops=fam.block_flops(n_rows, d),
+                            comm=fam.comm_units(d) * total_workers,
+                            mem=_phase_mem(cfg.phase_memory, mem_bytes),
+                            ws=_ws_gb(mem_bytes))
+        state = fam.sample(prng.fold_in(key, 7), n_rows, device=a.device)
+        h_hat = fam.gram(state, a, survivors.to(a.device),
+                         use_kernels=cfg.use_kernels)
+        m_eff = float(survivors.sum()) * scfg.block_size
+        return h_hat + objective.hess_reg * eye, m_eff
+    # exact Hessian (the paper's "exact Newton" baseline)
+    if clock is not None:
+        workers = max(1, -(-n_rows // b)) * d_blocks * d_blocks
+        policy = ("speculative" if cfg.hessian_policy == "exact_speculative"
+                  else "wait_all")
+        mem_bytes = scheduler.sketch_worker_bytes(b, min(d, b))
+        run(workers, policy, flops=2.0 * b * min(d, b) ** 2,
+            comm=0.05 * workers, mem=_phase_mem(cfg.phase_memory, mem_bytes),
+            ws=_ws_gb(mem_bytes))
+    return a.T @ a + objective.hess_reg * eye, None
+
+
+def _check_config(cfg: NewtonConfig) -> None:
+    if cfg.sketch_mode not in ("blocks", "distributed-avg"):
+        raise ValueError(f"unknown sketch_mode {cfg.sketch_mode!r}")
+    if cfg.distavg_solver not in ("chol", "cg"):
+        raise ValueError(f"unknown distavg_solver {cfg.distavg_solver!r}")
+    if cfg.schedule not in ("dag", "sequential"):
+        raise ValueError(f"unknown schedule {cfg.schedule!r}")
+    if cfg.adaptive_metric not in ("stall", "mp"):
+        raise ValueError(f"unknown adaptive_metric {cfg.adaptive_metric!r}")
+    if cfg.fault_fallback not in ("degrade", "raise"):
+        raise ValueError(f"unknown fault_fallback {cfg.fault_fallback!r}")
+    if cfg.hessian_policy not in ("oversketch", "exact", "exact_speculative"):
+        raise ValueError(f"unknown hessian_policy {cfg.hessian_policy!r}")
+    if not 0.0 < cfg.survivor_floor <= 1.0:
+        raise ValueError(
+            f"survivor_floor must be in (0, 1], got {cfg.survivor_floor}")
+    if cfg.sketch_mode == "distributed-avg":
+        raise _not_ported("sketch_mode='distributed-avg'")
+    if cfg.debias:
+        raise _not_ported("debias=True")
+    if cfg.adaptive_sketch:
+        raise _not_ported("adaptive_sketch=True")
+    sketching.get(cfg.sketch_family, cfg.sketch)   # fail fast on bad family
+
+
+def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
+                        model=straggler.StragglerModel(),
+                        device=None) -> NewtonResult:
+    """Run OverSketched Newton; returns the iterate and a per-iteration log
+    (``iter``, ``fval``, ``gnorm``, ``step``, simulated ``time`` and
+    ``cost``, ``test_error``, ``sketch_dim``, and the port's own
+    ``wall_s``: host seconds per iteration).
+
+    ``model`` is a ``StragglerModel`` (a fresh fleet clock is built), a
+    prebuilt ``SimClock``, or None (no fleet: exact gradients, unit
+    clock).  Runs on CUDA unless ``device`` says otherwise; the dataset and
+    ``w0`` are moved there."""
+    device = resolve_device(device)
+    _check_config(cfg)
+    data = Dataset(*(None if t is None else t.to(device) for t in data))
+    key = prng.PRNGKey(cfg.seed)
+    if isinstance(model, straggler.SimClock):
+        clock, model = model, model.model
+    else:
+        clock = straggler.SimClock(model) if model is not None else None
+    coded_gradient = cfg.gradient_policy != "exact" and model is not None
+    engine = (CodedMatvecEngine(data, cfg.coded_block_rows, model,
+                                overlap_encode=cfg.overlap_encode,
+                                phase_memory=cfg.phase_memory)
+              if coded_gradient else None)
+
+    w = torch.as_tensor(w0, dtype=torch.float32).to(device)
+    hist: Dict[str, List[float]] = {k: [] for k in (
+        "iter", "fval", "gnorm", "step", "time", "cost", "test_error",
+        "sketch_dim", "wall_s")}
+    tel = obs.NULL    # live telemetry is not ported yet
+
+    for t in range(cfg.iters):
+        t_wall = time.perf_counter()
+        key, kg, kh, kl = prng.split(key, 4)
+        # One iteration = one phase DAG: gradient matvecs chain through
+        # edges, the Hessian sketch is a root node, the line search joins
+        # both.  The phase keys, hence masks and iterates, do not depend on
+        # the schedule.
+        dag = (scheduler.DagRun(clock, key=key)
+               if cfg.schedule == "dag" and clock is not None else None)
+
+        # --- 1. gradient (straggler-resilient coded matvecs, Alg. 1) ------
+        if not coded_gradient:
+            g = objective.gradient(w, data)
+        else:
+            mv_seq = [0]
+
+            def mv(tag, v):
+                kf = prng.fold_in(kg, {"X": 3, "XT": 5}[tag])
+                if dag is None:
+                    return engine.matvec(tag, v, clock, kf,
+                                         cfg.gradient_policy)
+                after = (dag.last,) if dag.last is not None else ()
+                y = engine.matvec(tag, v, clock, kf, cfg.gradient_policy,
+                                  dag=dag, name=f"grad/{mv_seq[0]}:{tag}",
+                                  after=after)
+                mv_seq[0] += 1
+                return y
+
+            g = objective.gradient_via(w, data, mv)
+
+        # --- 2+3. sketched Hessian (Alg. 2) and direction -----------------
+        h_hat, _ = _hessian_phase(objective, data, w, cfg, kh, clock, dag=dag)
+        p = _solve_direction(objective, h_hat, g, cfg)
+        hg = None
+
+        # Descent guard: only a finite descent direction reaches the line
+        # search; anything else degrades to steepest descent.
+        gp = float(g @ p)
+        if not math.isfinite(gp) or gp >= 0.0:
+            p, hg = -g, g
+            tel.metrics.counter("newton.safeguard_fallbacks").inc()
+
+        # --- 4. distributed line search (Sec. 3.2) -------------------------
+        if cfg.unit_step:
+            step = torch.ones((), device=device)
+        elif objective.strongly_convex:
+            step = linesearch.linesearch_strongly_convex(
+                objective, data, w, p, g, cfg.beta, cfg.candidates)
+        else:
+            if hg is None:
+                hg = h_hat @ g
+            step = linesearch.linesearch_weakly_convex(
+                objective, data, w, p, g, hg, cfg.beta, cfg.candidates)
+        if clock is not None and not cfg.unit_step:
+            nb = max(1, data.x.shape[0] // max(cfg.coded_block_rows, 1))
+            ls_flops = (2.0 * cfg.coded_block_rows * data.x.shape[1]
+                        * len(cfg.candidates))
+            ls_bytes = scheduler.matvec_worker_bytes(cfg.coded_block_rows,
+                                                     data.x.shape[1])
+            ls_mem = _phase_mem(cfg.phase_memory, ls_bytes)
+            try:
+                if dag is not None:
+                    # The line search consumes every phase so far; the clock
+                    # already sits at the DAG's frontier, so it dispatches
+                    # on the sequential path with its edges declared.
+                    dag.dispatch(scheduler.PhaseSpec(
+                        name="linesearch", workers=nb, policy="wait_all",
+                        flops_per_worker=ls_flops, comm_units=0.5,
+                        memory_gb=ls_mem, working_set_gb=_ws_gb(ls_bytes),
+                        deps=tuple(dag.results)), key=kl, sequential=True)
+                else:
+                    clock.phase(kl, nb, policy="wait_all",
+                                flops_per_worker=ls_flops, comm_units=0.5,
+                                memory_gb=ls_mem,
+                                working_set_gb=_ws_gb(ls_bytes),
+                                phase_name="linesearch")
+            except PhaseExhaustedError as e:
+                if cfg.fault_fallback == "raise":
+                    raise
+                raise _exhausted(e, "line search") from e
+
+        w = w + step * p
+
+        hist["iter"].append(t)
+        hist["fval"].append(float(objective.value(w, data)))
+        hist["gnorm"].append(float(torch.linalg.norm(
+            objective.gradient(w, data))))
+        hist["step"].append(float(step))
+        hist["time"].append(clock.time if clock is not None else float(t + 1))
+        hist["cost"].append(clock.dollars if clock is not None else 0.0)
+        hist["sketch_dim"].append(cfg.sketch.sketch_dim)
+        if cfg.track_test_error and data.x_test is not None:
+            hist["test_error"].append(
+                float(objective.error(w, data.x_test, data.y_test)))
+        else:
+            hist["test_error"].append(float("nan"))
+        # Host seconds of the iteration; the float() reads above wait for
+        # the device, so this includes its work.
+        hist["wall_s"].append(time.perf_counter() - t_wall)
+    return NewtonResult(w=w, history=hist)

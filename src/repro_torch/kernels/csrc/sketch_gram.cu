@@ -1,0 +1,47 @@
+// sketch_gram_count on Hopper: the fused count-sketch -> survivor-masked
+// Gram, G = (1 / max(sum m, 1)) sum_k m_k (S_k^T A)^T (S_k^T A).
+//
+// Replaces the Pallas kernel src/repro/kernels/sketch_gram.py
+// (sketch_gram_count through _sketch_gram, _kernel_single, _kernel_tiled
+// and _encode_count).  On the TPU each (d_tile x d_tile) output tile keeps
+// its (b x d_tile) A_tilde panels in VMEM and re-encodes A per tile pair.
+// On Hopper that tiling would re-read A for every one of ~500 tile pairs
+// and 150 blocks, since 227 KB of shared memory holds a (256 x d_tile)
+// panel only for d_tile near 100.
+//
+// Bound on the H100: at the main path's shapes (K = 150, n = 300,000,
+// d = 3,000, b = 256) the Gram's 2 K b d^2 fp32 operations dominate the
+// apply's 2 K n d, against about 4 GB of input: it is bound by the fp32
+// FFMA rate.  Design: walk the blocks in chunks of a few tens of blocks
+// (the wrapper's CHUNK_BYTES); for each chunk the segment-sum kernel of
+// count_sketch.cu writes the live blocks' A_tilde into a scratch buffer
+// and the symmetric tiled Gram kernel of oversketch_gram.cu folds m_k
+// A_k^T A_k into G (the first chunk overwrites G, the last divides by the
+// survivor count).  The full (K, b, d) A_tilde never exists at once, and a
+// masked block is neither sketched nor read.
+#include "sketch_common.cuh"
+
+// Sketch blocks one CTA of the apply accumulates at once; the wrapper
+// sizes each chunk as a whole number of such groups.
+extern "C" int sketch_gram_blocks_per_cta(int b) {
+  return sketch::cs_blocks_per_cta(b);
+}
+
+extern "C" int sketch_gram_count_launch(const int* h, const float* sigma,
+                                        const float* a, const float* mask,
+                                        float* g, float* scratch, int k,
+                                        int n, int d, int b, int chunk,
+                                        void* stream) {
+  if (chunk < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int k0 = 0; k0 < k; k0 += chunk) {
+    const int kc = chunk < k - k0 ? chunk : k - k0;
+    cudaError_t err = sketch::launch_cs_apply(h, sigma, a, mask, scratch, n,
+                                              d, b, k0, kc, s);
+    if (err != cudaSuccess) return (int)err;
+    err = sketch::launch_gram(scratch, mask, g, k0, kc, k, b, d, k0 > 0,
+                              k0 + kc >= k, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}

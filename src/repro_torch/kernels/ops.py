@@ -1,0 +1,31 @@
+"""Public entry points of the CUDA kernels and their launch counts.
+
+Each entry point runs its plain version (``ref.py``) on CPU tensors and
+its hand-written CUDA kernel on CUDA tensors.  ``KERNELS`` maps each
+kernel's name to its ``CudaKernel``, whose ``launches`` counts the
+launches made through the entry point.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import count_sketch as _cs
+from repro_torch.kernels import oversketch_matmul as _og
+from repro_torch.kernels import sketch_gram as _sg
+from repro_torch.kernels._build import CudaKernel
+
+count_sketch_apply = _cs.count_sketch_apply
+oversketch_gram = _og.oversketch_gram
+sketch_gram_count = _sg.sketch_gram_count
+
+KERNELS: Dict[str, CudaKernel] = {
+    k.name: k for k in (_sg.KERNEL, _cs.KERNEL, _og.KERNEL)}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0

@@ -1,0 +1,234 @@
+"""jax-compatible counter-based keys and draws, on torch tensors.
+
+The reference draws every sketch, survivor mask and fleet coin flip from
+``jax.random`` threefry keys.  This module reproduces that surface so the
+same seed gives the same draws in both packages:
+
+  PRNGKey, split, fold_in, key_data          key algebra
+  uniform, bernoulli, rademacher, randint,   draws
+  normal
+
+The generator is threefry2x32 (20 rounds) in the layout jax uses when
+``jax_threefry_partitionable`` is on (the default since jax 0.5): element
+``i`` of a draw of any shape hashes the 64-bit counter ``i`` (row-major
+flat index) split into two 32-bit words, and a 32-bit draw is the XOR of
+the two output words.  ``split(key, n)[i]`` and ``fold_in(key, x)`` hash
+the counters ``(0, i)`` and ``(0, x)``.
+
+A key is an int64 tensor of shape ``(2,)`` holding the two uint32 words;
+a batch of keys has shape ``(n, 2)``.  Keys live on the CPU.  Draws run
+on the ``device`` they are given (the CUDA device when none is given,
+``resolve_device``), on int64 tensors masked to 32 bits, and are
+counter-based: ``bits[i]`` depends only on ``(key, i)``, so large
+draws are made in chunks of ``CHUNK`` elements and never hold int64
+temporaries for the whole shape.
+
+All draws except ``normal`` are bit-exact against jax.  ``normal`` is
+``sqrt(2) * erfinv(u)`` with XLA's float32 erfinv polynomial, its Horner
+steps fused as XLA fuses them; the ``log1p`` inside it is torch's, which
+differs from XLA's CPU ``log1p`` in the last bit on a few percent of
+inputs, so a normal draw can differ from jax's by a few float32 ulps
+(``NORMAL_RTOL`` / ``NORMAL_ATOL`` bound it).
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+CHUNK = 1 << 24            # elements per chunk of a large draw
+
+# Bound on |normal - jax.random.normal| (see module docstring).
+NORMAL_RTOL = 1e-6
+NORMAL_ATOL = 1e-6
+
+Shape = Union[int, Sequence[int]]
+
+
+def _shape(shape: Shape) -> Tuple[int, ...]:
+    return (int(shape),) if isinstance(shape, int) else tuple(int(s) for s in shape)
+
+
+def _words(key: torch.Tensor) -> Tuple[int, int]:
+    k = key.reshape(-1).tolist()
+    if len(k) != 2:
+        raise ValueError(f"a key has two uint32 words, got shape {tuple(key.shape)}")
+    return int(k[0]) & M32, int(k[1]) & M32
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def _threefry2x32(k0: int, k1: int, x0: torch.Tensor,
+                  x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """threefry2x32 with 20 rounds on int64 tensors holding uint32 words."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & M32
+    x1 = (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
+    return x0, x1
+
+
+def _hash_counters(key: torch.Tensor, start: int, count: int,
+                   device) -> Tuple[torch.Tensor, torch.Tensor]:
+    k0, k1 = _words(key)
+    i = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    return _threefry2x32(k0, k1, i >> 32, i & M32)
+
+
+def PRNGKey(seed: int) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for an int32 seed: words (0, seed)."""
+    seed = int(seed)
+    if not -(1 << 31) <= seed < (1 << 31):
+        raise ValueError(f"seed {seed} does not fit in int32")
+    return torch.tensor([0, seed & M32], dtype=torch.int64)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: (num, 2) keys, key i = threefry(key, (0, i))."""
+    y0, y1 = _hash_counters(key, 0, int(num), "cpu")
+    return torch.stack([y0, y1], dim=1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: threefry(key, (0, data)) for uint32 data."""
+    k0, k1 = _words(key)
+    x1 = torch.tensor([int(data) & M32], dtype=torch.int64)
+    y0, y1 = _threefry2x32(k0, k1, torch.zeros_like(x1), x1)
+    return torch.cat([y0, y1])
+
+
+def key_data(key: torch.Tensor) -> np.ndarray:
+    """The key's raw uint32 words (``jax.random.key_data``)."""
+    return np.asarray(key.cpu().numpy() & M32, dtype=np.uint32)
+
+
+def _bits(key: torch.Tensor, start: int, count: int, device) -> torch.Tensor:
+    """32-bit draws for flat counters [start, start + count) as int64."""
+    y0, y1 = _hash_counters(key, start, count, device)
+    return y0 ^ y1
+
+
+def _chunked(key: torch.Tensor, shape: Tuple[int, ...], dtype, device,
+             fn) -> torch.Tensor:
+    """Fill a tensor of ``shape`` chunk by chunk: ``fn(bits) -> values``."""
+    size = math.prod(shape)
+    out = torch.empty(size, dtype=dtype, device=device)
+    for start in range(0, size, CHUNK):
+        count = min(CHUNK, size - start)
+        out[start:start + count] = fn(_bits(key, start, count, device))
+    return out.reshape(shape)
+
+
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """Mantissa trick of jax's uniform: float32 in [0, 1)."""
+    fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return fb.view(torch.float32) - 1.0
+
+
+def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
+            maxval: float = 1.0, *, device=None) -> torch.Tensor:
+    """float32 uniform on [minval, maxval) (``jax.random.uniform``)."""
+    device = resolve_device(device)
+    lo = torch.tensor(np.float32(minval), device=device)
+    hi = torch.tensor(np.float32(maxval), device=device)
+    scale = hi - lo
+
+    def fn(bits):
+        # XLA fuses the scale and shift into one FMA; so does this.
+        return torch.maximum(lo, _fma(_unit_floats(bits), scale, lo))
+    return _chunked(key, _shape(shape), torch.float32, device, fn)
+
+
+def bernoulli(key: torch.Tensor, p: float = 0.5, shape: Shape = (), *,
+              device=None) -> torch.Tensor:
+    """bool draws with P[True] = p (``jax.random.bernoulli``)."""
+    device = resolve_device(device)
+    pf = float(np.float32(p))
+    return _chunked(key, _shape(shape), torch.bool, device,
+                    lambda bits: _unit_floats(bits) < pf)
+
+
+def rademacher(key: torch.Tensor, shape: Shape = (), *,
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    """+-1 draws (``jax.random.rademacher``)."""
+    device = resolve_device(device)
+    one = torch.ones((), dtype=dtype, device=device)
+
+    def fn(bits):
+        return torch.where(_unit_floats(bits) < 0.5, one, -one)
+    return _chunked(key, _shape(shape), dtype, device, fn)
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int, *,
+            device=None) -> torch.Tensor:
+    """int32 draws in [minval, maxval) (``jax.random.randint``), from two
+    32-bit words per element folded modulo the span in uint32 arithmetic."""
+    device = resolve_device(device)
+    lo, hi = int(minval), int(maxval)
+    if not (-(1 << 31) <= lo < (1 << 31) and -(1 << 31) <= hi < (1 << 31)):
+        raise ValueError("randint bounds must fit in int32")
+    span = (hi - lo) & M32 if hi > lo else 1
+    mult = ((1 << 16) % span) ** 2 % span
+    k_hi, k_lo = split(key)
+    shape = _shape(shape)
+    size = math.prod(shape)
+    out = torch.empty(size, dtype=torch.int32, device=device)
+    for start in range(0, size, CHUNK):
+        count = min(CHUNK, size - start)
+        hb = _bits(k_hi, start, count, device)
+        lb = _bits(k_lo, start, count, device)
+        off = ((((hb % span) * mult) & M32) + lb % span) & M32
+        out[start:start + count] = (off % span + lo).to(torch.int32)
+    return out.reshape(shape)
+
+
+# XLA's float32 erfinv (Giles' single-precision approximation).
+_ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a*b + c with one rounding (the product is exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 erfinv by XLA's polynomial, +-inf at +-1."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    t = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(np.float32(_ERFINV_W_LT5[i]), device=x.device),
+                           torch.tensor(np.float32(_ERFINV_W_GE5[i]), device=x.device))
+    p = coef(0)
+    for i in range(1, len(_ERFINV_W_LT5)):
+        p = _fma(p, t, coef(i))
+    return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape: Shape = (), *,
+           device=None) -> torch.Tensor:
+    """float32 standard normal draws (``jax.random.normal``), within
+    NORMAL_RTOL / NORMAL_ATOL of jax's."""
+    device = resolve_device(device)
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0, device=device)
+    return torch.tensor(np.float32(np.sqrt(2.0)), device=device) * erfinv(u)

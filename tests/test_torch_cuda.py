@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU and the CUDA toolkit, and skips
+without them.  On the card:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+The file imports neither jax nor the JAX package, so it runs where only
+the port is installed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+# fp32 sums in another order than the plain version's: relative to the
+# output's largest entry.
+REL_TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _inputs(device, k, n, d, b, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randint(0, b, (k, n), generator=g, dtype=torch.int32)
+    sigma = torch.randint(0, 2, (k, n), generator=g).float() * 2 - 1
+    a = torch.randn(n, d, generator=g)
+    return h.to(device), sigma.to(device), a.to(device)
+
+
+SHAPES = [(6, 301, 37, 32), (5, 1000, 129, 64), (7, 2048, 260, 256),
+          (3, 50, 1, 16)]
+
+
+@pytest.mark.parametrize("k,n,d,b", SHAPES)
+def test_count_sketch_apply(cuda, k, n, d, b):
+    h, sigma, a = _inputs(cuda, k, n, d, b)
+    got = ops.count_sketch_apply(h, sigma, a, b)
+    assert _rel_err(got, ref.count_sketch_apply(h, sigma, a, b)) < REL_TOL
+
+
+@pytest.mark.parametrize("k,n,d,b", SHAPES)
+@pytest.mark.parametrize("mask", ["all", "some", "none", "one"])
+def test_grams(cuda, k, n, d, b, mask):
+    h, sigma, a = _inputs(cuda, k, n, d, b, seed=k + d)
+    m = {"all": torch.ones(k, dtype=torch.bool),
+         "some": torch.arange(k) % 2 == 0,
+         "none": torch.zeros(k, dtype=torch.bool),
+         "one": torch.arange(k) == k - 1}[mask].to(cuda)
+    a_t = ref.count_sketch_apply(h, sigma, a, b)
+    want = ref.oversketch_gram(a_t, m)
+    for got in (ops.oversketch_gram(a_t, m),
+                ops.sketch_gram_count(h, sigma, a, b, m)):
+        if mask == "none":
+            assert not got.any()
+        else:
+            assert _rel_err(got, want) < REL_TOL
+            torch.testing.assert_close(got, got.T, rtol=0, atol=0)
+
+
+def test_fused_kernel_walks_several_chunks(cuda, monkeypatch):
+    from repro_torch.kernels import sketch_gram
+    monkeypatch.setattr(sketch_gram, "CHUNK_BYTES", 1)   # one CTA group each
+    h, sigma, a = _inputs(cuda, 40, 700, 90, 64)
+    m = (torch.arange(40) % 3 != 0).to(cuda)
+    got = ops.sketch_gram_count(h, sigma, a, 64, m)
+    want = ref.sketch_gram_count(h, sigma, a, 64, m)
+    assert sketch_gram.chunk_blocks(40, 64, 90) < 40
+    assert _rel_err(got, want) < REL_TOL
+
+
+def test_launches_are_counted(cuda):
+    ops.reset_launch_counts()
+    h, sigma, a = _inputs(cuda, 4, 100, 20, 32)
+    m = torch.ones(4, dtype=torch.bool, device=cuda)
+    ops.sketch_gram_count(h, sigma, a, 32, m)
+    ops.sketch_gram_count(h, sigma, a, 32, m)
+    ops.count_sketch_apply(h, sigma, a, 32)
+    assert ops.launch_counts() == {"sketch_gram_count": 2,
+                                   "count_sketch_apply": 1,
+                                   "oversketch_gram": 0}
+
+
+def test_newton_on_the_card_matches_the_plain_path(cuda):
+    from repro_torch import prng
+    from repro_torch.core import (LogisticRegression, NewtonConfig,
+                                  OverSketchConfig, oversketched_newton)
+    from repro_torch.data import make_logistic_dataset
+    data = make_logistic_dataset(prng.PRNGKey(0), 1000, 20, 200,
+                                 device="cpu")
+    cfg = dict(iters=4, sketch=OverSketchConfig(512, 64, 0.25),
+               coded_block_rows=128, track_test_error=True)
+    card = oversketched_newton(LogisticRegression(lam=1e-4), data,
+                               np.zeros(20, np.float32),
+                               NewtonConfig(use_kernels=True, **cfg))
+    plain = oversketched_newton(LogisticRegression(lam=1e-4), data,
+                                np.zeros(20, np.float32),
+                                NewtonConfig(use_kernels=False, **cfg),
+                                device="cpu")
+    assert card.w.is_cuda
+    assert card.history["step"] == plain.history["step"]
+    np.testing.assert_allclose(card.history["fval"], plain.history["fval"],
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(card.w.cpu().numpy(), plain.w.numpy(),
+                               rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(card.history["time"], plain.history["time"],
+                               rtol=1e-12)

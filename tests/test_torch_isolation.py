@@ -1,0 +1,87 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+its entry points refuse to run without a device when no GPU is present."""
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _modules():
+    import repro_torch
+    names = ["repro_torch"]
+    for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(m.name)
+    return names
+
+
+def test_port_imports_neither_jax_nor_repro():
+    names = _modules()
+    assert "repro_torch.core.newton" in names
+    assert "repro_torch.kernels.sketch_gram" in names
+    code = (
+        "import importlib, json, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
+        "             m.startswith('jax.') or m == 'repro' or\n"
+        "             m.startswith('repro.'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=str(SRC),
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_entry_points_raise_without_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: entry points run on it by default")
+    from repro_torch import convert, prng, resolve_device, sketching
+    from repro_torch.core import (Dataset, LogisticRegression, NewtonConfig,
+                                  OverSketchConfig, oversketched_newton,
+                                  sample_countsketch)
+    from repro_torch.data import make_logistic_dataset, profile_dataset
+    key = prng.PRNGKey(0)
+    cfg = OverSketchConfig(64, 32)
+    data = Dataset(x=torch.zeros(8, 2), y=torch.ones(8))
+    calls = [
+        resolve_device,
+        lambda: oversketched_newton(LogisticRegression(), data, np.zeros(2),
+                                    NewtonConfig(iters=1)),
+        lambda: make_logistic_dataset(key, 8, 2),
+        lambda: profile_dataset("a9a", key),
+        lambda: sample_countsketch(key, 8, cfg),
+        lambda: sketching.get("oversketch", cfg).sample(key, 8),
+        lambda: prng.uniform(key, (3,)),
+        lambda: prng.bernoulli(key, 0.5, (3,)),
+        lambda: prng.rademacher(key, (3,)),
+        lambda: prng.randint(key, (3,), 0, 4),
+        lambda: prng.normal(key, (3,)),
+        lambda: convert.vector(np.zeros(2)),
+        lambda: convert.dataset(np.zeros((8, 2)), np.ones(8)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert sample_countsketch(key, 8, cfg, device="cpu").h.device.type == "cpu"
+
+
+def test_kernel_build_needs_nvcc():
+    """Without the CUDA toolkit the kernels cannot build, and say so."""
+    import shutil
+    from repro_torch.kernels import _build
+    if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("nvcc is installed here")
+    missing = [s for s, p in ((s, _build.library_path(s))
+                              for s in _build.SOURCES) if not p.exists()]
+    if not missing:
+        pytest.skip("the kernels are already built")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(missing[:1])
