@@ -10,17 +10,27 @@ with its seconds:
   build    nvcc builds every kernel of src/repro_torch/kernels/csrc
   data     the paper's synthetic profile at full width on the card
            (n = 300,000, d = 3,000, 100,000 test rows)
-  kernels  each CUDA kernel against its plain PyTorch version at the main
-           path's own inputs (A = hess_sqrt(w0), the first iteration's
-           sketch, 30 of 150 blocks masked), plus a ragged and an
-           all-masked case; times of kernel, plain version and a one-call
-           PyTorch yardstick, and the bound the card's peaks give
-  newton   oversketched_newton at full width with the kernels, 3 iterations;
-           launch counts read just before and after
+  kernels  each CUDA kernel against its plain PyTorch version at its
+           path's own inputs (A = hess_sqrt(w0) and the first iteration's
+           draw of the path's sketch family: b = 256 and 30 of 150 blocks
+           masked for the blocks paths, b = 4,096 and K = 10 for
+           distributed-avg, whose SJLT apply is the count-sketch kernel with
+           s = 4 layers, one signed, padded (2^19, 3,000) block for the
+           FWHT), plus small cases (ragged, all masked, a non-power-of-two
+           n, b = 4,096, the one-pass FWHT); times of kernel, plain version
+           and a PyTorch yardstick, and the bound the card's peaks give
+  newton   oversketched_newton at full width with the kernels, 3 iterations
+           (the oversketch family); launch counts read just before and after
   profile  the same call with 2 iterations under torch.profiler: device
            time by operator and the device's idle share
-  check    the same loop at the verify recipe's size on the card against
-           the plain path on the CPU
+  families the same loop with the sjlt and the srht family, 2 iterations
+           each, launch counts read around each run
+  distavg  sketch_mode="distributed-avg" with debias, b = 4,096 > d, for the
+           oversketch, sjlt and srht families, 2 iterations each
+  check    the loop at the verify recipe's size on the card against the
+           plain path on the CPU: every family in blocks mode, and
+           distributed-avg (b = 64 > d = 20), with the card runs' launch
+           counts (the one-pass FWHT runs there, at n_pad = 1,024)
 
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises: the script then
@@ -45,7 +55,16 @@ FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 REL_TOL = 1e-4          # kernel vs plain, relative to max |plain|
 ITERS = 3
+PATH_ITERS = 2          # iterations of each further path
 SEED = 0
+DISTAVG_BLOCK = 4096    # b > d = 3,000, as distributed-avg requires
+# Kernels that no ported path launches, and why; every other kernel must
+# be launched by some path's run.
+OFF_PATH = {"oversketch_gram": "only the gaussian, nystrom and leverage "
+                               "families take it; they are not ported",
+            "fwht": "at full width (n_pad = 2^19) the fwht entry point "
+                    "dispatches to fwht_two_pass; its one-pass kernel runs "
+                    "where n_pad <= 4,096, as in the check phase"}
 
 
 def emit(obj: dict) -> None:
@@ -59,10 +78,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn over reps runs, after one warm-up."""
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device milliseconds of fn over reps runs, after one warm-up
+    (skipped when the code path has just run)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -79,14 +100,34 @@ def bound(ops: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def compare(name: str, got, want) -> dict:
+def timed_once(fn):
+    """(fn's result, its device milliseconds): one call, for plain versions
+    too slow to repeat; its code path has run before (warm)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def compare(name: str, got, want, zero_ok: bool = False) -> dict:
+    """Kernel output against its plain version: max abs error, relative to
+    max |plain|, and how many entries differ at all.  A plain output that
+    is all zero passes only where it must be (an all-masked case)."""
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
+    if scale == 0 and not zero_ok:
+        raise AssertionError(f"{name}: the plain version is all zero")
     rel = err / scale if scale > 0 else err
     if not math.isfinite(rel) or rel > REL_TOL:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version: max_abs_err {err}, relative {rel}")
-    return {"max_abs_err": err, "rel_err": rel}
+    return {"max_abs_err": err, "rel_err": rel, "max_abs_plain": scale,
+            "entries_differing": int((got != want).sum())}
 
 
 def sketch_matrix(h, sigma, live, b: int, n: int):
@@ -163,6 +204,207 @@ def check_kernels(ops, ref, h, sigma, a, mask, b) -> dict:
     return out
 
 
+def sjlt_matrix(h, sigma, live, b: int, n: int):
+    """The live blocks' SJLT sketches as one sparse (live*b, n) matrix, s
+    entries of +-1/sqrt(s) per column and block (repeats summed)."""
+    import torch
+    hl, sl = h[live].long(), sigma[live]
+    kl, s, _ = hl.shape
+    rows = (torch.arange(kl, device=h.device)[:, None, None] * b
+            + hl).reshape(-1)
+    cols = torch.arange(n, device=h.device).repeat(kl * s)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]),
+                                  sl.reshape(-1) / math.sqrt(s),
+                                  (kl * b, n), check_invariants=False)
+    return coo.coalesce().to_sparse_csr()
+
+
+def srht_encode(rows_k, sigma_k, n: int):
+    """One block's dense (n, b) SRHT encode matrix, sigma_r (-1)^popcount(
+    r & rows_c) / sqrt(b), with the parity folded out of r & rows_c."""
+    import torch
+    v = torch.arange(n, dtype=torch.int32, device=rows_k.device)[:, None] \
+        & rows_k[None, :]
+    for sh in (16, 8, 4, 2, 1):
+        v = v ^ (v >> sh)
+    sign = 1.0 - 2.0 * (v & 1).float()
+    return sign * (sigma_k[:, None] / math.sqrt(rows_k.numel()))
+
+
+def check_family_kernels(ops, ref, a, sjlt, srht, mask, b) -> dict:
+    """The fused SJLT and SRHT Grams against their plain versions at the
+    main path's inputs (A, each family's first-iteration draw, the mask)."""
+    import torch
+    n, d = a.shape
+    k = mask.numel()
+    live = mask.nonzero().squeeze(1)
+    kl = int(live.numel())
+    out = {}
+
+    h, sg = sjlt["h"], sjlt["sigma"]
+    s = h.shape[1]
+    got = ops.sketch_gram_sjlt(h, sg, a, b, mask)
+    want, plain_ms = timed_once(lambda: ref.sketch_gram_sjlt(h, sg, a, b,
+                                                             mask))
+    row = compare("sketch_gram_sjlt", got, want)
+    del got, want
+    row["ms"] = cuda_ms(lambda: ops.sketch_gram_sjlt(h, sg, a, b, mask), 3,
+                        warm=False)
+    row["plain_ms"] = plain_ms
+    s_live = sjlt_matrix(h, sg, live, b, n)
+
+    def library():
+        x = torch.sparse.mm(s_live, a)
+        return torch.mm(x.T, x)
+    row["library_ms"] = cuda_ms(library, 3)
+    row["library_call"] = "torch.sparse.mm(CSR SJLT (K_live*b, n), A) then torch.mm"
+    del s_live
+    row["bound_ms"], row["bound_by"] = bound(
+        float(kl) * (2.0 * s * n * d + b * d * (d + 1)),
+        4.0 * (n * d + 2 * kl * s * n + d * d) + k)
+    out["sketch_gram_sjlt"] = row
+
+    rows, sg = srht["rows"], srht["sigma"]
+    got = ops.sketch_gram_srht(rows, sg, a, mask)
+    want, plain_ms = timed_once(lambda: ref.sketch_gram_srht(rows, sg, a,
+                                                             mask))
+    row = compare("sketch_gram_srht", got, want)
+    del got, want
+    row["ms"] = cuda_ms(lambda: ops.sketch_gram_srht(rows, sg, a, mask), 2,
+                        warm=False)
+    row["plain_ms"] = plain_ms
+
+    def library():
+        x = torch.cat([srht_encode(rows[j], sg[j], n).T @ a
+                       for j in live.tolist()])
+        return torch.mm(x.T, x)
+    row["library_ms"] = cuda_ms(library, 1)
+    row["library_call"] = ("per live block torch.mm(dense encode^T, A), "
+                           "then torch.mm")
+    n_pad = 1 << (n - 1).bit_length()
+    n1 = 1 << (n_pad.bit_length() - 1) // 2
+    # The bound counts the fewest operations the function needs: per live
+    # block a transform of length n2 = n_pad / n1 over every n2-row chunk,
+    # then an n1-term sum for each of the b sampled rows (H_n = H_n1 (x)
+    # H_n2), and the Gram.  The kernel's own formulation, a dense (n x b)
+    # encode product, does ops_this_formulation.
+    gram_ops = float(kl) * b * d * (d + 1)
+    row["ops_this_formulation"] = float(kl) * 2.0 * n * b * d + gram_ops
+    row["ops_partial_transform"] = float(kl) * (
+        n_pad * d * math.log2(n_pad // n1) + 2.0 * b * n1 * d) + gram_ops
+    row["bound_ms"], row["bound_by"] = bound(
+        row["ops_partial_transform"],
+        4.0 * (n * d + kl * (n + b) + d * d) + k)
+    row["this_formulation_ms"] = bound(row["ops_this_formulation"], 0.0)[0]
+    out["sketch_gram_srht"] = row
+    return out
+
+
+def check_fwht(ops, ref, a, sigma_k) -> dict:
+    """The FWHT on one signed, padded (2^19, d) block, as the distributed-
+    avg SRHT path transforms it: there the fwht entry point takes the two-
+    pass kernel (row fwht_two_pass; the fwht entry is checked at that n
+    too).  Row fwht is the one-pass kernel, on the block's first 4,096
+    rows, the most one pass takes."""
+    import torch
+    n, d = a.shape
+    n_pad = 1 << (n - 1).bit_length()
+    x = a.new_zeros((1, n_pad, d))
+    torch.mul(a, sigma_k[:, None], out=x[0, :n])
+    want, plain_ms = timed_once(lambda: ref.fwht(x))
+    row = compare("fwht_two_pass", ops.fwht_two_pass(x), want)
+    row["ms"] = cuda_ms(lambda: ops.fwht_two_pass(x), 3, warm=False)
+    row["plain_ms"] = plain_ms
+    row["library_ms"] = None
+    row["library_call"] = "none: PyTorch has no Hadamard transform"
+    row["bound_ms"], row["bound_by"] = bound(
+        float(n_pad) * math.log2(n_pad) * d, 8.0 * n_pad * d)
+    row["fwht_entry_max_abs_err"] = compare("fwht at 2^19", ops.fwht(x),
+                                            want)["max_abs_err"]
+    out = {"fwht_two_pass": row}
+    del want
+    n1 = 4096
+    x1 = x[:, :n1].contiguous()
+    del x
+    w1, p1 = timed_once(lambda: ref.fwht(x1))
+    one = compare("fwht", ops.fwht(x1), w1)
+    one["ms"] = cuda_ms(lambda: ops.fwht(x1), 5, warm=False)
+    one["plain_ms"] = p1
+    one["library_ms"] = None
+    one["library_call"] = "none: PyTorch has no Hadamard transform"
+    one["bound_ms"], one["bound_by"] = bound(
+        float(n1) * math.log2(n1) * d, 8.0 * n1 * d)
+    one["shape"] = [1, n1, d]
+    out["fwht"] = one
+    return out
+
+
+def check_large_block(ops, ref, a, cs, sj, b) -> dict:
+    """count_sketch_apply and sketch_gram_count at b = 4,096 (the bucket-
+    split apply) on the distributed-avg path's first draw (K = 10), and
+    count_sketch_apply's layered form on the SJLT draw (K = 10, s = 4), as
+    the distributed-avg SJLT path applies it."""
+    import torch
+    n, d = a.shape
+    out = {}
+    h, sg = sj["h"], sj["sigma"]
+    k, s, _ = h.shape
+    want, plain_ms = timed_once(lambda: ref.sjlt_apply(h, sg, a, b))
+    row = compare("count_sketch_apply sjlt b=4096",
+                  ops.count_sketch_apply(h, sg, a, b), want)
+    del want
+    row["ms"] = cuda_ms(lambda: ops.count_sketch_apply(h, sg, a, b), 3,
+                        warm=False)
+    row["plain_ms"] = plain_ms
+    s_all = sjlt_matrix(h, sg, torch.arange(k, device=h.device), b, n)
+    row["library_ms"] = cuda_ms(lambda: torch.sparse.mm(s_all, a), 3)
+    row["library_call"] = "torch.sparse.mm(CSR SJLT (K*b, n), A)"
+    del s_all
+    row["bound_ms"], row["bound_by"] = bound(
+        2.0 * k * s * n * d, 4.0 * (n * d + 2 * k * s * n + k * b * d))
+    row["shape"] = {"K": k, "s": s, "n": n, "d": d, "b": b}
+    out["count_sketch_apply_sjlt"] = row
+
+    h, sg = cs.h, cs.sigma
+    k = h.shape[0]
+    mask = torch.ones(k, dtype=torch.bool, device=a.device)
+    mask[k // 2] = False
+    want, plain_ms = timed_once(lambda: ref.count_sketch_apply(h, sg, a, b))
+    row = compare("count_sketch_apply b=4096", ops.count_sketch_apply(
+        h, sg, a, b), want)
+    row["ms"] = cuda_ms(lambda: ops.count_sketch_apply(h, sg, a, b), 3,
+                        warm=False)
+    row["plain_ms"] = plain_ms
+    s_all = sketch_matrix(h, sg, torch.arange(k, device=h.device), b, n)
+    row["library_ms"] = cuda_ms(lambda: torch.sparse.mm(s_all, a), 3)
+    row["library_call"] = "torch.sparse.mm(CSR sketch (K*b, n), A)"
+    del s_all
+    row["bound_ms"], row["bound_by"] = bound(
+        2.0 * k * n * d, 4.0 * (n * d + 2 * k * n + k * b * d))
+    row["shape"] = {"K": k, "n": n, "d": d, "b": b}
+    out["count_sketch_apply"] = row
+    s_live = sketch_matrix(h, sg, mask.nonzero().squeeze(1), b, n)
+
+    def library():
+        x = torch.sparse.mm(s_live, a)
+        return torch.mm(x.T, x)
+    gwant, gplain_ms = timed_once(lambda: ref.oversketch_gram(want, mask))
+    del want
+    kl = k - 1
+    row = compare("sketch_gram_count b=4096",
+                  ops.sketch_gram_count(h, sg, a, b, mask), gwant)
+    row["ms"] = cuda_ms(lambda: ops.sketch_gram_count(h, sg, a, b, mask), 3,
+                        warm=False)
+    row["plain_ms"] = plain_ms + gplain_ms
+    row["library_ms"] = cuda_ms(library, 3)
+    del s_live
+    row["bound_ms"], row["bound_by"] = bound(
+        float(kl) * (2.0 * n * d + b * d * (d + 1)),
+        4.0 * (n * d + 2 * kl * n + d * d) + k)
+    out["sketch_gram_count"] = row
+    return out
+
+
 def check_small_cases(ops, ref, device) -> dict:
     """A ragged case and an all-masked case for every kernel."""
     import torch
@@ -175,6 +417,7 @@ def check_small_cases(ops, ref, device) -> dict:
     for label, mask in (("ragged", torch.arange(k) % 4 != 1),
                         ("all_masked", torch.zeros(k, dtype=torch.bool))):
         mask = mask.to(device)
+        none_live = not bool(mask.any())
         a_t = ref.count_sketch_apply(h, sigma, a, b)
         want = ref.oversketch_gram(a_t, mask)
         errs[label] = {
@@ -183,36 +426,147 @@ def check_small_cases(ops, ref, device) -> dict:
                 a_t)["max_abs_err"],
             "oversketch_gram": compare(
                 "oversketch_gram", ops.oversketch_gram(a_t, mask),
-                want)["max_abs_err"],
+                want, zero_ok=none_live)["max_abs_err"],
             "sketch_gram_count": compare(
                 "sketch_gram_count",
                 ops.sketch_gram_count(h, sigma, a, b, mask),
-                want)["max_abs_err"]}
+                want, zero_ok=none_live)["max_abs_err"]}
         if label == "all_masked" and ops.sketch_gram_count(
                 h, sigma, a, b, mask).any():
             raise AssertionError("all-masked Gram is not zero")
+        # SJLT: 4 layers, the first two colliding on a quarter of the rows.
+        hs = torch.randint(0, b, (k, 4, n), generator=g,
+                           dtype=torch.int32).to(device)
+        hs[:, 1, : n // 4] = hs[:, 0, : n // 4]
+        ss = (torch.randint(0, 2, (k, 4, n), generator=g).float() * 2
+              - 1).to(device)
+        got = ops.sketch_gram_sjlt(hs, ss, a, b, mask)
+        errs[label]["sketch_gram_sjlt"] = compare(
+            "sketch_gram_sjlt", got,
+            ref.sketch_gram_sjlt(hs, ss, a, b, mask),
+            zero_ok=none_live)["max_abs_err"]
+        # SRHT: n = 1,001 is not a power of two (n_pad = 1,024).
+        rows = torch.randint(0, 1024, (k, b), generator=g,
+                             dtype=torch.int32).to(device)
+        got_r = ops.sketch_gram_srht(rows, sigma, a, mask)
+        errs[label]["sketch_gram_srht"] = compare(
+            "sketch_gram_srht", got_r,
+            ref.sketch_gram_srht(rows, sigma, a, mask),
+            zero_ok=none_live)["max_abs_err"]
+        if label == "all_masked" and (got.any() or got_r.any()):
+            raise AssertionError("all-masked SJLT/SRHT Gram is not zero")
+    for n_f, d_f in ((1, 37), (64, 37), (1024, 37), (8192, 5)):
+        x = torch.randn(3, n_f, d_f, generator=g).to(device)
+        want = ref.fwht(x)
+        errs[f"fwht_n{n_f}"] = {
+            name: compare(name, getattr(ops, name)(x), want)["max_abs_err"]
+            for name in ("fwht", "fwht_two_pass")}
+    # b = 4,096: past one (b x 32) tile, the bucket-split apply.
+    kb, nb, db, bb = 3, 5000, 70, 4096
+    hb = torch.randint(0, bb, (kb, nb), generator=g,
+                       dtype=torch.int32).to(device)
+    sb = (torch.randint(0, 2, (kb, nb), generator=g).float() * 2 - 1).to(device)
+    ab = torch.randn(nb, db, generator=g).to(device)
+    mb = (torch.arange(kb) != 1).to(device)
+    a_t = ref.count_sketch_apply(hb, sb, ab, bb)
+    errs["b4096"] = {
+        "count_sketch_apply": compare(
+            "count_sketch_apply", ops.count_sketch_apply(hb, sb, ab, bb),
+            a_t)["max_abs_err"],
+        "sketch_gram_count": compare(
+            "sketch_gram_count", ops.sketch_gram_count(hb, sb, ab, bb, mb),
+            ref.oversketch_gram(a_t, mb))["max_abs_err"]}
+    # The layered (SJLT) apply at b = 4,096, two layers colliding.
+    hl = torch.randint(0, bb, (kb, 4, nb), generator=g,
+                       dtype=torch.int32).to(device)
+    hl[:, 1, : nb // 4] = hl[:, 0, : nb // 4]
+    sl = (torch.randint(0, 2, (kb, 4, nb), generator=g).float() * 2
+          - 1).to(device)
+    errs["b4096"]["count_sketch_apply_sjlt"] = compare(
+        "count_sketch_apply sjlt", ops.count_sketch_apply(hl, sl, ab, bb),
+        ref.sjlt_apply(hl, sl, ab, bb))["max_abs_err"]
     return errs
 
 
-def run_small_reference(core, data_mod, prng) -> dict:
-    """The verify recipe on the card (kernels) and on the CPU (plain)."""
+CHECK_CASES = {   # verify recipe: b = 64 > d = 20 for distributed-avg
+    "oversketch": {}, "sjlt": {"sketch_family": "sjlt"},
+    "srht": {"sketch_family": "srht"},
+    "distavg_oversketch": {"sketch_mode": "distributed-avg", "debias": True},
+    "distavg_sjlt": {"sketch_mode": "distributed-avg", "debias": True,
+                     "sketch_family": "sjlt"},
+    "distavg_srht": {"sketch_mode": "distributed-avg", "debias": True,
+                     "sketch_family": "srht"},
+}
+
+
+def run_small_reference(core, ops, data_mod, prng) -> dict:
+    """The verify recipe on the card (kernels) and on the CPU (plain), for
+    each case of CHECK_CASES, with the card run's launch counts."""
     import numpy as np
     data = data_mod.make_logistic_dataset(prng.PRNGKey(0), 1000, 20, 200,
                                           device="cpu")
-    kw = dict(iters=4, sketch=core.OverSketchConfig(512, 64, 0.25),
-              coded_block_rows=128, gradient_policy="coded")
-    card = core.oversketched_newton(
-        core.LogisticRegression(lam=1e-4), data, np.zeros(20, np.float32),
-        core.NewtonConfig(use_kernels=True, **kw), device="cuda")
-    plain = core.oversketched_newton(
-        core.LogisticRegression(lam=1e-4), data, np.zeros(20, np.float32),
-        core.NewtonConfig(use_kernels=False, **kw), device="cpu")
-    fc, fp = np.array(card.history["fval"]), np.array(plain.history["fval"])
-    if card.history["step"] != plain.history["step"] or not np.allclose(
-            fc, fp, rtol=1e-4, atol=1e-6):
-        raise AssertionError(f"card {fc} vs plain {fp}")
-    return {"fval_card": fc.tolist(), "fval_plain": fp.tolist(),
-            "max_rel_fval_diff": float(np.max(np.abs(fc - fp) / np.abs(fp)))}
+    out = {}
+    for label, extra in CHECK_CASES.items():
+        kw = dict(iters=4, sketch=core.OverSketchConfig(512, 64, 0.25),
+                  coded_block_rows=128, gradient_policy="coded", **extra)
+        ops.reset_launch_counts()
+        card = core.oversketched_newton(
+            core.LogisticRegression(lam=1e-4), data, np.zeros(20, np.float32),
+            core.NewtonConfig(use_kernels=True, **kw), device="cuda")
+        launches = {k: c for k, c in ops.launch_counts().items() if c}
+        plain = core.oversketched_newton(
+            core.LogisticRegression(lam=1e-4), data, np.zeros(20, np.float32),
+            core.NewtonConfig(use_kernels=False, **kw), device="cpu")
+        fc = np.array(card.history["fval"])
+        fp = np.array(plain.history["fval"])
+        if card.history["step"] != plain.history["step"] or not np.allclose(
+                fc, fp, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"{label}: card {fc} vs plain {fp}")
+        out[label] = {"fval_card": fc.tolist(), "fval_plain": fp.tolist(),
+                      "max_rel_fval_diff": float(np.max(np.abs(fc - fp)
+                                                        / np.abs(fp))),
+                      "launches": launches}
+    return out
+
+
+def run_path(core, ops, objective, data, w0, cfg, label: str,
+             expect: dict) -> dict:
+    """One full-width run of a path through the entry point, launch counts
+    set to 0 just before and read just after; checks each expected count,
+    that f decreases and that every value is finite."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    res = core.oversketched_newton(objective, data, w0, cfg,
+                                   device=w0.device)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    seconds = time.perf_counter() - t0
+    hist = res.history
+    f = [objective.value(w0, data).item()] + hist["fval"]
+    row = {"phase": label, "iters": cfg.iters, "launches": launches,
+           "f": f, "gnorm": hist["gnorm"], "step": hist["step"],
+           "sim_seconds": hist["time"], "sim_dollars": hist["cost"],
+           "wall_ms": [t * 1e3 for t in hist["wall_s"]],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "seconds": seconds}
+    keys = ["fval", "gnorm", "step", "time", "cost"]
+    if cfg.track_test_error:
+        row["test_error"] = hist["test_error"]
+        keys.append("test_error")
+    emit(row)
+    for name, count in expect.items():
+        if launches[name] != count:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times, expected {count}")
+    if not all(b_ < a_ for a_, b_ in zip(f, f[1:])):
+        raise AssertionError(f"{label}: fval does not decrease: {f}")
+    finite = all(math.isfinite(v) for k in keys for v in hist[k])
+    if not finite or not bool(torch.isfinite(res.w).all()):
+        raise AssertionError(f"{label}: non-finite values in the history")
+    return launches
 
 
 def profile_iterations(core, objective, data, w0, cfg, device,
@@ -300,88 +654,123 @@ def main() -> int:
           "label_balance": float((data.y > 0).float().mean()),
           "seconds": time.perf_counter() - t0})
 
-    # Kernel checks at the main path's own inputs: A = hess_sqrt(w0) and
-    # the first iteration's sketch draw, 30 of 150 blocks masked.
+    # Kernel checks at each path's own inputs: A = hess_sqrt(w0) and the
+    # first iteration's draw of the path's family (key kh, as the loop
+    # splits it), 30 of 150 blocks masked on the blocks paths.
     t0 = time.perf_counter()
     objective = core.LogisticRegression()
     w0 = torch.zeros(d, device=dev)
     a = objective.hess_sqrt(w0, data)
     _, _, kh, _ = prng.split(prng.PRNGKey(SEED), 4)
-    state = sketching.get("oversketch", scfg).sample(prng.fold_in(kh, 7), n,
-                                                     device=dev)
+    draw = prng.fold_in(kh, 7)
+    state = sketching.get("oversketch", scfg).sample(draw, n, device=dev)
     drop = np.random.default_rng(SEED).choice(scfg.total_blocks, 30,
                                               replace=False)
     mask = torch.ones(scfg.total_blocks, dtype=torch.bool)
     mask[torch.from_numpy(drop)] = False
     mask = mask.to(dev)
+    dcfg = core.OverSketchConfig(8 * DISTAVG_BLOCK, DISTAVG_BLOCK, 0.25)
     ops.reset_launch_counts()
     rows = check_kernels(ops, ref, state.h, state.sigma, a, mask, b)
+    del state
+    rows.update(check_family_kernels(
+        ops, ref, a, sketching.get("sjlt", scfg).sample(draw, n, device=dev),
+        sketching.get("srht", scfg).sample(draw, n, device=dev), mask, b))
+    srht_d = sketching.get("srht", dcfg).sample(draw, n, device=dev)
+    rows.update(check_fwht(ops, ref, a, srht_d["sigma"][0]))
+    del srht_d
+    large = check_large_block(
+        ops, ref, a, sketching.get("oversketch", dcfg).sample(draw, n,
+                                                              device=dev),
+        sketching.get("sjlt", dcfg).sample(draw, n, device=dev),
+        DISTAVG_BLOCK)
     small = check_small_cases(ops, ref, dev)
-    del a, state
+    del a
+    torch.cuda.empty_cache()
     emit({"phase": "kernels", "shapes": {"K": scfg.total_blocks, "n": n,
-                                         "d": d, "b": b, "masked": 30},
-          "rows": rows, "small_cases_max_abs_err": small,
+                                         "d": d, "b": b, "masked": 30,
+                                         "sjlt_s": 4, "distavg_K":
+                                         dcfg.total_blocks, "distavg_b":
+                                         DISTAVG_BLOCK},
+          "rows": rows, "b4096": large, "small_cases_max_abs_err": small,
           "tolerance_rel": REL_TOL, "seconds": time.perf_counter() - t0})
 
     # The main path: counts set to 0 just before, read just after.
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     cfg = core.NewtonConfig(iters=ITERS, sketch=scfg, gradient_policy="coded",
                             use_kernels=True, track_test_error=True,
                             seed=SEED)
-    ops.reset_launch_counts()
-    res = core.oversketched_newton(objective, data, w0, cfg, device=dev)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    seconds = time.perf_counter() - t0
-    hist = res.history
-    for i in range(ITERS):
-        emit({"phase": "newton_iter", "iter": hist["iter"][i],
-              "fval": hist["fval"][i], "gnorm": hist["gnorm"][i],
-              "step": hist["step"][i], "sim_seconds": hist["time"][i],
-              "sim_dollars": hist["cost"][i],
-              "test_error": hist["test_error"][i],
-              "wall_ms": hist["wall_s"][i] * 1e3})
-    f = [objective.value(w0, data).item()] + hist["fval"]
-    finite = all(math.isfinite(v) for k in ("fval", "gnorm", "step", "time",
-                                            "cost", "test_error")
-                 for v in hist[k]) and bool(torch.isfinite(res.w).all())
-    emit({"phase": "newton", "iters": ITERS, "launches": launches,
-          "f0": f[0], "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "seconds": seconds})
-    if launches["sketch_gram_count"] != ITERS:
-        raise AssertionError(f"sketch_gram_count launched "
-                             f"{launches['sketch_gram_count']} times in "
-                             f"{ITERS} iterations")
-    if not all(b_ < a_ for a_, b_ in zip(f, f[1:])):
-        raise AssertionError(f"fval does not decrease: {f}")
-    if not finite:
-        raise AssertionError("non-finite values in the Newton history")
-    del res
+    paths = {"newton": run_path(core, ops, objective, data, w0, cfg,
+                                "newton", {"sketch_gram_count": ITERS})}
 
     # Where the time goes: the main path once more under torch.profiler
     # (its launches come after the counts were read).
     t0 = time.perf_counter()
     prof = profile_iterations(core, objective, data, w0, cfg, dev)
     emit({"phase": "profile", **prof, "seconds": time.perf_counter() - t0})
+
+    # The other sketch families and distributed-avg, each driven and
+    # counted on its own.
+    base = dict(iters=PATH_ITERS, gradient_policy="coded", use_kernels=True,
+                seed=SEED)
+    for fam in ("sjlt", "srht"):
+        paths[f"families_{fam}"] = run_path(
+            core, ops, objective, data, w0,
+            core.NewtonConfig(sketch=scfg, sketch_family=fam, **base),
+            f"families_{fam}", {f"sketch_gram_{fam}": PATH_ITERS})
+    k_d = dcfg.total_blocks
+    for fam, expect in (("oversketch", {"count_sketch_apply": PATH_ITERS}),
+                        ("sjlt", {"count_sketch_apply": PATH_ITERS}),
+                        ("srht", {"fwht": 0,
+                                  "fwht_two_pass": k_d * PATH_ITERS})):
+        paths[f"distavg_{fam}"] = run_path(
+            core, ops, objective, data, w0,
+            core.NewtonConfig(sketch=dcfg, sketch_family=fam,
+                              sketch_mode="distributed-avg", debias=True,
+                              **base),
+            f"distavg_{fam}", expect)
     del data
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    check = run_small_reference(core, data_mod, prng)
-    emit({"phase": "check", **check, "seconds": time.perf_counter() - t0})
+    check = run_small_reference(core, ops, data_mod, prng)
+    emit({"phase": "check", "cases": check,
+          "seconds": time.perf_counter() - t0})
+    # n_pad = 1,024 there: the fwht entry takes its one-pass kernel.
+    if check["distavg_srht"]["launches"].get("fwht", 0) == 0:
+        raise AssertionError("the one-pass fwht was not launched on the "
+                             "check phase's distributed-avg srht run")
 
+    # Each kernel's numbers at the shape its full-width path launches it:
+    # count_sketch_apply at b = 4,096 (distributed-avg), with its other
+    # shapes beside; fwht's one-pass kernel at its largest n, 4,096.
+    rows["count_sketch_apply"], other = large["count_sketch_apply"], {
+        "distavg_sjlt (layered, s = 4)": large["count_sketch_apply_sjlt"],
+        "b256_K150 (no path)": rows["count_sketch_apply"]}
     summary = []
     for name, kern in ops.KERNELS.items():
         r = rows[name]
-        summary.append({
+        by_path = {p: c[name] for p, c in paths.items() if c[name]}
+        launches = sum(by_path.values())
+        if launches == 0 and name not in OFF_PATH:
+            raise AssertionError(f"{name} was launched on no path")
+        entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kern.source}",
-            "replaces": kern.replaces, "launches": launches[name],
-            "on_main_path": launches[name] > 0,
+            "replaces": kern.replaces, "launches": launches,
+            "launches_by_path": by_path, "on_path": launches > 0,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "launches_check_phase": sum(c["launches"].get(name, 0)
+                                        for c in check.values())}
+        if name in OFF_PATH:
+            entry["off_path"] = OFF_PATH[name]
+        if name == "count_sketch_apply":
+            entry["other_shapes"] = {
+                k: {f: v[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
+                for k, v in other.items()}
+        summary.append(entry)
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -61,7 +61,8 @@ def main() -> int:
     for rnd, order in enumerate((chunks, chunks[::-1])):
         for c in order:
             sketch_gram.CHUNK_BYTES = c * 4 * b * d
-            got_chunk = sketch_gram.chunk_blocks(k, b, d)
+            got_chunk = sketch_gram.chunk_blocks(
+                k, b, d, sketch_gram.count_blocks_per_cta(b))
             if got_chunk != c:
                 raise ValueError(f"chunk {c} is not a whole number of CTA "
                                  f"groups: the kernel would take {got_chunk}")

@@ -1,25 +1,28 @@
 """OverSketched Newton (paper Alg. 3 / Alg. 4): the master loop; port of
-``repro/core/newton.py`` in ``sketch_mode="blocks"``.
+``repro/core/newton.py``.
 
 Each iteration:
 
   1. gradient  - exact and straggler-resilient through the 2-D product-coded
      matvecs of Alg. 1 (``CodedMatvecEngine``);
-  2. Hessian   - approximate and straggler-resilient through the OverSketch
-     count-sketch blocks of Alg. 2 (``_hessian_phase``); with
-     ``use_kernels`` on a CUDA device it runs the fused sketch -> Gram
-     kernel;
-  3. direction - Cholesky/CG or pinv/MINRES (``_solve_direction``);
+  2. Hessian   - approximate and straggler-resilient through the blocks of
+     a sketch family (Alg. 2, ``_hessian_phase``); with ``use_kernels`` on
+     a CUDA device it runs the family's fused sketch -> Gram kernel;
+  3. direction - Cholesky/CG or pinv/MINRES (``_solve_direction``),
+     optionally Marchenko-Pastur debiased (``debias``).  With
+     ``sketch_mode="distributed-avg"`` steps 2-3 are instead one solve per
+     surviving sketch block and the average of the (debiased) directions
+     (``_distavg_direction_phase``, Bartan-Pilanci 2020);
   4. step size - the Armijo (Eq. 5) or gradient-norm (Eq. 6) line search.
 
 Every phase is timed and billed by the simulated fleet (``SimClock``), on
-the host.  The tensors live on the entry point's device: CUDA unless the
-caller passes ``device="cpu"``.
+the host.  When a phase exhausts its retry budget (``fail_open=False``)
+the loop degrades as the reference does unless ``fault_fallback="raise"``.
+The tensors live on the entry point's device: CUDA unless the caller
+passes ``device="cpu"``.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``sketch_mode="distributed-avg"``, ``debias``,
-``adaptive_sketch`` and the degraded paths after a fleet phase exhausts
-its retry budget (ROADMAP Queue 1 item 7).
+ignored: ``adaptive_sketch`` (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -36,19 +39,6 @@ from repro_torch.core import coded, linesearch, solvers, straggler
 from repro_torch.core.objectives import Dataset
 from repro_torch.core.sketch import OverSketchConfig
 from repro_torch.runtime.faults import PhaseExhaustedError
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 7)")
-
-
-def _exhausted(e: PhaseExhaustedError, where: str) -> NotImplementedError:
-    """The reference degrades here after an exhausted phase; the port
-    refuses."""
-    err = _not_ported(f"the degraded {where} after an exhausted fleet phase")
-    err.__cause__ = e
-    return err
 
 
 def _decodable(erased_grid: np.ndarray) -> bool:
@@ -193,7 +183,10 @@ class CodedMatvecEngine:
                                    working_set_gb=ws,
                                    phase_name=name or tag)[1]
             except PhaseExhaustedError as e:
-                raise _exhausted(e, "coded matvec") from e
+                # The retry budget ran out mid-phase (attempts billed,
+                # clock advanced): degrade to whatever arrived; the coded
+                # path treats the dead workers as erasures.
+                return torch.from_numpy(e.mask)
 
         if self.model is not None and tag in self._encode_pending:
             # One-time product-code encode of this operand, billed on first
@@ -211,8 +204,10 @@ class CodedMatvecEngine:
                                                    * enc.shape[-1]),
                             comm_units=1.0, not_before=nb, memory_gb=mem,
                             working_set_gb=ws, phase_name=f"encode:{tag}")
-            except PhaseExhaustedError as e:
-                raise _exhausted(e, "encode") from e
+            except PhaseExhaustedError:
+                # Attempts billed, budget gone: the master re-runs the
+                # cheap parity sums locally; only the round is lost.
+                pass
             enc_floor = clock.time
         erased = None
         if self.model is not None and policy == "coded":
@@ -245,8 +240,10 @@ class CodedMatvecEngine:
                     clock.phase(kf, w, policy="wait_all", comm_units=1.0,
                                 memory_gb=mem, working_set_gb=ws,
                                 phase_name=(name or tag) + "/retry")
-            except PhaseExhaustedError as e:
-                raise _exhausted(e, "coded matvec relaunch") from e
+            except PhaseExhaustedError:
+                # The relaunch round exhausted too: its attempts are
+                # billed, and the master already recomputed y above.
+                pass
         return y
 
 
@@ -271,9 +268,12 @@ def _hessian_phase(objective, data: Dataset, w: torch.Tensor,
                    cfg: NewtonConfig, key: torch.Tensor,
                    clock: Optional[straggler.SimClock],
                    dag: Optional[scheduler.DagRun] = None,
-                   tag: str = "hessian") -> Tuple[torch.Tensor, Optional[float]]:
+                   tag: str = "hessian"
+                   ) -> Tuple[Optional[torch.Tensor], Optional[float]]:
     """Returns (H_hat including hess_reg * I, surviving sketch rows m_eff;
-    None on the exact path).
+    None on the exact path).  ``(None, None)`` means the sketch round (and
+    its one re-dispatch) exhausted its retry budget with fewer than
+    ``survivor_floor`` of the blocks: the caller takes a gradient step.
 
     A sketched Hessian invokes (N+e) block workers, each output tile
     waiting for any N of them (Alg. 2); the exact one ceil(n/b) (d/b)^2
@@ -285,21 +285,19 @@ def _hessian_phase(objective, data: Dataset, w: torch.Tensor,
     b = max(cfg.sketch.block_size, 1)
     d_blocks = max(1, -(-d // b))
 
-    def run(workers, policy, k=None, flops=0.0, comm=0.0, mem=None, ws=None):
-        try:
-            if dag is not None:
-                return dag.dispatch(scheduler.PhaseSpec(
-                    name=tag, workers=workers, policy=policy, k=k,
-                    flops_per_worker=flops, comm_units=comm, memory_gb=mem,
-                    working_set_gb=ws), key=key).mask
-            return clock.phase(key, workers, policy=policy, k=k,
-                               flops_per_worker=flops, comm_units=comm,
-                               memory_gb=mem, working_set_gb=ws,
-                               phase_name=tag)[1]
-        except PhaseExhaustedError as e:
-            if cfg.fault_fallback == "raise":
-                raise
-            raise _exhausted(e, "Hessian round") from e
+    def run(workers, policy, k=None, flops=0.0, comm=0.0, mem=None, ws=None,
+            name=None, rkey=None, min_start=None):
+        name = tag if name is None else name
+        rkey = key if rkey is None else rkey
+        if dag is not None:
+            return dag.dispatch(scheduler.PhaseSpec(
+                name=name, workers=workers, policy=policy, k=k,
+                flops_per_worker=flops, comm_units=comm, memory_gb=mem,
+                working_set_gb=ws), key=rkey, min_start=min_start).mask
+        return clock.phase(rkey, workers, policy=policy, k=k,
+                           flops_per_worker=flops, comm_units=comm,
+                           memory_gb=mem, working_set_gb=ws,
+                           phase_name=name)[1]
 
     eye = torch.eye(d, dtype=a.dtype, device=a.device)
     if cfg.hessian_policy == "oversketch":
@@ -312,11 +310,34 @@ def _hessian_phase(objective, data: Dataset, w: torch.Tensor,
             total_workers = scfg.total_blocks * d_blocks * d_blocks
             mem_bytes = scheduler.sketch_worker_bytes(scfg.block_size,
                                                       min(d, b))
-            survivors = run(scfg.total_blocks, "k_of_n", k=scfg.num_blocks,
-                            flops=fam.block_flops(n_rows, d),
-                            comm=fam.comm_units(d) * total_workers,
-                            mem=_phase_mem(cfg.phase_memory, mem_bytes),
-                            ws=_ws_gb(mem_bytes))
+            kw = dict(k=scfg.num_blocks, flops=fam.block_flops(n_rows, d),
+                      comm=fam.comm_units(d) * total_workers,
+                      mem=_phase_mem(cfg.phase_memory, mem_bytes),
+                      ws=_ws_gb(mem_bytes))
+            try:
+                survivors = run(scfg.total_blocks, "k_of_n", **kw)
+            except PhaseExhaustedError as e:
+                if cfg.fault_fallback == "raise":
+                    raise
+                # Every block is unbiased on its own, so any survivor
+                # subset is a thinner unbiased sketch: accept it when at
+                # least survivor_floor of num_blocks landed.  Below the
+                # floor re-dispatch the round once on fresh capacity; if
+                # that exhausts too, the caller takes a gradient step.
+                floor = max(1, math.ceil(cfg.survivor_floor
+                                         * scfg.num_blocks))
+                if int(e.mask.sum()) >= floor:
+                    survivors = torch.from_numpy(e.mask)
+                else:
+                    try:
+                        survivors = run(scfg.total_blocks, "k_of_n",
+                                        name=tag + "/retry",
+                                        rkey=prng.fold_in(key, 13),
+                                        min_start=float(clock.time), **kw)
+                    except PhaseExhaustedError as e2:
+                        if int(e2.mask.sum()) < floor:
+                            return None, None
+                        survivors = torch.from_numpy(e2.mask)
         state = fam.sample(prng.fold_in(key, 7), n_rows, device=a.device)
         h_hat = fam.gram(state, a, survivors.to(a.device),
                          use_kernels=cfg.use_kernels)
@@ -328,13 +349,120 @@ def _hessian_phase(objective, data: Dataset, w: torch.Tensor,
         policy = ("speculative" if cfg.hessian_policy == "exact_speculative"
                   else "wait_all")
         mem_bytes = scheduler.sketch_worker_bytes(b, min(d, b))
-        run(workers, policy, flops=2.0 * b * min(d, b) ** 2,
-            comm=0.05 * workers, mem=_phase_mem(cfg.phase_memory, mem_bytes),
-            ws=_ws_gb(mem_bytes))
+        try:
+            run(workers, policy, flops=2.0 * b * min(d, b) ** 2,
+                comm=0.05 * workers,
+                mem=_phase_mem(cfg.phase_memory, mem_bytes),
+                ws=_ws_gb(mem_bytes))
+        except PhaseExhaustedError:
+            if cfg.fault_fallback == "raise":
+                raise
+            # The exact product is deterministic: the master's local
+            # recompute stands in for the lost round.
     return a.T @ a + objective.hess_reg * eye, None
 
 
-def _check_config(cfg: NewtonConfig) -> None:
+def _distavg_direction(objective, fam, a: torch.Tensor, g: torch.Tensor,
+                       state, survivors: torch.Tensor,
+                       cfg: NewtonConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every surviving block-worker solves its own sketched system; the
+    master averages the (debiased, factor 1 - d/b) directions.  Also
+    returns the masked average of H_k g for the weakly convex search."""
+    d = a.shape[1]
+    a_t = fam.apply(state, a, use_kernels=cfg.use_kernels)      # (K, b, d)
+    eye = torch.eye(d, dtype=a_t.dtype, device=a_t.device)
+    grams = a_t.transpose(1, 2) @ a_t + objective.hess_reg * eye
+    if cfg.distavg_solver == "cg":
+        p_k = -torch.stack([
+            solvers.conjugate_gradient(lambda v, hk=hk: hk @ v, g,
+                                       torch.zeros_like(g), cfg.cg_iters)
+            for hk in grams])
+    else:
+        p_k = -solvers.psd_solve(grams, g)
+    if cfg.debias:
+        p_k = sketching.debias_direction(p_k, d, fam.cfg.block_size)
+    m = survivors.to(device=a_t.device, dtype=a_t.dtype)
+    n_avail = m.sum().clamp_min(1.0)
+    p = m @ p_k / n_avail
+    hg = torch.einsum("k,kde,e->d", m, grams, g) / n_avail
+    return p, hg
+
+
+def _distavg_direction_phase(objective, data: Dataset, w: torch.Tensor,
+                             g: torch.Tensor, cfg: NewtonConfig,
+                             key: torch.Tensor,
+                             clock: Optional[straggler.SimClock],
+                             dag: Optional[scheduler.DagRun] = None,
+                             grad_dep: Optional[str] = None,
+                             tag: str = "distavg"
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sketch_mode="distributed-avg": one worker per sketch block, each
+    paying its apply, d x d Gram and local solve; the master only receives
+    d-vectors.  Returns (direction, averaged H_k g).
+
+    With ``dag`` the round splits at its data dependency: the sketch phase
+    (apply + per-block Gram, a function of w only) launches with the
+    gradient round, and the solve phase (needs g) runs after both.  The
+    survivor mask comes from the sketch phase, under the same key as the
+    sequential combined phase."""
+    a = objective.hess_sqrt(w, data)
+    n_rows, d = a.shape
+    scfg = cfg.sketch
+    fam = sketching.get(cfg.sketch_family, scfg)
+    survivors = torch.ones(scfg.total_blocks, dtype=torch.bool)
+    if clock is not None:
+        # No coded matmul to amortize into here, so a family that reports
+        # apply_flops = 0 (oversketch) still pays one pass over A.
+        apply_flops = fam.apply_flops(n_rows, d) or 2.0 * n_rows * d
+        gram_flops = 2.0 * scfg.block_size * d * d
+        solve_flops = (d ** 3 / 3.0 if cfg.distavg_solver == "chol"
+                       else 2.0 * cfg.cg_iters * d * d)
+        mem_bytes = scheduler.distavg_worker_bytes(scfg.block_size, d)
+        mem = _phase_mem(cfg.phase_memory, mem_bytes)
+        ws = _ws_gb(mem_bytes)
+        try:
+            if dag is not None:
+                sk = dag.dispatch(scheduler.PhaseSpec(
+                    name=f"{tag}-sketch", workers=scfg.total_blocks,
+                    policy="k_of_n", k=scfg.num_blocks,
+                    flops_per_worker=apply_flops + gram_flops,
+                    comm_units=0.01 * scfg.total_blocks, memory_gb=mem,
+                    working_set_gb=ws), key=key)
+                survivors = sk.mask
+                # An exhausted gradient phase never registered with the
+                # DAG: keep only edges to phases that exist, and let the
+                # barrier at the current clock stand in for the missing one.
+                want = (f"{tag}-sketch",) + \
+                    ((grad_dep,) if grad_dep is not None else ())
+                deps = tuple(dd for dd in want if dd in dag.results)
+                dag.dispatch(scheduler.PhaseSpec(
+                    name=f"{tag}-solve", workers=scfg.num_blocks,
+                    policy="wait_all", flops_per_worker=solve_flops,
+                    comm_units=0.01 * scfg.num_blocks, memory_gb=mem,
+                    working_set_gb=ws, deps=deps),
+                    key=prng.fold_in(key, 11),
+                    sequential=len(deps) < len(want))
+            else:
+                survivors = clock.phase(
+                    key, scfg.total_blocks, policy="k_of_n",
+                    k=scfg.num_blocks,
+                    flops_per_worker=apply_flops + gram_flops + solve_flops,
+                    comm_units=0.01 * scfg.total_blocks, memory_gb=mem,
+                    working_set_gb=ws, phase_name=tag)[1]
+        except PhaseExhaustedError as e:
+            if cfg.fault_fallback == "raise":
+                raise
+            # The finite finishers stand in for the k-of-n survivors (each
+            # block's direction is unbiased on its own); the caller's
+            # descent guard backstops a round with no survivor.
+            if e.mask.shape == (scfg.total_blocks,):
+                survivors = torch.from_numpy(e.mask)
+    state = fam.sample(prng.fold_in(key, 7), n_rows, device=a.device)
+    return _distavg_direction(objective, fam, a, g, state, survivors, cfg)
+
+
+def _check_config(cfg: NewtonConfig, d: int) -> None:
+    """Refuse what the reference refuses (d: the Hessian's dimension)."""
     if cfg.sketch_mode not in ("blocks", "distributed-avg"):
         raise ValueError(f"unknown sketch_mode {cfg.sketch_mode!r}")
     if cfg.distavg_solver not in ("chol", "cg"):
@@ -350,12 +478,19 @@ def _check_config(cfg: NewtonConfig) -> None:
     if not 0.0 < cfg.survivor_floor <= 1.0:
         raise ValueError(
             f"survivor_floor must be in (0, 1], got {cfg.survivor_floor}")
-    if cfg.sketch_mode == "distributed-avg":
-        raise _not_ported("sketch_mode='distributed-avg'")
-    if cfg.debias:
-        raise _not_ported("debias=True")
     if cfg.adaptive_sketch:
-        raise _not_ported("adaptive_sketch=True")
+        raise NotImplementedError(
+            "adaptive_sketch=True is not ported yet (ROADMAP Queue 1 item 7)")
+    if cfg.sketch_mode == "distributed-avg":
+        if cfg.hessian_policy != "oversketch":
+            raise ValueError(
+                "sketch_mode='distributed-avg' requires "
+                f"hessian_policy='oversketch', got {cfg.hessian_policy!r}")
+        if cfg.sketch.block_size <= d:
+            raise ValueError(
+                "distributed-avg needs block_size > Hessian dim for the "
+                f"per-worker solves to be well-posed: block_size="
+                f"{cfg.sketch.block_size} <= d={d}")
     sketching.get(cfg.sketch_family, cfg.sketch)   # fail fast on bad family
 
 
@@ -372,7 +507,7 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
     clock).  Runs on CUDA unless ``device`` says otherwise; the dataset and
     ``w0`` are moved there."""
     device = resolve_device(device)
-    _check_config(cfg)
+    _check_config(cfg, torch.as_tensor(w0).numel())
     data = Dataset(*(None if t is None else t.to(device) for t in data))
     key = prng.PRNGKey(cfg.seed)
     if isinstance(model, straggler.SimClock):
@@ -402,6 +537,7 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
                if cfg.schedule == "dag" and clock is not None else None)
 
         # --- 1. gradient (straggler-resilient coded matvecs, Alg. 1) ------
+        grad_tail = None
         if not coded_gradient:
             g = objective.gradient(w, data)
         else:
@@ -420,11 +556,28 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
                 return y
 
             g = objective.gradient_via(w, data, mv)
+            if dag is not None:
+                grad_tail = dag.last
 
         # --- 2+3. sketched Hessian (Alg. 2) and direction -----------------
-        h_hat, _ = _hessian_phase(objective, data, w, cfg, kh, clock, dag=dag)
-        p = _solve_direction(objective, h_hat, g, cfg)
-        hg = None
+        if cfg.sketch_mode == "distributed-avg":
+            p, hg = _distavg_direction_phase(objective, data, w, g, cfg, kh,
+                                             clock, dag=dag,
+                                             grad_dep=grad_tail)
+        else:
+            h_hat, m_eff = _hessian_phase(objective, data, w, cfg, kh, clock,
+                                          dag=dag)
+            if h_hat is None:
+                # The sketch round and its re-dispatch lost too many
+                # blocks: a gradient step, with hg = g (H = I) keeping the
+                # weakly convex search coherent.
+                p, hg = -g, g
+                tel.metrics.counter("newton.gradient_fallbacks").inc()
+            else:
+                p = _solve_direction(objective, h_hat, g, cfg)
+                if cfg.debias and m_eff is not None:
+                    p = sketching.debias_direction(p, p.shape[0], m_eff)
+                hg = None
 
         # Descent guard: only a finite descent direction reaches the line
         # search; anything else degrades to steepest descent.
@@ -467,10 +620,11 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
                                 memory_gb=ls_mem,
                                 working_set_gb=_ws_gb(ls_bytes),
                                 phase_name="linesearch")
-            except PhaseExhaustedError as e:
+            except PhaseExhaustedError:
                 if cfg.fault_fallback == "raise":
                     raise
-                raise _exhausted(e, "line search") from e
+                # Billed and lost: the trial values are the master's own
+                # arithmetic, so the chosen step stands.
 
         w = w + step * p
 

@@ -11,11 +11,13 @@ import torch
 
 def psd_solve(h: torch.Tensor, g: torch.Tensor,
               jitter: float = 1e-9) -> torch.Tensor:
-    """Solve H p = g for symmetric PD H via Cholesky with a tiny jitter."""
-    d = h.shape[0]
+    """Solve H p = g for symmetric PD H via Cholesky with a tiny jitter;
+    a batch of systems (K, d, d) shares one g and gives (K, d)."""
+    d = h.shape[-1]
     chol = torch.linalg.cholesky(
         h + jitter * torch.eye(d, dtype=h.dtype, device=h.device))
-    return torch.cholesky_solve(g[:, None], chol)[:, 0]
+    rhs = g.expand(h.shape[:-1]).unsqueeze(-1)
+    return torch.cholesky_solve(rhs, chol).squeeze(-1)
 
 
 def psd_pinv_solve(h: torch.Tensor, g: torch.Tensor,

@@ -3,14 +3,14 @@
 [-1, 1]^d, labels from a random ground-truth logistic model.
 
 Draws come from ``repro_torch.prng``, so a key gives the reference's
-features bit for bit; the ground-truth weights come from ``normal`` and
-the column spectrum from ``logspace``, both within float32 rounding of
-the reference, so a label whose probability sits on its uniform draw can
-flip.  Large draws are made in chunks on ``device``.
+features and ground-truth weights bit for bit, and the column spectrum
+follows ``jnp.geomspace``'s float32 steps.  The labels compare a sigmoid
+of a matrix product with a uniform draw, and torch sums and rounds that
+product in another order than XLA, so a label whose probability sits on
+its draw can still flip.  Large draws are made in chunks on ``device``.
 """
 from __future__ import annotations
 
-import math
 
 import torch
 
@@ -20,8 +20,20 @@ from repro_torch.core.objectives import Dataset
 
 
 def _geomspace(start: float, stop: float, num: int, device) -> torch.Tensor:
-    return torch.logspace(math.log10(start), math.log10(stop), num,
-                          dtype=torch.float32, device=device)
+    """``jnp.geomspace`` in float32: 10 ** linspace(log10(start),
+    log10(stop)), the linspace as jax computes it, lo (1 - t) + hi t with
+    t = i * (1 / (num - 1)) (XLA turns the division by the constant into a
+    product with its float32 reciprocal), and the power rounded once from
+    float64."""
+    f32 = torch.float32
+    lo, hi = torch.log10(torch.tensor([start, stop], dtype=f32))
+    if num == 1:
+        lin = lo[None]
+    else:
+        t = torch.arange(num - 1, dtype=f32) * torch.tensor(1.0 / (num - 1),
+                                                             dtype=f32)
+        lin = torch.cat([lo * (1.0 - t) + hi * t, hi[None]])
+    return torch.pow(10.0, lin.double()).to(dtype=f32, device=device)
 
 
 def make_logistic_dataset(key: torch.Tensor, n: int, d: int,

@@ -17,13 +17,20 @@
 // blocks and every update is a shared-memory load and store, so those
 // re-reads and the warps' shared-memory round trips are the limit; a
 // distributed-shared-memory cluster that holds more blocks per read of A is
-// the way to lift it.
+// the way to lift it.  Past b ~ 1,680 one (b x 32) tile no longer fits
+// beside the staged passes; a block's buckets are then split into ranges,
+// one per warp, and the block spans a few CTAs that each re-read the strip
+// (sketch_common.cuh, cs_plan).
+//
+// With s > 1 layers per block (h and sigma (K, s, n)) the same kernel is the
+// SJLT apply: the layers add into one tile, scaled at write-out.
 #include "sketch_common.cuh"
 
 extern "C" int count_sketch_apply_launch(const int* h, const float* sigma,
                                          const float* a, float* out, int k,
-                                         int n, int d, int b, void* stream) {
-  return (int)sketch::launch_cs_apply(h, sigma, a, nullptr, out, n, d, b, 0,
-                                      k, (cudaStream_t)stream);
+                                         int s, int n, int d, int b,
+                                         float scale, void* stream) {
+  return (int)sketch::launch_cs_apply(h, sigma, a, nullptr, out, n, d, b, s,
+                                      0, k, s == 1 ? 1.f : scale,
+                                      (cudaStream_t)stream);
 }
-

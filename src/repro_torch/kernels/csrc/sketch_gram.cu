@@ -24,7 +24,7 @@
 // Sketch blocks one CTA of the apply accumulates at once; the wrapper
 // sizes each chunk as a whole number of such groups.
 extern "C" int sketch_gram_blocks_per_cta(int b) {
-  return sketch::cs_blocks_per_cta(b);
+  return sketch::cs_blocks_per_cta(b, 1);
 }
 
 extern "C" int sketch_gram_count_launch(const int* h, const float* sigma,
@@ -32,16 +32,7 @@ extern "C" int sketch_gram_count_launch(const int* h, const float* sigma,
                                         float* g, float* scratch, int k,
                                         int n, int d, int b, int chunk,
                                         void* stream) {
-  if (chunk < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  for (int k0 = 0; k0 < k; k0 += chunk) {
-    const int kc = chunk < k - k0 ? chunk : k - k0;
-    cudaError_t err = sketch::launch_cs_apply(h, sigma, a, mask, scratch, n,
-                                              d, b, k0, kc, s);
-    if (err != cudaSuccess) return (int)err;
-    err = sketch::launch_gram(scratch, mask, g, k0, kc, k, b, d, k0 > 0,
-                              k0 + kc >= k, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  return (int)sketch::launch_sketch_gram(h, sigma, a, mask, g, scratch, k, 1,
+                                         n, d, b, chunk, 1.f,
+                                         (cudaStream_t)stream);
 }

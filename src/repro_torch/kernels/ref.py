@@ -20,6 +20,17 @@ def count_sketch_apply(h: torch.Tensor, sigma: torch.Tensor, a: torch.Tensor,
     return out
 
 
+def sjlt_apply(h: torch.Tensor, sigma: torch.Tensor, a: torch.Tensor,
+               block_size: int) -> torch.Tensor:
+    """SJLT (OSNAP) apply: s signed segment-sum layers per block, summed,
+    / sqrt(s): (K, s, n) int32, (K, s, n) signs, (n, d) -> (K, b, d)."""
+    k, s, n = h.shape
+    out = count_sketch_apply(h.reshape(k * s, n), sigma.reshape(k * s, n), a,
+                             block_size)
+    out = out.reshape(k, s, block_size, a.shape[1]).sum(dim=1)
+    return out / torch.sqrt(torch.tensor(float(s), dtype=out.dtype))
+
+
 def oversketch_gram(a_tilde: torch.Tensor,
                     survivors: torch.Tensor) -> torch.Tensor:
     """H_hat = (1/max(sum m, 1)) sum_k m_k A_tilde_k^T A_tilde_k:
@@ -36,3 +47,49 @@ def sketch_gram_count(h: torch.Tensor, sigma: torch.Tensor, a: torch.Tensor,
     """Unfused apply + Gram: the fused count-sketch kernel's plain version."""
     return oversketch_gram(count_sketch_apply(h, sigma, a, block_size),
                            survivors)
+
+
+def fwht(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal Walsh-Hadamard transform along axis 1 of (K, n, d): the
+    radix-2 butterfly in natural (Sylvester) order; n a power of two."""
+    k, n, d = x.shape
+    if n & (n - 1):
+        raise ValueError(f"fwht length {n} must be a power of two")
+    y, h = x, 1
+    while h < n:
+        y = y.reshape(k, n // (2 * h), 2, h, d)
+        y = torch.stack([y[:, :, 0] + y[:, :, 1], y[:, :, 0] - y[:, :, 1]],
+                        dim=2)
+        h *= 2
+    return y.reshape(k, n, d) / torch.sqrt(torch.tensor(float(n),
+                                                        dtype=y.dtype))
+
+
+def srht_apply(rows: torch.Tensor, sigma: torch.Tensor,
+               a: torch.Tensor) -> torch.Tensor:
+    """Blocked SRHT apply, unfused: sign, zero-pad to n_pad = next power of
+    two, orthonormal FWHT, gather the b sampled rows, scale by
+    sqrt(n_pad / b).  (K, b) int32 rows in [0, n_pad), (K, n) signs,
+    (n, d) -> (K, b, d), one block at a time."""
+    n, d = a.shape
+    n_pad = 1 << max(0, (n - 1).bit_length())
+    k, b = rows.shape
+    scale = torch.sqrt(torch.tensor(n_pad / b, dtype=torch.float32))
+    out = a.new_empty((k, b, d))
+    for i in range(k):
+        x = a.new_zeros((1, n_pad, d))
+        torch.mul(a, sigma[i, :, None], out=x[0, :n])
+        out[i] = fwht(x)[0][rows[i].long()] * scale
+    return out
+
+
+def sketch_gram_sjlt(h: torch.Tensor, sigma: torch.Tensor, a: torch.Tensor,
+                     block_size: int, survivors: torch.Tensor) -> torch.Tensor:
+    """Unfused apply + Gram: the fused SJLT kernel's plain version."""
+    return oversketch_gram(sjlt_apply(h, sigma, a, block_size), survivors)
+
+
+def sketch_gram_srht(rows: torch.Tensor, sigma: torch.Tensor,
+                     a: torch.Tensor, survivors: torch.Tensor) -> torch.Tensor:
+    """Unfused apply + Gram: the fused SRHT kernel's plain version."""
+    return oversketch_gram(srht_apply(rows, sigma, a), survivors)

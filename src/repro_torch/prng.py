@@ -23,12 +23,12 @@ counter-based: ``bits[i]`` depends only on ``(key, i)``, so large
 draws are made in chunks of ``CHUNK`` elements and never hold int64
 temporaries for the whole shape.
 
-All draws except ``normal`` are bit-exact against jax.  ``normal`` is
+Every draw is bit-exact against jax on the CPU.  ``normal`` is
 ``sqrt(2) * erfinv(u)`` with XLA's float32 erfinv polynomial, its Horner
-steps fused as XLA fuses them; the ``log1p`` inside it is torch's, which
-differs from XLA's CPU ``log1p`` in the last bit on a few percent of
-inputs, so a normal draw can differ from jax's by a few float32 ulps
-(``NORMAL_RTOL`` / ``NORMAL_ATOL`` bound it).
+steps fused as XLA fuses them, and the ``log1p`` inside it is XLA's CPU
+lowering (``log1p_f32``: a Cephes rational below sqrt(2) - 1, else
+``log_f32(1 + x)``, the Cephes float32 log XLA emits), in the same
+float32 operations and multiply-add contractions.
 """
 from __future__ import annotations
 
@@ -43,10 +43,6 @@ from repro_torch import resolve_device
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 CHUNK = 1 << 24            # elements per chunk of a large draw
-
-# Bound on |normal - jax.random.normal| (see module docstring).
-NORMAL_RTOL = 1e-6
-NORMAL_ATOL = 1e-6
 
 Shape = Union[int, Sequence[int]]
 
@@ -204,16 +200,92 @@ _ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                  0.00943887047, 1.00167406, 2.83297682)
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a*b + c with one rounding (the product is exact in float64)."""
-    return (a.double() * b.double() + c.double()).float()
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 a*b + c with one rounding (the product is exact in float64);
+    scalar operands are float32 values given as Python floats."""
+    def f64(v):
+        return v.double() if isinstance(v, torch.Tensor) else float(v)
+    return (f64(a) * f64(b) + f64(c)).float()
+
+
+def _f32(bits: int) -> float:
+    """The float32 with the given bit pattern, as a Python float."""
+    return float(np.array([bits], np.uint32).view(np.float32)[0])
+
+
+# XLA's CPU float32 log (the Cephes logf polynomial on the mantissa).
+_LOG_P = tuple(_f32(b) for b in (
+    0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A, 0xBDFE5D4F, 0x3E11E9BF, 0xBE2AAE50,
+    0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA))
+_LOG_Q1, _LOG_Q2 = _f32(0xB95E8083), _f32(0x3F318000)
+_SQRT_HALF = _f32(0x3F3504F3)
+_MIN_NORMAL = _f32(0x00800000)
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural log as XLA's CPU backend computes it: x = m 2^e with
+    m in [sqrt(1/2), sqrt(2)), a degree-8 polynomial in m - 1 and the
+    exponent added in two parts; -inf at 0 and at subnormals (XLA flushes
+    them to zero), nan below."""
+    v = x.clamp_min(_MIN_NORMAL).view(torch.int32)
+    m = ((v & 0x807FFFFF) | 0x3F000000).view(torch.float32)
+    e = ((v >> 23) - 0x7F).float() + 1.0
+    low = m < _SQRT_HALF
+    e = e - low.float()
+    m = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOG_P
+    y = _fma(m, p[0], p[1])
+    y1 = _fma(m, p[3], p[4])
+    y2 = _fma(m, p[6], p[7])
+    y = _fma(y, m, p[2])
+    y1 = _fma(y1, m, p[5])
+    y2 = _fma(y2, m, p[8])
+    y = _fma(y, x3, y1)
+    y = _fma(y, x3, y2)
+    y = _fma(y, x3, _LOG_Q1 * e)
+    m = _fma(-0.5, x2, m)
+    m = _fma(_LOG_Q2, e, m + y)
+    m = torch.where(x.abs() < _MIN_NORMAL, -torch.inf, m)
+    m = torch.where(x == torch.inf, torch.inf, m)
+    return torch.where((x < 0) | x.isnan(), torch.nan, m)
+
+
+# XLA's float32 log1p below |x| < sqrt(2) - 1: x - x^2/2 + x^3 P(x)/Q(x)
+# (Cephes), each polynomial in Horner form from its leading coefficient.
+_LOG1P_SMALL = float(np.float32(0.41421356237309504880))
+_LOG1P_DEN = tuple(float(np.float32(c)) for c in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+_LOG1P_NUM = tuple(float(np.float32(c)) for c in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 log(1 + x) as XLA's CPU backend computes it."""
+    def horner(coefs):
+        r = torch.full_like(x, coefs[0])
+        for c in coefs[1:]:
+            r = _fma(r, x, c)
+        return r
+    x2 = x * x
+    small = x + _fma(-0.5, x2, (x * x2) * (horner(_LOG1P_NUM)
+                                           / horner(_LOG1P_DEN)))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, log_f32(x + 1.0))
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """float32 erfinv by XLA's polynomial, +-inf at +-1."""
-    w = -torch.log1p(-x * x)
+    w = -log1p_f32(-x * x)
     lt = w < 5.0
-    t = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # sqrt correctly rounded (float64, then float32: exact for sqrt);
+    # torch's float32 sqrt on the CPU is not.
+    t = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
 
     def coef(i):
         return torch.where(lt, torch.tensor(np.float32(_ERFINV_W_LT5[i]), device=x.device),
@@ -226,8 +298,7 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
 
 def normal(key: torch.Tensor, shape: Shape = (), *,
            device=None) -> torch.Tensor:
-    """float32 standard normal draws (``jax.random.normal``), within
-    NORMAL_RTOL / NORMAL_ATOL of jax's."""
+    """float32 standard normal draws (``jax.random.normal``)."""
     device = resolve_device(device)
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0, device=device)

@@ -37,3 +37,10 @@ def sketch_worker_bytes(block_size: int, d: int,
                         dtype_bytes: int = FLOAT32_BYTES) -> float:
     """Hessian-sketch worker: one (block_size x d) block plus its Gram tile."""
     return float(dtype_bytes) * (block_size * d + d * d)
+
+
+def distavg_worker_bytes(block_size: int, d: int,
+                         dtype_bytes: int = FLOAT32_BYTES) -> float:
+    """Distributed-averaging worker: sketch block, local d x d system and
+    its factorization workspace."""
+    return float(dtype_bytes) * (block_size * d + 2 * d * d + 2 * d)

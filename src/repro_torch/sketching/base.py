@@ -9,11 +9,17 @@ family:
   sample(key, num_rows, device) -> state   the family's sketch draw
   apply(state, a)          -> (total_blocks, b, d) per-block S_i^T A
   gram(state, a, survivors) -> (d, d) masked, rescaled Gram
+  gram_fused(state, a, survivors) -> (d, d) or None: the family's fused
+      sketch -> Gram kernel (A_tilde never formed whole), if it has one
+  fused_path(d)            -> "fused" | "unfused": which path
+      ``gram(use_kernels=True)`` takes.  The port's fused kernels have one
+      form for every d, so it never reports the reference's "fused_tiled"
   block_flops / comm_units  per-worker cost for the fleet clock
 
-The reference's ``gram_fused`` hook, which returns None for families
-without a fused kernel, is not ported: the one ported family always
-fuses, inside its own ``gram``.
+Every ported family (oversketch, sjlt, srht) has a fused Gram.  The
+unfused branch of ``gram`` and ``fused_path``'s "unfused" mirror the
+reference's protocol for the families still to port (gaussian, nystrom,
+leverage), which form A_tilde and take ``oversketch_gram``.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Any, Optional
 
 import torch
 
+import repro_torch.core.sketch as core_sketch
 from repro_torch.core.sketch import OverSketchConfig
 
 SketchState = Any
@@ -37,6 +44,10 @@ class SketchFamily(abc.ABC):
 
     name = "abstract"
 
+    # Families with a fused sketch -> Gram kernel set this True and
+    # override gram_fused.
+    has_fused_gram = False
+
     @abc.abstractmethod
     def sample(self, key: torch.Tensor, num_rows: int,
                device=None) -> SketchState:
@@ -48,15 +59,36 @@ class SketchFamily(abc.ABC):
               use_kernels: bool = False) -> torch.Tensor:
         """A (n, d) -> (total_blocks, b, d), unscaled by 1/sqrt(N)."""
 
-    @abc.abstractmethod
+    def gram_fused(self, state: SketchState, a: torch.Tensor,
+                   survivors: torch.Tensor) -> Optional[torch.Tensor]:
+        """The fused sketch -> Gram kernel, or None when the family has
+        none and ``gram`` takes the apply + Gram kernels."""
+        return None
+
+    def fused_path(self, d: int) -> str:
+        return "fused" if self.has_fused_gram else "unfused"
+
     def gram(self, state: SketchState, a: torch.Tensor,
              survivors: Optional[torch.Tensor] = None,
              use_kernels: bool = False) -> torch.Tensor:
-        """Masked H_hat = (1/N_avail) sum_i A_tilde_i^T A_tilde_i."""
+        """Masked H_hat = (1/N_avail) sum_i A_tilde_i^T A_tilde_i; on the
+        kernel path the fused kernel when the family has one."""
+        if use_kernels:
+            if survivors is None:
+                survivors = torch.ones(self.cfg.total_blocks,
+                                       dtype=torch.bool, device=a.device)
+            fused = self.gram_fused(state, a, survivors)
+            if fused is not None:
+                return fused
+            a_t = self.apply(state, a, use_kernels=True)
+            return core_sketch.sketched_gram(a_t, survivors, use_kernels=True)
+        return core_sketch.sketched_gram(self.apply(state, a), survivors)
 
     # Fleet-clock cost hooks: per-worker flops and master-I/O units for one
-    # sketch-block worker (Alg. 2 step 3).  Sketching is folded into the
-    # coded matmul workers, so a block worker pays its Gram tile only.
+    # sketch-block worker (Alg. 2 step 3).  The default charges the Gram
+    # tile only: the OverSketch family folds sketching into the coded
+    # matmul workers; families whose apply is a pass of its own override
+    # ``apply_flops``.
     def apply_flops(self, num_rows: int, d: int) -> float:
         return 0.0
 
@@ -66,3 +98,8 @@ class SketchFamily(abc.ABC):
 
     def comm_units(self, d: int) -> float:
         return 0.05
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (Hadamard sizes)."""
+    return 1 << max(0, (n - 1).bit_length())

@@ -4,7 +4,6 @@ count-sketch -> Gram kernel."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import torch
 
@@ -18,6 +17,8 @@ from repro_torch.sketching.registry import register
 @dataclasses.dataclass(frozen=True)
 class OverSketchFamily(SketchFamily):
 
+    has_fused_gram = True
+
     def sample(self, key: torch.Tensor, num_rows: int,
                device=None) -> core_sketch.CountSketch:
         return core_sketch.sample_countsketch(key, num_rows, self.cfg,
@@ -30,15 +31,7 @@ class OverSketchFamily(SketchFamily):
                                            self.cfg.block_size)
         return core_sketch.apply_sketch(state, a)
 
-    def gram(self, state: core_sketch.CountSketch, a: torch.Tensor,
-             survivors: Optional[torch.Tensor] = None,
-             use_kernels: bool = False) -> torch.Tensor:
-        """The kernel path is the fused count-sketch -> Gram kernel; the
-        plain path forms A_tilde and takes its masked Gram."""
-        if not use_kernels:
-            return core_sketch.sketched_gram(self.apply(state, a), survivors)
-        if survivors is None:
-            survivors = torch.ones(self.cfg.total_blocks, dtype=torch.bool,
-                                   device=a.device)
+    def gram_fused(self, state: core_sketch.CountSketch, a: torch.Tensor,
+                   survivors: torch.Tensor) -> torch.Tensor:
         return kops.sketch_gram_count(state.h, state.sigma, a,
                                       self.cfg.block_size, survivors)

@@ -1,6 +1,6 @@
 """String-keyed registry of sketch families; port of
-``repro/sketching/registry.py``.  Only ``"oversketch"`` is ported; the
-reference's other families raise until their port lands."""
+``repro/sketching/registry.py``.  The reference's families that are not
+ported yet raise until their port lands."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Type
@@ -11,7 +11,7 @@ from repro_torch.sketching.base import SketchFamily
 _FAMILIES: Dict[str, Type[SketchFamily]] = {}
 
 # Families of the reference that the port does not have yet.
-NOT_PORTED = ("gaussian", "leverage", "nystrom", "sjlt", "srht")
+NOT_PORTED = ("gaussian", "leverage", "nystrom")
 
 
 def register(name: str) -> Callable[[Type[SketchFamily]], Type[SketchFamily]]:

@@ -88,12 +88,116 @@ def test_launches_are_counted(cuda):
     ops.sketch_gram_count(h, sigma, a, 32, m)
     ops.sketch_gram_count(h, sigma, a, 32, m)
     ops.count_sketch_apply(h, sigma, a, 32)
+    ops.fwht(torch.zeros((1, 8192, 3), device=cuda))   # the two-pass form
+    ops.fwht(torch.zeros((1, 64, 3), device=cuda))
     assert ops.launch_counts() == {"sketch_gram_count": 2,
                                    "count_sketch_apply": 1,
-                                   "oversketch_gram": 0}
+                                   "oversketch_gram": 0,
+                                   "sketch_gram_sjlt": 0,
+                                   "sketch_gram_srht": 0,
+                                   "fwht": 1, "fwht_two_pass": 1}
 
 
-def test_newton_on_the_card_matches_the_plain_path(cuda):
+# Past b ~ 1,680 one (b x 32) tile no longer fits: the bucket-split apply.
+@pytest.mark.parametrize("k,n,d,b", [(3, 5000, 70, 4096), (4, 900, 33, 2000)])
+def test_count_sketch_kernels_at_large_block_size(cuda, k, n, d, b):
+    h, sigma, a = _inputs(cuda, k, n, d, b, seed=b)
+    m = torch.arange(k, device=cuda) != 1
+    a_t = ref.count_sketch_apply(h, sigma, a, b)
+    assert _rel_err(ops.count_sketch_apply(h, sigma, a, b), a_t) < REL_TOL
+    got = ops.sketch_gram_count(h, sigma, a, b, m)
+    assert _rel_err(got, ref.oversketch_gram(a_t, m)) < REL_TOL
+
+
+def _sjlt_inputs(device, k, s, n, d, b, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randint(0, b, (k, s, n), generator=g, dtype=torch.int32)
+    sigma = torch.randint(0, 2, (k, s, n), generator=g).float() * 2 - 1
+    a = torch.randn(n, d, generator=g)
+    return h.to(device), sigma.to(device), a.to(device)
+
+
+MASKS = ["all", "some", "none"]
+
+
+def _mask(kind, k, device):
+    return {"all": torch.ones(k, dtype=torch.bool),
+            "some": torch.arange(k) % 3 != 1,
+            "none": torch.zeros(k, dtype=torch.bool)}[kind].to(device)
+
+
+@pytest.mark.parametrize("k,s,n,d,b", [(6, 4, 301, 37, 32), (5, 3, 1000, 129, 64),
+                                       (7, 4, 2048, 260, 256),
+                                       (2, 2, 700, 20, 4096)])
+@pytest.mark.parametrize("mask", MASKS)
+def test_sketch_gram_sjlt(cuda, k, s, n, d, b, mask):
+    h, sigma, a = _sjlt_inputs(cuda, k, s, n, d, b, seed=n)
+    # Two layers of one row in one bucket must add.
+    h[:, 1, :50] = h[:, 0, :50]
+    m = _mask(mask, k, cuda)
+    got = ops.sketch_gram_sjlt(h, sigma, a, b, m)
+    if mask == "none":
+        assert not got.any()
+        return
+    assert _rel_err(got, ref.sketch_gram_sjlt(h, sigma, a, b, m)) < REL_TOL
+    torch.testing.assert_close(got, got.T, rtol=0, atol=0)
+
+
+# The layered count-sketch apply is the SJLT apply of the distributed-avg
+# path (b = 4,096 takes the bucket-split form).
+@pytest.mark.parametrize("k,s,n,d,b", [(6, 4, 301, 37, 32), (3, 4, 5000, 70, 4096),
+                                       (2, 2, 700, 20, 2000)])
+def test_layered_count_sketch_apply_is_the_sjlt_apply(cuda, k, s, n, d, b):
+    h, sigma, a = _sjlt_inputs(cuda, k, s, n, d, b, seed=b)
+    h[:, 1, :50] = h[:, 0, :50]
+    got = ops.count_sketch_apply(h, sigma, a, b)
+    assert _rel_err(got, ref.sjlt_apply(h, sigma, a, b)) < REL_TOL
+
+
+def _srht_inputs(device, k, n, d, b, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    n_pad = 1 << max(0, (n - 1).bit_length())
+    rows = torch.randint(0, n_pad, (k, b), generator=g, dtype=torch.int32)
+    sigma = torch.randint(0, 2, (k, n), generator=g).float() * 2 - 1
+    a = torch.randn(n, d, generator=g)
+    return rows.to(device), sigma.to(device), a.to(device)
+
+
+@pytest.mark.parametrize("k,n,d,b", [(6, 301, 37, 32), (5, 1024, 129, 64),
+                                     (4, 3000, 260, 256), (3, 50, 1, 16)])
+@pytest.mark.parametrize("mask", MASKS)
+def test_sketch_gram_srht(cuda, k, n, d, b, mask):
+    rows, sigma, a = _srht_inputs(cuda, k, n, d, b, seed=n)
+    m = _mask(mask, k, cuda)
+    got = ops.sketch_gram_srht(rows, sigma, a, m)
+    if mask == "none":
+        assert not got.any()
+        return
+    assert _rel_err(got, ref.sketch_gram_srht(rows, sigma, a, m)) < REL_TOL
+    torch.testing.assert_close(got, got.T, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k,n,d", [(3, 1, 5), (2, 64, 37), (1, 4096, 300),
+                                   (2, 8192, 33), (1, 1 << 17, 20)])
+def test_fwht_forms_match_the_butterfly(cuda, k, n, d):
+    x = torch.randn(k, n, d, generator=torch.Generator().manual_seed(n)).to(cuda)
+    want = ref.fwht(x)
+    for fn in (ops.fwht, ops.fwht_two_pass):
+        got = fn(x)
+        assert _rel_err(got, want) < REL_TOL
+    torch.testing.assert_close(ops.fwht(ops.fwht(x)), x, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(),
+    dict(sketch_family="sjlt"),
+    dict(sketch_family="srht"),
+    dict(sketch_mode="distributed-avg", debias=True),
+    dict(sketch_mode="distributed-avg", debias=True, sketch_family="sjlt"),
+    dict(sketch_mode="distributed-avg", debias=True, sketch_family="srht"),
+])
+def test_newton_on_the_card_matches_the_plain_path(cuda, overrides):
     from repro_torch import prng
     from repro_torch.core import (LogisticRegression, NewtonConfig,
                                   OverSketchConfig, oversketched_newton)
@@ -101,7 +205,7 @@ def test_newton_on_the_card_matches_the_plain_path(cuda):
     data = make_logistic_dataset(prng.PRNGKey(0), 1000, 20, 200,
                                  device="cpu")
     cfg = dict(iters=4, sketch=OverSketchConfig(512, 64, 0.25),
-               coded_block_rows=128, track_test_error=True)
+               coded_block_rows=128, track_test_error=True, **overrides)
     card = oversketched_newton(LogisticRegression(lam=1e-4), data,
                                np.zeros(20, np.float32),
                                NewtonConfig(use_kernels=True, **cfg))

@@ -23,8 +23,9 @@ def _modules():
 
 def test_port_imports_neither_jax_nor_repro():
     names = _modules()
-    assert "repro_torch.core.newton" in names
-    assert "repro_torch.kernels.sketch_gram" in names
+    for name in ("core.newton", "kernels.sketch_gram", "kernels.srht",
+                 "sketching.sjlt", "sketching.srht", "sketching.debias"):
+        assert f"repro_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
@@ -58,6 +59,8 @@ def test_entry_points_raise_without_a_device():
         lambda: profile_dataset("a9a", key),
         lambda: sample_countsketch(key, 8, cfg),
         lambda: sketching.get("oversketch", cfg).sample(key, 8),
+        lambda: sketching.get("sjlt", cfg).sample(key, 8),
+        lambda: sketching.get("srht", cfg).sample(key, 8),
         lambda: prng.uniform(key, (3,)),
         lambda: prng.bernoulli(key, 0.5, (3,)),
         lambda: prng.rademacher(key, (3,)),

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import _check, ops, ref
 
 torch.set_num_threads(1)
@@ -71,6 +72,111 @@ def test_sketch_gram_count_matches_pallas(k, n, d, b, drop):
         assert not got.any()
 
 
+def _sjlt_inputs(seed, k, s, n, d, b):
+    rng = np.random.default_rng(seed)
+    h = rng.integers(0, b, (k, s, n)).astype(np.int32)
+    h[:, 1, : n // 4] = h[:, 0, : n // 4]     # layers colliding in a row
+    sigma = rng.choice(np.array([-1.0, 1.0], np.float32), (k, s, n))
+    a = rng.standard_normal((n, d)).astype(np.float32)
+    return h, sigma, a
+
+
+@pytest.mark.parametrize("k,n,d,b,drop", CASES[:2])
+def test_layered_count_sketch_apply_matches_pallas_flattened(k, n, d, b, drop):
+    """The layered apply against the reference's SJLT kernel path: the
+    Pallas count sketch over K s flattened blocks, summed, / sqrt(s)."""
+    s = 4
+    h, sigma, a = _sjlt_inputs(k + n, k, s, n, d, b)
+    flat = jops.count_sketch_apply(jnp.asarray(h.reshape(k * s, n)),
+                                   jnp.asarray(sigma.reshape(k * s, n)),
+                                   jnp.asarray(a), b)
+    want = np.asarray(flat.reshape(k, s, b, d).sum(axis=1) / jnp.sqrt(4.0))
+    got = ops.count_sketch_apply(torch.from_numpy(h), torch.from_numpy(sigma),
+                                 torch.from_numpy(a), b).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _srht_inputs(seed, k, n, d, b):
+    rng = np.random.default_rng(seed)
+    n_pad = 1 << max(0, (n - 1).bit_length())
+    rows = rng.integers(0, n_pad, (k, b)).astype(np.int32)
+    sigma = rng.choice(np.array([-1.0, 1.0], np.float32), (k, n))
+    a = rng.standard_normal((n, d)).astype(np.float32)
+    return rows, sigma, a
+
+
+def _mask(k, drop):
+    m = np.ones(k, bool)
+    m[drop] = False
+    return m
+
+
+@pytest.mark.parametrize("k,n,d,b,drop", CASES)
+def test_sketch_gram_sjlt_matches_pallas(k, n, d, b, drop):
+    h, sigma, a = _sjlt_inputs(k * d, k, 3, n, d, b)
+    m = _mask(k, drop)
+    want = np.asarray(jops.sketch_gram_sjlt(
+        jnp.asarray(h), jnp.asarray(sigma), jnp.asarray(a), b,
+        jnp.asarray(m)))
+    got = ops.sketch_gram_sjlt(torch.from_numpy(h), torch.from_numpy(sigma),
+                               torch.from_numpy(a), b,
+                               torch.from_numpy(m)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    if not m.any():
+        assert not got.any()
+
+
+@pytest.mark.parametrize("k,n,d,b,drop", CASES)
+def test_sketch_gram_srht_matches_pallas(k, n, d, b, drop):
+    rows, sigma, a = _srht_inputs(k + 2 * n, k, n, d, b)
+    m = _mask(k, drop)
+    want = np.asarray(jops.sketch_gram_srht(
+        jnp.asarray(rows), jnp.asarray(sigma), jnp.asarray(a),
+        jnp.asarray(m)))
+    got = ops.sketch_gram_srht(torch.from_numpy(rows), torch.from_numpy(sigma),
+                               torch.from_numpy(a),
+                               torch.from_numpy(m)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    if not m.any():
+        assert not got.any()
+
+
+FWHT_CASES = [(2, 64, 37), (1, 256, 129), (3, 1, 5), (1, 1024, 20)]
+
+
+@pytest.mark.parametrize("k,n,d", FWHT_CASES)
+@pytest.mark.parametrize("form", ["fwht", "fwht_two_pass"])
+def test_fwht_matches_pallas(k, n, d, form):
+    x = np.random.default_rng(n + d).standard_normal((k, n, d)).astype(
+        np.float32)
+    want = np.asarray(getattr(jops, form)(jnp.asarray(x)))
+    got = getattr(ops, form)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_fwht_refuses_a_length_not_a_power_of_two():
+    with pytest.raises(ValueError, match="power of two"):
+        ops.fwht(torch.zeros((1, 100, 4)))
+
+
+@pytest.mark.parametrize("k,n,d,b,drop", CASES[:2])
+def test_sjlt_and_srht_apply_match_reference(k, n, d, b, drop):
+    h, sigma, a = _sjlt_inputs(n, k, 4, n, d, b)
+    np.testing.assert_allclose(
+        ref.sjlt_apply(torch.from_numpy(h), torch.from_numpy(sigma),
+                       torch.from_numpy(a), b).numpy(),
+        np.asarray(jref.sjlt_apply(jnp.asarray(h), jnp.asarray(sigma),
+                                   jnp.asarray(a), b)),
+        rtol=RTOL, atol=ATOL)
+    rows, sg, a = _srht_inputs(d, k, n, d, b)
+    np.testing.assert_allclose(
+        ref.srht_apply(torch.from_numpy(rows), torch.from_numpy(sg),
+                       torch.from_numpy(a)).numpy(),
+        np.asarray(jref.srht_apply(jnp.asarray(rows), jnp.asarray(sg),
+                                   jnp.asarray(a))),
+        rtol=RTOL, atol=ATOL)
+
+
 def test_fused_plain_version_is_apply_then_gram():
     h, sigma, a = (torch.from_numpy(x) for x in _inputs(1, 7, 150, 30, 32))
     m = torch.tensor([True, False, True, True, False, True, True])
@@ -93,6 +199,13 @@ def test_tensors_off_the_cpu_never_take_the_plain_version():
         ops.oversketch_gram(torch.zeros((3, 8, 4), device="meta"), m)
     with pytest.raises(ValueError, match="CUDA device"):
         ops.sketch_gram_count(h, sigma, a, 8, m)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.sketch_gram_sjlt(h[:, None], sigma[:, None], a, 8, m)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.sketch_gram_srht(h[:, :8].contiguous(), sigma, a, m)
+    for fn in (ops.fwht, ops.fwht_two_pass):
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(torch.zeros((2, 64, 4), device="meta"))
     assert ops.launch_counts() == before
 
 
@@ -117,4 +230,5 @@ def test_launch_counts_reset():
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
     assert set(ops.KERNELS) == {"sketch_gram_count", "count_sketch_apply",
-                                "oversketch_gram"}
+                                "oversketch_gram", "sketch_gram_sjlt",
+                                "sketch_gram_srht", "fwht", "fwht_two_pass"}

@@ -1,7 +1,9 @@
 """The slice as a whole: ``oversketched_newton`` in both packages on the
 same dataset, ``w0`` and seed (the verify recipe: n = 1000, d = 20,
 ``OverSketchConfig(512, 64, 0.25)``, ``coded_block_rows=128``, coded
-gradients, the kernel path)."""
+gradients, the kernel path), for every ported sketch family, both sketch
+modes (distributed-avg needs b = 64 > d = 20) and fleets whose phases
+exhaust their retry budget."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,18 +41,27 @@ def data():
     return jd, [np.asarray(a) for a in jd]
 
 
+# Fleets whose phases exhaust their retry budget (fail_open=False): almost
+# every phase, and some phases with survivors above the floor.
+EXHAUSTED = dict(failure_rate=0.95, max_retries=0, fail_open=False)
+THINNED = dict(failure_rate=0.5, max_retries=0, fail_open=False)
+
+
 def _run(data, model="default", **overrides):
+    """``model``: "default" (a fresh default fleet), None (no fleet),
+    "fleet" (cold starts and retries) or a dict of FleetConfig fields."""
     jd, npd = data
     kw = dict(iters=ITERS, coded_block_rows=128, gradient_policy="coded",
               use_kernels=True, track_test_error=True)
     kw.update(overrides)
     jkw, tkw = {}, {}
+    if model == "fleet":
+        model = dict(cold_start_prob=0.2, failure_rate=0.1)
     if model is None:
         jkw["model"] = tkw["model"] = None
-    elif model == "fleet":
-        fleet = dict(cold_start_prob=0.2, failure_rate=0.1)
-        jkw["model"] = JClock(JModel(), fleet=JFleet(**fleet))
-        tkw["model"] = TClock(TModel(), fleet=TFleet(**fleet))
+    elif isinstance(model, dict):
+        jkw["model"] = JClock(JModel(), fleet=JFleet(**model))
+        tkw["model"] = TClock(TModel(), fleet=TFleet(**model))
     rj = j_newton(JLogistic(lam=1e-4), jd, jnp.zeros(D),
                   JConfig(sketch=JSketch(512, 64, 0.25), **kw), **jkw)
     rt = t_newton(TLogistic(lam=1e-4), convert.dataset(*npd, device="cpu"),
@@ -68,8 +79,8 @@ def _assert_same_history(rj, rt):
         np.testing.assert_allclose(ht[k], hj[k], rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(rt.w.numpy(), np.asarray(rj.w), rtol=1e-4,
                                atol=1e-6)
-    # Simulated seconds and dollars: every fleet draw is bit-exact except
-    # the normal body factor (prng.NORMAL_RTOL), hence a tolerance.
+    # Simulated seconds and dollars: every fleet draw is bit-exact, but the
+    # lognormal body factor's exp is torch's, not XLA's, hence a tolerance.
     for k in ("time", "cost"):
         np.testing.assert_allclose(ht[k], hj[k], rtol=1e-5)
     np.testing.assert_allclose(ht["test_error"], hj["test_error"],
@@ -106,9 +117,41 @@ def test_lifecycle_fleet_matches_reference(data):
     _assert_same_history(rj, rt)
 
 
+@pytest.mark.parametrize("family", ["sjlt", "srht"])
+@pytest.mark.parametrize("schedule", ["dag", "sequential"])
+def test_sketch_families_match_reference(data, family, schedule):
+    rj, rt = _run(data, sketch_family=family, schedule=schedule)
+    _assert_same_history(rj, rt)
+
+
+@pytest.mark.parametrize("family", ["oversketch", "sjlt", "srht"])
+@pytest.mark.parametrize("solver", ["chol", "cg"])
+def test_distributed_avg_matches_reference(data, family, solver):
+    rj, rt = _run(data, sketch_mode="distributed-avg", debias=True,
+                  sketch_family=family, distavg_solver=solver)
+    _assert_same_history(rj, rt)
+
+
+def test_distributed_avg_plain_path_on_a_sequential_schedule(data):
+    rj, rt = _run(data, sketch_mode="distributed-avg", use_kernels=False,
+                  sketch_family="srht", schedule="sequential")
+    _assert_same_history(rj, rt)
+
+
+def test_debias_in_blocks_mode_matches_reference(data):
+    rj, rt = _run(data, debias=True)
+    _assert_same_history(rj, rt)
+
+
+def test_distributed_avg_refuses_a_block_not_past_d(data):
+    with pytest.raises(ValueError, match="block_size > Hessian dim"):
+        t_newton(TLogistic(), convert.dataset(*data[1], device="cpu"),
+                 np.zeros(D, np.float32),
+                 TConfig(iters=1, sketch_mode="distributed-avg",
+                         sketch=TSketch(80, 16, 0.25)), device="cpu")
+
+
 @pytest.mark.parametrize("overrides,what", [
-    (dict(sketch_mode="distributed-avg"), "distributed-avg"),
-    (dict(debias=True), "debias"),
     (dict(adaptive_sketch=True), "adaptive_sketch"),
 ])
 def test_unported_modes_are_refused(data, overrides, what):
@@ -119,16 +162,23 @@ def test_unported_modes_are_refused(data, overrides, what):
 
 
 def test_exhausted_fleet_is_refused_not_degraded(data):
-    fleet = TFleet(failure_rate=0.95, max_retries=0, fail_open=False)
-    cfg = TConfig(iters=1, sketch=TSketch(512, 64, 0.25),
-                  coded_block_rows=128)
-    with pytest.raises(NotImplementedError, match="exhausted"):
-        t_newton(TLogistic(), convert.dataset(*data[1], device="cpu"),
-                 np.zeros(D, np.float32), cfg,
-                 model=TClock(TModel(), fleet=fleet), device="cpu")
+    """An exhausted phase degrades as the reference degrades (the name is
+    from when the port refused): the same history on the same failing
+    fleet; with ``fault_fallback="raise"`` the error propagates."""
+    rj, rt = _run(data, model=EXHAUSTED, iters=3)
+    _assert_same_history(rj, rt)
+    fleet = TFleet(**EXHAUSTED)
     with pytest.raises(PhaseExhaustedError):
         t_newton(TLogistic(), convert.dataset(*data[1], device="cpu"),
                  np.zeros(D, np.float32),
                  TConfig(iters=1, sketch=TSketch(512, 64, 0.25),
                          gradient_policy="exact", fault_fallback="raise"),
                  model=TClock(TModel(), fleet=fleet), device="cpu")
+
+
+@pytest.mark.parametrize("fleet", [EXHAUSTED, THINNED])
+@pytest.mark.parametrize("mode", ["blocks", "distributed-avg"])
+def test_degraded_fleet_matches_reference(data, fleet, mode):
+    rj, rt = _run(data, model=fleet, sketch_mode=mode, iters=3,
+                  schedule="sequential" if fleet is THINNED else "dag")
+    _assert_same_history(rj, rt)

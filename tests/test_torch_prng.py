@@ -87,12 +87,26 @@ def test_chunked_draws_match_one_shot(monkeypatch):
 
 
 def test_normal_within_stated_bound():
+    """The stated bound is now zero: 2^20 draws equal jax's bit for bit."""
     jk, tk = _pair(3)
-    ref = np.asarray(jax.random.normal(jk, (1 << 18,)))
-    got = prng.normal(tk, (1 << 18,), device="cpu").numpy()
-    np.testing.assert_allclose(got, ref, rtol=prng.NORMAL_RTOL,
-                               atol=prng.NORMAL_ATOL)
-    assert (got == ref).mean() > 0.95
+    ref = np.asarray(jax.random.normal(jk, (1 << 20,)))
+    got = prng.normal(tk, (1 << 20,), device="cpu").numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_log_and_log1p_match_xla_bit_for_bit():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.uniform(1e-30, 1.0, 1 << 16),
+                        rng.uniform(0.0, 50.0, 1 << 14),
+                        np.float32([0.0, 1.0, np.inf, 1e-39, -1.0, np.nan])]
+                       ).astype(np.float32)
+    np.testing.assert_array_equal(prng.log_f32(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jnp.log(jnp.asarray(x))))
+    y = np.concatenate([-rng.uniform(-1, 1, 1 << 16) ** 2,
+                        rng.uniform(-0.5, 0.5, 1 << 14)]).astype(np.float32)
+    np.testing.assert_array_equal(
+        prng.log1p_f32(torch.from_numpy(y)).numpy(),
+        np.asarray(jnp.log1p(jnp.asarray(y))))
 
 
 def test_erfinv_edges():
