@@ -13,24 +13,35 @@ with its seconds:
   kernels  each CUDA kernel against its plain PyTorch version at its
            path's own inputs (A = hess_sqrt(w0) and the first iteration's
            draw of the path's sketch family: b = 256 and 30 of 150 blocks
-           masked for the blocks paths, b = 4,096 and K = 10 for
-           distributed-avg, whose SJLT apply is the count-sketch kernel with
-           s = 4 layers, one signed, padded (2^19, 3,000) block for the
-           FWHT), plus small cases (ragged, all masked, a non-power-of-two
-           n, b = 4,096, the one-pass FWHT); times of kernel, plain version
-           and a PyTorch yardstick, and the bound the card's peaks give
-  newton   oversketched_newton at full width with the kernels, 3 iterations
-           (the oversketch family); launch counts read just before and after
+           masked for the blocks paths, the masked Gram at the nystrom
+           family's A_tilde, b = 4,096 and K = 10 for distributed-avg,
+           whose SJLT apply is the count-sketch kernel with s = 4 layers,
+           one signed, padded (2^19, 3,000) block for the FWHT, the coded
+           mat-vec at both product-code encodes (X: 1,296 workers of
+           (256, 3,000); X^T: 25 of (256, 300,000)) with 5% of the workers
+           erased, the normal kernel at one gaussian block (300,000 x 256),
+           bit for bit), plus small cases (ragged, all masked, a
+           non-power-of-two n, b = 4,096, the one-pass FWHT); times of
+           kernel, plain version and a PyTorch yardstick, and the bound the
+           card's peaks give
+  newton   oversketched_newton at full width with the kernels, 3
+           iterations (the oversketch family); launch counts read just
+           before and after
   profile  the same call with 2 iterations under torch.profiler: device
            time by operator and the device's idle share
-  families the same loop with the sjlt and the srht family, 2 iterations
-           each, launch counts read around each run
+  families the same loop with the sjlt, srht, nystrom, leverage and
+           gaussian families, 2 iterations each, launch counts read around
+           each run
   distavg  sketch_mode="distributed-avg" with debias, b = 4,096 > d, for the
            oversketch, sjlt and srht families, 2 iterations each
   check    the loop at the verify recipe's size on the card against the
-           plain path on the CPU: every family in blocks mode, and
+           plain path on the CPU: every family in blocks mode and
            distributed-avg (b = 64 > d = 20), with the card runs' launch
            counts (the one-pass FWHT runs there, at n_pad = 1,024)
+
+Every run on the card computes its coded gradient with the coded mat-vec
+kernel: two launches per iteration, as the default fleet's coded_decode
+policy waits for a peelable set and no decode falls back.
 
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises: the script then
@@ -58,11 +69,15 @@ ITERS = 3
 PATH_ITERS = 2          # iterations of each further path
 SEED = 0
 DISTAVG_BLOCK = 4096    # b > d = 3,000, as distributed-avg requires
+CODED_ERASED = 0.05     # share of coded workers erased in the kernel check
+# Float operations of one normal draw in prng.normal_plain (an FMA counts
+# two): the uniform 4, -u^2 1, log1p 31 (either branch), erfinv's select
+# and polynomial 19 (its sqrt branch one more), sqrt(2) 1.  The threefry
+# hash's ~120 integer operations are not counted.
+NORMAL_FLOPS = 56
 # Kernels that no ported path launches, and why; every other kernel must
 # be launched by some path's run.
-OFF_PATH = {"oversketch_gram": "only the gaussian, nystrom and leverage "
-                               "families take it; they are not ported",
-            "fwht": "at full width (n_pad = 2^19) the fwht entry point "
+OFF_PATH = {"fwht": "at full width (n_pad = 2^19) the fwht entry point "
                     "dispatches to fwht_two_pass; its one-pass kernel runs "
                     "where n_pad <= 4,096, as in the check phase"}
 
@@ -488,6 +503,109 @@ def check_small_cases(ops, ref, device) -> dict:
     return errs
 
 
+def check_coded(ops, ref, data, b: int, device) -> dict:
+    """The coded mat-vec at both product-code encodes of the main path's
+    gradient (X times an iterate, X^T times a residual), a seeded 5% of
+    the workers erased (at least one).  The library call is one cuBLAS
+    gemv over every block, then the mask."""
+    import numpy as np
+    import torch
+    from repro_torch.core import coded
+    n, d = data.x.shape
+    g = torch.Generator().manual_seed(SEED)
+    out = {}
+    for tag, rows, s in (("X", n, d), ("XT", d, n)):
+        code = coded.make_code(rows, b)
+        enc = coded.encode_2d(data.x if tag == "X" else data.x.T, code)
+        w = code.num_workers
+        enc = enc.view(w, code.block_rows, s)
+        x = torch.randn(s, generator=g).to(device)
+        erased = torch.zeros(w, dtype=torch.bool)
+        erased[np.random.default_rng(SEED).choice(
+            w, max(1, round(CODED_ERASED * w)), replace=False)] = True
+        erased = erased.to(device)
+        live = int((~erased).sum())
+        got = ops.coded_block_matvec(enc, x, erased)
+        want, plain_ms = timed_once(lambda: ref.coded_block_matvec(enc, x,
+                                                                   erased))
+        row = compare(f"coded_block_matvec {tag}", got, want)
+        if got[erased].any():
+            raise AssertionError(f"coded_block_matvec {tag}: an erased "
+                                 "worker's row is not zero")
+        if not torch.equal(ops.coded_block_matvec(enc, x, erased), got):
+            raise AssertionError(f"coded_block_matvec {tag}: two calls "
+                                 "differ")
+        row["ms"] = cuda_ms(lambda: ops.coded_block_matvec(enc, x, erased),
+                            10, warm=False)
+        row["plain_ms"] = plain_ms
+        flat = enc.view(-1, s)
+
+        def library():
+            return torch.where(erased[:, None], 0.0,
+                               (flat @ x).view(w, code.block_rows))
+        row["library_ms"] = cuda_ms(library, 10)
+        row["library_call"] = "torch.mv (cuBLAS gemv) over all blocks, then torch.where"
+        bw = code.block_rows
+        row["bound_ms"], row["bound_by"] = bound(
+            2.0 * live * bw * s, 4.0 * (live * bw * s + s + w * bw) + w)
+        row["shape"] = {"W": w, "b": bw, "s": s, "erased": w - live}
+        out[tag] = row
+        del enc, flat, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_nystrom_gram(ops, ref, a, a_t, mask) -> dict:
+    """The masked Gram at the nystrom family's A_tilde (the first
+    iteration's draw), 30 of 150 blocks masked: where the unfused families'
+    Hessian takes it."""
+    import torch
+    k, b, d = a_t.shape
+    live = mask.nonzero().squeeze(1)
+    kl = int(live.numel())
+    got = ops.oversketch_gram(a_t, mask)
+    row = compare("oversketch_gram nystrom", got, ref.oversketch_gram(a_t,
+                                                                      mask))
+    row["ms"] = cuda_ms(lambda: ops.oversketch_gram(a_t, mask), 5)
+    row["plain_ms"] = cuda_ms(lambda: ref.oversketch_gram(a_t, mask), 3)
+    x_live = a_t[live].reshape(-1, d)
+    row["library_ms"] = cuda_ms(lambda: torch.mm(x_live.T, x_live), 5)
+    row["library_call"] = "torch.mm(A_live^T, A_live)"
+    row["bound_ms"], row["bound_by"] = bound(
+        float(kl) * b * d * (d + 1), 4.0 * (kl * b * d + d * d) + k)
+    row["shape"] = {"K": k, "b": b, "d": d, "masked": k - kl}
+    return row
+
+
+def check_normal(ops, prng, key, shape, device) -> dict:
+    """The normal kernel at one gaussian block's draw against the plain
+    version on the card, every bit; torch.randn of the same shape beside
+    it as a yardstick of another function."""
+    import torch
+    got = ops.normal(key, shape, device)
+    want, plain_ms = timed_once(lambda: prng.normal_plain(key, shape, device))
+    differing = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if differing:
+        raise AssertionError(f"normal: {differing} draws differ from the "
+                             "plain version")
+    row = {"max_abs_err": float((got - want).abs().max()),
+           "entries_differing": differing, "max_abs_plain":
+           float(want.abs().max())}
+    del got, want
+    row["ms"] = cuda_ms(lambda: ops.normal(key, shape, device), 5)
+    row["plain_ms"] = plain_ms
+    row["library_ms"] = None
+    row["library_call"] = "none: no PyTorch call draws jax's bits"
+    row["yardstick_ms"] = cuda_ms(
+        lambda: torch.randn(shape, device=device), 5)
+    row["yardstick"] = "torch.randn, same shape (not the same function)"
+    count = math.prod(shape)
+    row["bound_ms"], row["bound_by"] = bound(float(NORMAL_FLOPS) * count,
+                                             4.0 * count)
+    row["shape"] = list(shape)
+    return row
+
+
 CHECK_CASES = {   # verify recipe: b = 64 > d = 20 for distributed-avg
     "oversketch": {}, "sjlt": {"sketch_family": "sjlt"},
     "srht": {"sketch_family": "srht"},
@@ -496,6 +614,9 @@ CHECK_CASES = {   # verify recipe: b = 64 > d = 20 for distributed-avg
                      "sketch_family": "sjlt"},
     "distavg_srht": {"sketch_mode": "distributed-avg", "debias": True,
                      "sketch_family": "srht"},
+    "gaussian": {"sketch_family": "gaussian"},
+    "nystrom": {"sketch_family": "nystrom"},
+    "leverage": {"sketch_family": "leverage"},
 }
 
 
@@ -685,14 +806,24 @@ def main() -> int:
         sketching.get("sjlt", dcfg).sample(draw, n, device=dev),
         DISTAVG_BLOCK)
     small = check_small_cases(ops, ref, dev)
-    del a
+    nystrom = sketching.get("nystrom", scfg)
+    a_t = nystrom.apply(nystrom.sample(draw, n, device=dev), a)
+    count_gram = rows["oversketch_gram"]
+    rows["oversketch_gram"] = check_nystrom_gram(ops, ref, a, a_t, mask)
+    del a, a_t
+    gauss = sketching.get("gaussian", scfg).sample(draw, n, device=dev)
+    rows["normal"] = check_normal(ops, prng, gauss["keys"][0], (n, b), dev)
     torch.cuda.empty_cache()
+    coded_rows = check_coded(ops, ref, data, b, dev)
+    rows["coded_block_matvec"] = coded_rows["XT"]
     emit({"phase": "kernels", "shapes": {"K": scfg.total_blocks, "n": n,
                                          "d": d, "b": b, "masked": 30,
                                          "sjlt_s": 4, "distavg_K":
                                          dcfg.total_blocks, "distavg_b":
                                          DISTAVG_BLOCK},
-          "rows": rows, "b4096": large, "small_cases_max_abs_err": small,
+          "rows": rows, "coded_X": coded_rows["X"],
+          "oversketch_gram_count_sketch": count_gram, "b4096": large,
+          "small_cases_max_abs_err": small,
           "tolerance_rel": REL_TOL, "seconds": time.perf_counter() - t0})
 
     # The main path: counts set to 0 just before, read just after.
@@ -700,7 +831,8 @@ def main() -> int:
                             use_kernels=True, track_test_error=True,
                             seed=SEED)
     paths = {"newton": run_path(core, ops, objective, data, w0, cfg,
-                                "newton", {"sketch_gram_count": ITERS})}
+                                "newton", {"sketch_gram_count": ITERS,
+                                           "coded_block_matvec": 2 * ITERS})}
 
     # Where the time goes: the main path once more under torch.profiler
     # (its launches come after the counts were read).
@@ -712,11 +844,19 @@ def main() -> int:
     # counted on its own.
     base = dict(iters=PATH_ITERS, gradient_policy="coded", use_kernels=True,
                 seed=SEED)
-    for fam in ("sjlt", "srht"):
+    coded_launches = {"coded_block_matvec": 2 * PATH_ITERS}
+    k = scfg.total_blocks
+    for fam, expect in (
+            ("sjlt", {"sketch_gram_sjlt": PATH_ITERS}),
+            ("srht", {"sketch_gram_srht": PATH_ITERS}),
+            ("nystrom", {"oversketch_gram": PATH_ITERS}),
+            ("leverage", {"oversketch_gram": PATH_ITERS}),
+            ("gaussian", {"oversketch_gram": PATH_ITERS,
+                          "normal": k * PATH_ITERS})):
         paths[f"families_{fam}"] = run_path(
             core, ops, objective, data, w0,
             core.NewtonConfig(sketch=scfg, sketch_family=fam, **base),
-            f"families_{fam}", {f"sketch_gram_{fam}": PATH_ITERS})
+            f"families_{fam}", {**expect, **coded_launches})
     k_d = dcfg.total_blocks
     for fam, expect in (("oversketch", {"count_sketch_apply": PATH_ITERS}),
                         ("sjlt", {"count_sketch_apply": PATH_ITERS}),
@@ -727,7 +867,7 @@ def main() -> int:
             core.NewtonConfig(sketch=dcfg, sketch_family=fam,
                               sketch_mode="distributed-avg", debias=True,
                               **base),
-            f"distavg_{fam}", expect)
+            f"distavg_{fam}", {**expect, **coded_launches})
     del data
     torch.cuda.empty_cache()
 
@@ -741,11 +881,17 @@ def main() -> int:
                              "check phase's distributed-avg srht run")
 
     # Each kernel's numbers at the shape its full-width path launches it:
-    # count_sketch_apply at b = 4,096 (distributed-avg), with its other
-    # shapes beside; fwht's one-pass kernel at its largest n, 4,096.
-    rows["count_sketch_apply"], other = large["count_sketch_apply"], {
+    # count_sketch_apply at b = 4,096 (distributed-avg), the coded mat-vec
+    # at the X^T encode, the masked Gram at nystrom's A_tilde, each with its
+    # other shapes beside; fwht's one-pass kernel at its largest n, 4,096.
+    rows["count_sketch_apply"], cs_b256 = large["count_sketch_apply"], \
+        rows["count_sketch_apply"]
+    other = {"count_sketch_apply": {
         "distavg_sjlt (layered, s = 4)": large["count_sketch_apply_sjlt"],
-        "b256_K150 (no path)": rows["count_sketch_apply"]}
+        "b256_K150 (no path)": cs_b256},
+        "coded_block_matvec": {"X encode (W = 1,296, s = 3,000)":
+                               coded_rows["X"]},
+        "oversketch_gram": {"count-sketch A_tilde (no path)": count_gram}}
     summary = []
     for name, kern in ops.KERNELS.items():
         r = rows[name]
@@ -765,11 +911,14 @@ def main() -> int:
                                         for c in check.values())}
         if name in OFF_PATH:
             entry["off_path"] = OFF_PATH[name]
-        if name == "count_sketch_apply":
+        if name in other:
             entry["other_shapes"] = {
                 k: {f: v[f] for f in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")}
-                for k, v in other.items()}
+                for k, v in other[name].items()}
+        if name == "normal":
+            entry["yardstick_ms"] = r["yardstick_ms"]
+            entry["yardstick"] = r["yardstick"]
         summary.append(entry)
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     emit({"kernels": summary})

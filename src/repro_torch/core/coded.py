@@ -7,6 +7,9 @@ column (row sums), a parity row (column sums) and a corner, giving
 single-parity-check constraint, so a peeling decoder recovers any erasure
 pattern that leaves some line with exactly one missing cell per round.
 Encoding happens once; decoding runs ``grid + 1`` vectorized peel rounds.
+The worker products go through the coded block mat-vec kernel
+(``kernels/coded_matvec.py``) on a CUDA device, and through its plain
+version, the reference's einsum, on the CPU.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import ops as kops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +61,15 @@ def encode_2d(a: torch.Tensor, code: ProductCode) -> torch.Tensor:
     return out
 
 
-def coded_block_products(enc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Every worker's task, its block times x: ((g+1),(g+1),b,s) -> (...,b)."""
+def coded_block_products(enc: torch.Tensor, x: torch.Tensor,
+                         erased: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every worker's task, its block times x: ((g+1),(g+1),b,s) -> (...,b).
+    The ``erased`` ((g+1),(g+1)) workers' blocks are skipped and give 0."""
     g1, _, b, s = enc.shape
-    return (enc.view(-1, s) @ x).view(g1, g1, b)
+    if erased is None:
+        erased = torch.zeros((g1, g1), dtype=torch.bool, device=enc.device)
+    return kops.coded_block_matvec(enc.view(-1, b, s), x,
+                                   erased.reshape(-1)).view(g1, g1, b)
 
 
 def _peel_axis(vals: torch.Tensor, known: torch.Tensor,
@@ -110,11 +120,15 @@ def coded_matvec(enc: torch.Tensor, x: torch.Tensor, code: ProductCode,
                  out_rows: int, erased: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Straggler-resilient matvec from pre-encoded blocks; ``erased`` is the
-    bool ((g+1),(g+1)) straggler mask (True = missing), None for none."""
-    prods = coded_block_products(enc, x)
+    bool ((g+1),(g+1)) straggler mask (True = missing), None for none.  The
+    products' zeros for erased cells change nothing, since the decoder
+    zeroes unknown cells itself."""
+    if erased is not None:
+        erased = erased.to(enc.device)
+    prods = coded_block_products(enc, x, erased)
     if erased is None:
         known = torch.ones(prods.shape[:2], dtype=torch.bool,
                            device=prods.device)
     else:
-        known = ~erased.to(prods.device)
+        known = ~erased
     return decode_matvec(prods, known, code, out_rows)

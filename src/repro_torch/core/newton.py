@@ -4,7 +4,8 @@
 Each iteration:
 
   1. gradient  - exact and straggler-resilient through the 2-D product-coded
-     matvecs of Alg. 1 (``CodedMatvecEngine``);
+     matvecs of Alg. 1 (``CodedMatvecEngine``); on a CUDA device the
+     workers' block products go through the coded block mat-vec kernel;
   2. Hessian   - approximate and straggler-resilient through the blocks of
      a sketch family (Alg. 2, ``_hessian_phase``); with ``use_kernels`` on
      a CUDA device it runs the family's fused sketch -> Gram kernel;

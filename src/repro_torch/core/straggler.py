@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import prng
+from repro_torch.kernels import ops as kops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +38,8 @@ class StragglerModel:
         if flops_per_worker is not None:
             work_per_worker = flops_per_worker / self.flops_per_second
         k1, k2, k3 = prng.split(key, 3)
-        body = torch.exp(self.body_sigma * prng.normal(k1, (num_workers,),
-                                                   device="cpu"))
+        body = prng.exp_f32(self.body_sigma * kops.normal(
+            k1, (num_workers,), device="cpu"))
         is_tail = prng.bernoulli(k2, self.p_tail, (num_workers,),
                                  device="cpu")
         tail = prng.uniform(k3, (num_workers,), self.tail_lo, self.tail_hi,

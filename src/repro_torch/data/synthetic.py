@@ -17,6 +17,7 @@ import torch
 from repro_torch import prng, resolve_device
 from repro_torch.configs.paper import PROFILES, DatasetProfile
 from repro_torch.core.objectives import Dataset
+from repro_torch.kernels import ops as kops
 
 
 def _geomspace(start: float, stop: float, num: int, device) -> torch.Tensor:
@@ -45,8 +46,8 @@ def make_logistic_dataset(key: torch.Tensor, n: int, d: int,
     layout).  Runs on CUDA unless ``device`` says otherwise."""
     device = resolve_device(device)
     kx, kw, kb, ky, kxt, kyt = prng.split(key, 6)
-    w = prng.normal(kw, (d,), device=device)
-    b = prng.normal(kb, (), device=device)
+    w = kops.normal(kw, (d,), device=device)
+    b = kops.normal(kb, (), device=device)
     scales = _geomspace(1.0, 1.0 / max(cond, 1.0), d, device)
 
     def sample(kx_, ky_, m):

@@ -1,0 +1,166 @@
+// normal on Hopper: jax.random.normal's float32 draws, bit for bit the
+// plain version (repro_torch/prng.py::normal_plain), in one grid-stride
+// launch.
+//
+// A kernel of the port alone: it replaces no Pallas kernel.  The reference
+// draws its normals with XLA (jax.random.normal); the plain version
+// reproduces them as ~130 int64 elementwise launches of threefry per 2^24
+// draws, then XLA's erfinv through float64, which is far too slow for the
+// gaussian sketch family's 1.15e10 draws per Newton iteration at full
+// width.  Here each thread hashes its counters and carries one draw through
+// the same float32 operations in registers: output bytes bound it, 4 per
+// draw.
+//
+// Bit-identical by construction, step by step as prng.py computes:
+//   bits   threefry2x32 (20 rounds) of the 64-bit counter i, key (k0, k1),
+//          the two output words XORed (uint32 arithmetic);
+//   u      the mantissa trick, minus 1, then uniform's FMA on
+//          [nextafter(-1, 0), 1) and the max with its lower end;
+//   erfinv XLA's polynomial in w = -log1p(-u u), with log1p and log in
+//          XLA's CPU form (prng.log1p_f32, prng.log_f32);
+//   out    sqrt(2) erfinv(u).
+// Every float32 operation is an explicitly rounded intrinsic (__fadd_rn,
+// __fmul_rn, __fdiv_rn: nothing is contracted into an FMA), every _fma of
+// prng.py is computed as it is there (the product and the sum in float64,
+// then rounded to float32), and the square root is float64's, correctly
+// rounded, then rounded to float32.  The polynomial coefficients and the
+// uniform's bounds come from prng.py at launch (kernels/normal.py packs
+// them), so the two versions cannot drift apart.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+// The packed constants, in kernels/normal.py's order.
+struct Consts {
+  float log_p[9];
+  float log_q1, log_q2, sqrt_half, min_normal;
+  float log1p_small;
+  float log1p_num[7];
+  float log1p_den[7];
+  float erfinv_lt5[9];
+  float erfinv_ge5[9];
+  float lo, scale, sqrt2;
+};
+constexpr int N_CONSTS = sizeof(Consts) / sizeof(float);
+
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ float fma64(float a, float b, float c) {
+  return __double2float_rn(
+      __dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
+}
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint64_t i) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t x0 = (uint32_t)(i >> 32) + ks[0];
+  uint32_t x1 = (uint32_t)i + ks[1];
+#pragma unroll
+  for (int r = 0; r < 5; ++r) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl(x1, rot[r % 2][j]) ^ x0;
+    }
+    x0 += ks[(r + 1) % 3];
+    x1 += ks[(r + 2) % 3] + (uint32_t)(r + 1);
+  }
+  return x0 ^ x1;
+}
+
+__device__ float log_f32(const Consts& c, float x) {
+  const int v = __float_as_int(fmaxf(x, c.min_normal));
+  float m = __int_as_float((v & 0x807FFFFF) | 0x3F000000);
+  float e = __fadd_rn((float)((v >> 23) - 0x7F), 1.0f);
+  const bool low = m < c.sqrt_half;
+  e = __fsub_rn(e, low ? 1.0f : 0.0f);
+  m = __fadd_rn(__fsub_rn(m, 1.0f), low ? m : 0.0f);
+  const float x2 = __fmul_rn(m, m);
+  const float x3 = __fmul_rn(x2, m);
+  const float* p = c.log_p;
+  float y = fma64(m, p[0], p[1]);
+  float y1 = fma64(m, p[3], p[4]);
+  float y2 = fma64(m, p[6], p[7]);
+  y = fma64(y, m, p[2]);
+  y1 = fma64(y1, m, p[5]);
+  y2 = fma64(y2, m, p[8]);
+  y = fma64(y, x3, y1);
+  y = fma64(y, x3, y2);
+  y = fma64(y, x3, __fmul_rn(c.log_q1, e));
+  m = fma64(-0.5f, x2, m);
+  m = fma64(c.log_q2, e, __fadd_rn(m, y));
+  if (fabsf(x) < c.min_normal) m = -INFINITY;
+  if (x == INFINITY) m = INFINITY;
+  if (x < 0.0f || isnan(x)) m = NAN;
+  return m;
+}
+
+__device__ float log1p_f32(const Consts& c, float x) {
+  if (!(fabsf(x) < c.log1p_small)) return log_f32(c, __fadd_rn(x, 1.0f));
+  const float x2 = __fmul_rn(x, x);
+  float num = c.log1p_num[0];
+  float den = c.log1p_den[0];
+#pragma unroll
+  for (int i = 1; i < 7; ++i) {
+    num = fma64(num, x, c.log1p_num[i]);
+    den = fma64(den, x, c.log1p_den[i]);
+  }
+  const float q = __fmul_rn(__fmul_rn(x, x2), __fdiv_rn(num, den));
+  return __fadd_rn(x, fma64(-0.5f, x2, q));
+}
+
+__device__ float erfinv_f32(const Consts& c, float x) {
+  const float w = -log1p_f32(c, __fmul_rn(-x, x));
+  const bool lt = w < 5.0f;
+  const float t =
+      lt ? __fsub_rn(w, 2.5f)
+         : __fsub_rn(__double2float_rn(__dsqrt_rn((double)w)), 3.0f);
+  const float* k = lt ? c.erfinv_lt5 : c.erfinv_ge5;
+  float p = k[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) p = fma64(p, t, k[i]);
+  return fabsf(x) == 1.0f ? __fmul_rn(x, INFINITY) : __fmul_rn(p, x);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    normal_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ consts,
+                  float* __restrict__ out, int64_t size) {
+  __shared__ Consts c;
+  for (int i = threadIdx.x; i < N_CONSTS; i += THREADS)
+    reinterpret_cast<float*>(&c)[i] = consts[i];
+  __syncthreads();
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < size;
+       i += stride) {
+    const uint32_t bits = threefry_bits(k0, k1, (uint64_t)i);
+    const float f = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+    const float u = fmaxf(c.lo, fma64(f, c.scale, c.lo));
+    out[i] = __fmul_rn(c.sqrt2, erfinv_f32(c, u));
+  }
+}
+
+}  // namespace
+
+extern "C" int normal_consts_count() { return N_CONSTS; }
+
+// out[i] = normal draw i of key (k0, k1), i in [0, size).
+extern "C" int normal_launch(uint32_t k0, uint32_t k1, const float* consts,
+                             float* out, long long size, void* stream) {
+  if (size <= 0) return 0;
+  int sms = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = (size + THREADS - 1) / THREADS;
+  const long long cap = (long long)(sms > 0 ? sms : 132) * 8;
+  const int blocks = (int)(want < cap ? want : cap);
+  normal_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      k0, k1, consts, out, (int64_t)size);
+  return (int)cudaGetLastError();
+}

@@ -93,3 +93,10 @@ def sketch_gram_srht(rows: torch.Tensor, sigma: torch.Tensor,
                      a: torch.Tensor, survivors: torch.Tensor) -> torch.Tensor:
     """Unfused apply + Gram: the fused SRHT kernel's plain version."""
     return oversketch_gram(srht_apply(rows, sigma, a), survivors)
+
+
+def coded_block_matvec(enc: torch.Tensor, x: torch.Tensor,
+                       erased: torch.Tensor) -> torch.Tensor:
+    """Per-worker coded block products with the erasure mask: (W, b, s),
+    (s,), (W,) bool -> (W, b), 0 where erased."""
+    return torch.einsum("wbs,s->wb", enc, x).masked_fill(erased[:, None], 0.0)

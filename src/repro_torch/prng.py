@@ -6,7 +6,7 @@ same seed gives the same draws in both packages:
 
   PRNGKey, split, fold_in, key_data          key algebra
   uniform, bernoulli, rademacher, randint,   draws
-  normal
+  normal_plain, choice
 
 The generator is threefry2x32 (20 rounds) in the layout jax uses when
 ``jax_threefry_partitionable`` is on (the default since jax 0.5): element
@@ -23,12 +23,13 @@ counter-based: ``bits[i]`` depends only on ``(key, i)``, so large
 draws are made in chunks of ``CHUNK`` elements and never hold int64
 temporaries for the whole shape.
 
-Every draw is bit-exact against jax on the CPU.  ``normal`` is
+Every draw is bit-exact against jax on the CPU.  ``normal_plain`` is
 ``sqrt(2) * erfinv(u)`` with XLA's float32 erfinv polynomial, its Horner
 steps fused as XLA fuses them, and the ``log1p`` inside it is XLA's CPU
 lowering (``log1p_f32``: a Cephes rational below sqrt(2) - 1, else
 ``log_f32(1 + x)``, the Cephes float32 log XLA emits), in the same
-float32 operations and multiply-add contractions.
+float32 operations and multiply-add contractions.  ``exp_f32`` is XLA's
+CPU float32 exp in the same manner; the fleet's lognormal factor takes it.
 """
 from __future__ import annotations
 
@@ -279,6 +280,35 @@ def log1p_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < _LOG1P_SMALL, small, log_f32(x + 1.0))
 
 
+# XLA's CPU float32 exp (the Cephes expf polynomial, FMA-contracted).
+_EXP_LO, _EXP_HI = float(np.float32(-87.8)), float(np.float32(88.8))
+_LOG2E = float(np.float32(1.44269504088896341))
+_EXP_C1, _EXP_C2 = float(np.float32(-0.693359375)), float(np.float32(2.12194440e-4))
+_EXP_P = tuple(float(np.float32(c)) for c in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1))
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural exp as XLA's CPU backend computes it: x clamped to
+    [-87.8, 88.8], n = floor(x log2(e) + 1/2) clamped to [-127, 127], the
+    remainder r = x - n ln(2) in two parts, a degree-5 polynomial for e^r,
+    scaled by 2^n (exactly, through float64); results below the smallest
+    normal float32 flush to 0, past the largest they are inf, nan stays
+    nan."""
+    xc = x.clamp(_EXP_LO, _EXP_HI)
+    n = torch.floor(_fma(xc, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = _fma(n, _EXP_C1, xc)
+    r = _fma(n, _EXP_C2, r)
+    y = torch.full_like(r, _EXP_P[0])
+    for c in _EXP_P[1:]:
+        y = _fma(y, r, c)
+    y = _fma(y, r * r, r) + 1.0
+    out = (y.double() * torch.pow(2.0, n.double())).float()
+    out = torch.where(out < _MIN_NORMAL, 0.0, out)
+    return torch.where(x.isnan(), x, out)
+
+
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """float32 erfinv by XLA's polynomial, +-inf at +-1."""
     w = -log1p_f32(-x * x)
@@ -296,10 +326,56 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
 
 
-def normal(key: torch.Tensor, shape: Shape = (), *,
-           device=None) -> torch.Tensor:
-    """float32 standard normal draws (``jax.random.normal``)."""
-    device = resolve_device(device)
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0, device=device)
-    return torch.tensor(np.float32(np.sqrt(2.0)), device=device) * erfinv(u)
+# normal's uniform draw is on (nextafter(-1, 0), 1); the result is scaled
+# by the float32 sqrt(2).
+NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal_plain(key: torch.Tensor, shape: Shape, device) -> torch.Tensor:
+    """float32 standard normal draws (``jax.random.normal``) on any device:
+    sqrt(2) erfinv(u).  The entry point is ``kernels.ops.normal``, which
+    takes this on the CPU and the normal kernel on a CUDA device."""
+    u = uniform(key, shape, NORMAL_LO, 1.0, device=device)
+    return torch.tensor(np.float32(SQRT2), device=device) * erfinv(u)
+
+
+def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Sequential float32 running sum along the last axis."""
+    out = x.clone()
+    for j in range(1, x.shape[-1]):
+        out[..., j] += out[..., j - 1]
+    return out
+
+
+def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sum of a 1-D tensor in the order of XLA's
+    CPU ``jnp.cumsum``: rows of 16 (zero-padded at the end) summed in
+    order, the row totals' prefix by the same scheme (in order once 16 or
+    fewer remain), and each row's exclusive prefix added to it.  The same
+    float32 adds on every device; never ``torch.cumsum``, which accumulates
+    in float64 on the CPU."""
+    n = x.shape[0]
+    if n <= 16:
+        return _cumsum_rows(x)
+    rows = x.new_zeros((-(-n // 16), 16))
+    rows.view(-1)[:n] = x
+    rows = _cumsum_rows(rows)
+    totals = cumsum_f32(rows[:, -1].contiguous())
+    rows[1:] += totals[:-1, None]
+    return rows.view(-1)[:n]
+
+
+def choice(key: torch.Tensor, n: int, shape: Shape,
+           p: torch.Tensor) -> torch.Tensor:
+    """int32 indices in [0, n) drawn with replacement with probabilities
+    ``p`` (``jax.random.choice(key, n, shape, replace=True, p=p)``), on
+    p's device: the uniform draw inverted through p's float32 prefix sum
+    (``cumsum_f32``) with a left-sided search."""
+    if p.shape != (int(n),):
+        raise ValueError(f"p must have shape ({n},), got {tuple(p.shape)}")
+    p_cuml = cumsum_f32(p.to(torch.float32))
+    shape = _shape(shape)
+    r = p_cuml[-1] * (1.0 - uniform(key, shape, device=p.device))
+    ind = torch.searchsorted(p_cuml, r.reshape(-1), side="left")
+    return ind.to(torch.int32).reshape(shape)

@@ -10,7 +10,11 @@ from repro_torch.sketching.debias import (debias_direction, mp_factor,
 from repro_torch.sketching.oversketch import OverSketchFamily
 from repro_torch.sketching.sjlt import SJLTFamily
 from repro_torch.sketching.srht import SRHTFamily
+from repro_torch.sketching.gaussian import GaussianFamily
+from repro_torch.sketching.nystrom import NystromFamily
+from repro_torch.sketching.leverage import LeverageFamily
 
 __all__ = ["SketchFamily", "available", "get", "register",
            "debias_direction", "mp_factor", "mp_stalled", "rows_for_target",
-           "next_pow2", "OverSketchFamily", "SJLTFamily", "SRHTFamily"]
+           "next_pow2", "OverSketchFamily", "SJLTFamily", "SRHTFamily",
+           "GaussianFamily", "NystromFamily", "LeverageFamily"]

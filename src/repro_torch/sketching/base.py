@@ -16,10 +16,11 @@ family:
       form for every d, so it never reports the reference's "fused_tiled"
   block_flops / comm_units  per-worker cost for the fleet clock
 
-Every ported family (oversketch, sjlt, srht) has a fused Gram.  The
-unfused branch of ``gram`` and ``fused_path``'s "unfused" mirror the
-reference's protocol for the families still to port (gaussian, nystrom,
-leverage), which form A_tilde and take ``oversketch_gram``.
+The oversketch, sjlt and srht families have a fused Gram.  The gaussian,
+nystrom and leverage families have none, as in the reference: on the
+kernel path ``gram`` forms A_tilde with their ``apply`` and takes the
+masked-Gram kernel ``oversketch_gram``, and ``fused_path`` says
+"unfused".
 """
 from __future__ import annotations
 

@@ -1,6 +1,5 @@
 """String-keyed registry of sketch families; port of
-``repro/sketching/registry.py``.  The reference's families that are not
-ported yet raise until their port lands."""
+``repro/sketching/registry.py``."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Type
@@ -9,9 +8,6 @@ from repro_torch.core.sketch import OverSketchConfig
 from repro_torch.sketching.base import SketchFamily
 
 _FAMILIES: Dict[str, Type[SketchFamily]] = {}
-
-# Families of the reference that the port does not have yet.
-NOT_PORTED = ("gaussian", "leverage", "nystrom")
 
 
 def register(name: str) -> Callable[[Type[SketchFamily]], Type[SketchFamily]]:
@@ -26,10 +22,6 @@ def register(name: str) -> Callable[[Type[SketchFamily]], Type[SketchFamily]]:
 
 def get(name: str, cfg: OverSketchConfig, **kwargs) -> SketchFamily:
     """Instantiate family ``name`` with the shared dimension config."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"sketch family {name!r} is not ported yet (ROADMAP Queue 1 "
-            "item 8); available: " + ", ".join(available()))
     try:
         cls = _FAMILIES[name]
     except KeyError:

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -90,12 +91,18 @@ def test_launches_are_counted(cuda):
     ops.count_sketch_apply(h, sigma, a, 32)
     ops.fwht(torch.zeros((1, 8192, 3), device=cuda))   # the two-pass form
     ops.fwht(torch.zeros((1, 64, 3), device=cuda))
+    ops.coded_block_matvec(torch.zeros((2, 3, 8), device=cuda),
+                           torch.zeros(8, device=cuda),
+                           torch.zeros(2, dtype=torch.bool, device=cuda))
+    ops.normal(prng.PRNGKey(0), (5,), cuda)
     assert ops.launch_counts() == {"sketch_gram_count": 2,
                                    "count_sketch_apply": 1,
                                    "oversketch_gram": 0,
+                                   "coded_block_matvec": 1,
                                    "sketch_gram_sjlt": 0,
                                    "sketch_gram_srht": 0,
-                                   "fwht": 1, "fwht_two_pass": 1}
+                                   "fwht": 1, "fwht_two_pass": 1,
+                                   "normal": 1}
 
 
 # Past b ~ 1,680 one (b x 32) tile no longer fits: the bucket-split apply.
@@ -189,6 +196,66 @@ def test_fwht_forms_match_the_butterfly(cuda, k, n, d):
                                atol=1e-4)
 
 
+# (W, b, s): s % 4 != 0 takes scalar loads; one worker; s below, at and
+# far past one tile of 1,024.
+@pytest.mark.parametrize("w,b,s", [(9, 16, 700), (1, 256, 3000), (25, 37, 5001),
+                                   (6, 3, 7), (4, 256, 1024), (3, 64, 100003)])
+def test_coded_block_matvec(cuda, w, b, s):
+    g = torch.Generator().manual_seed(s)
+    enc = torch.randn(w, b, s, generator=g).to(cuda)
+    x = torch.randn(s, generator=g).to(cuda)
+    erased = (torch.arange(w) % 3 == 1).to(cuda)
+    got = ops.coded_block_matvec(enc, x, erased)
+    want = ref.coded_block_matvec(enc, x, erased)
+    assert _rel_err(got, want) < REL_TOL
+    assert not got[erased].any()
+    # One fixed order of summation: the same bits on every call.
+    torch.testing.assert_close(ops.coded_block_matvec(enc, x, erased), got,
+                               rtol=0, atol=0)
+    none = torch.zeros(w, dtype=torch.bool, device=cuda)
+    assert _rel_err(ops.coded_block_matvec(enc, x, none),
+                    ref.coded_block_matvec(enc, x, none)) < REL_TOL
+
+
+@pytest.mark.parametrize("shape", [(0,), (1,), (1000,), (3, 4097),
+                                   (1 << 20) + 3])
+def test_normal_kernel_is_the_plain_version_bit_for_bit(cuda, shape):
+    key = prng.fold_in(prng.PRNGKey(5), 3)
+    got = ops.normal(key, shape, cuda)
+    want = prng.normal_plain(key, shape, cuda)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.cpu().view(torch.int32),
+                       prng.normal_plain(key, shape, "cpu").view(torch.int32))
+    assert torch.equal(ops.normal(key, shape).view(torch.int32),
+                       got.view(torch.int32))
+
+
+@pytest.mark.parametrize("family", ["gaussian", "nystrom", "leverage"])
+@pytest.mark.parametrize("mask", MASKS)
+def test_unfused_family_grams(cuda, family, mask):
+    """A_tilde from the family's apply on the card, then the masked-Gram
+    kernel, against the plain Gram of the same A_tilde."""
+    from repro_torch import sketching
+    from repro_torch.core import OverSketchConfig
+    cfg = OverSketchConfig(256, 64, 0.25)
+    fam = sketching.get(family, cfg)
+    a = torch.randn(3000, 45, generator=torch.Generator().manual_seed(1)).to(cuda)
+    state = fam.sample(prng.PRNGKey(4), 3000, device=cuda)
+    m = _mask(mask, cfg.total_blocks, cuda)
+    ops.reset_launch_counts()
+    got = fam.gram(state, a, m, use_kernels=True)
+    assert ops.launch_counts()["oversketch_gram"] == 1
+    assert ops.launch_counts()["normal"] == (
+        cfg.total_blocks if family == "gaussian" else 0)
+    if mask == "none":
+        assert not got.any()
+        return
+    want = ref.oversketch_gram(fam.apply(state, a), m)
+    assert _rel_err(got, want) < REL_TOL
+    torch.testing.assert_close(got, got.T, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("overrides", [
     dict(),
     dict(sketch_family="sjlt"),
@@ -196,9 +263,12 @@ def test_fwht_forms_match_the_butterfly(cuda, k, n, d):
     dict(sketch_mode="distributed-avg", debias=True),
     dict(sketch_mode="distributed-avg", debias=True, sketch_family="sjlt"),
     dict(sketch_mode="distributed-avg", debias=True, sketch_family="srht"),
+    dict(sketch_family="gaussian"),
+    dict(sketch_family="nystrom"),
+    dict(sketch_family="leverage"),
+    dict(gradient_policy="wait_all"),
 ])
 def test_newton_on_the_card_matches_the_plain_path(cuda, overrides):
-    from repro_torch import prng
     from repro_torch.core import (LogisticRegression, NewtonConfig,
                                   OverSketchConfig, oversketched_newton)
     from repro_torch.data import make_logistic_dataset

@@ -24,7 +24,9 @@ def _modules():
 def test_port_imports_neither_jax_nor_repro():
     names = _modules()
     for name in ("core.newton", "kernels.sketch_gram", "kernels.srht",
-                 "sketching.sjlt", "sketching.srht", "sketching.debias"):
+                 "kernels.coded_matvec", "kernels.normal", "sketching.sjlt",
+                 "sketching.srht", "sketching.debias", "sketching.gaussian",
+                 "sketching.nystrom", "sketching.leverage"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
@@ -48,6 +50,7 @@ def test_entry_points_raise_without_a_device():
                                   OverSketchConfig, oversketched_newton,
                                   sample_countsketch)
     from repro_torch.data import make_logistic_dataset, profile_dataset
+    from repro_torch.kernels import ops
     key = prng.PRNGKey(0)
     cfg = OverSketchConfig(64, 32)
     data = Dataset(x=torch.zeros(8, 2), y=torch.ones(8))
@@ -61,11 +64,14 @@ def test_entry_points_raise_without_a_device():
         lambda: sketching.get("oversketch", cfg).sample(key, 8),
         lambda: sketching.get("sjlt", cfg).sample(key, 8),
         lambda: sketching.get("srht", cfg).sample(key, 8),
+        lambda: sketching.get("gaussian", cfg).sample(key, 8),
+        lambda: sketching.get("nystrom", cfg).sample(key, 8),
+        lambda: sketching.get("leverage", cfg).sample(key, 8),
         lambda: prng.uniform(key, (3,)),
         lambda: prng.bernoulli(key, 0.5, (3,)),
         lambda: prng.rademacher(key, (3,)),
         lambda: prng.randint(key, (3,), 0, 4),
-        lambda: prng.normal(key, (3,)),
+        lambda: ops.normal(key, (3,)),
         lambda: convert.vector(np.zeros(2)),
         lambda: convert.dataset(np.zeros((8, 2)), np.ones(8)),
     ]

@@ -177,6 +177,34 @@ def test_sjlt_and_srht_apply_match_reference(k, n, d, b, drop):
         rtol=RTOL, atol=ATOL)
 
 
+CODED_CASES = [  # (W, b, s, erased workers)
+    (9, 16, 700, [2, 5]),        # s not a multiple of the Pallas tile (512)
+    (1, 8, 130, []),             # one worker
+    (4, 5, 1030, [0, 1, 2, 3]),  # every worker erased
+    (6, 3, 7, [5]),              # s below one tile
+]
+
+
+@pytest.mark.parametrize("w,b,s,erased", CODED_CASES)
+def test_coded_block_matvec_matches_pallas(w, b, s, erased):
+    rng = np.random.default_rng(w * s)
+    enc = rng.standard_normal((w, b, s)).astype(np.float32)
+    x = rng.standard_normal(s).astype(np.float32)
+    er = np.zeros(w, bool)
+    er[erased] = True
+    want = np.asarray(jops.coded_block_matvec(jnp.asarray(enc), jnp.asarray(x),
+                                              jnp.asarray(er)))
+    got = ops.coded_block_matvec(torch.from_numpy(enc), torch.from_numpy(x),
+                                 torch.from_numpy(er)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert not got[er].any()
+    np.testing.assert_allclose(
+        got, np.asarray(jref.coded_block_matvec(jnp.asarray(enc),
+                                                jnp.asarray(x),
+                                                jnp.asarray(er))),
+        rtol=RTOL, atol=ATOL)
+
+
 def test_fused_plain_version_is_apply_then_gram():
     h, sigma, a = (torch.from_numpy(x) for x in _inputs(1, 7, 150, 30, 32))
     m = torch.tensor([True, False, True, True, False, True, True])
@@ -206,6 +234,9 @@ def test_tensors_off_the_cpu_never_take_the_plain_version():
     for fn in (ops.fwht, ops.fwht_two_pass):
         with pytest.raises(ValueError, match="CUDA device"):
             fn(torch.zeros((2, 64, 4), device="meta"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.coded_block_matvec(torch.zeros((3, 8, 10), device="meta"),
+                               sigma[0], m)
     assert ops.launch_counts() == before
 
 
@@ -230,5 +261,6 @@ def test_launch_counts_reset():
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
     assert set(ops.KERNELS) == {"sketch_gram_count", "count_sketch_apply",
-                                "oversketch_gram", "sketch_gram_sjlt",
-                                "sketch_gram_srht", "fwht", "fwht_two_pass"}
+                                "oversketch_gram", "coded_block_matvec",
+                                "sketch_gram_sjlt", "sketch_gram_srht",
+                                "fwht", "fwht_two_pass", "normal"}

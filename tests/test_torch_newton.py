@@ -79,10 +79,10 @@ def _assert_same_history(rj, rt):
         np.testing.assert_allclose(ht[k], hj[k], rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(rt.w.numpy(), np.asarray(rj.w), rtol=1e-4,
                                atol=1e-6)
-    # Simulated seconds and dollars: every fleet draw is bit-exact, but the
-    # lognormal body factor's exp is torch's, not XLA's, hence a tolerance.
+    # Simulated seconds and dollars, bit for bit: every fleet draw is
+    # bit-exact and the lognormal body factor takes XLA's float32 exp.
     for k in ("time", "cost"):
-        np.testing.assert_allclose(ht[k], hj[k], rtol=1e-5)
+        assert ht[k] == [float(v) for v in hj[k]], k
     np.testing.assert_allclose(ht["test_error"], hj["test_error"],
                                atol=1.5 / 200)
 
@@ -121,6 +121,29 @@ def test_lifecycle_fleet_matches_reference(data):
 @pytest.mark.parametrize("schedule", ["dag", "sequential"])
 def test_sketch_families_match_reference(data, family, schedule):
     rj, rt = _run(data, sketch_family=family, schedule=schedule)
+    _assert_same_history(rj, rt)
+
+
+@pytest.mark.parametrize("family", ["gaussian", "nystrom", "leverage"])
+def test_unfused_families_match_reference(data, family):
+    """The families without a fused Gram: apply, then the masked-Gram
+    kernel's path.  Leverage's rows are drawn from the port's own QR; at
+    this size they agree with the reference's."""
+    rj, rt = _run(data, sketch_family=family)
+    _assert_same_history(rj, rt)
+
+
+@pytest.mark.parametrize("model,overrides", [
+    ("default", {}),
+    ("fleet", dict(schedule="sequential")),
+    (THINNED, dict(iters=3)),
+])
+def test_coded_kernel_matches_reference(data, model, overrides):
+    """The coded products by the coded block mat-vec, erased workers
+    skipped: the reference's history, on fleets whose erasures the decoder
+    peels and on one whose exhausted phases force the re-execution
+    fallback."""
+    rj, rt = _run(data, model=model, **overrides)
     _assert_same_history(rj, rt)
 
 

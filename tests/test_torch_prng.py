@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from repro_torch import convert, prng
+from repro_torch.kernels import ops
 
 torch.set_num_threads(1)
 
@@ -90,7 +91,7 @@ def test_normal_within_stated_bound():
     """The stated bound is now zero: 2^20 draws equal jax's bit for bit."""
     jk, tk = _pair(3)
     ref = np.asarray(jax.random.normal(jk, (1 << 20,)))
-    got = prng.normal(tk, (1 << 20,), device="cpu").numpy()
+    got = ops.normal(tk, (1 << 20,), device="cpu").numpy()
     np.testing.assert_array_equal(got, ref)
 
 
@@ -122,3 +123,68 @@ def test_key_data_seeds_identical_numpy_streams():
         np.asarray(jax.random.key_data(jk), dtype=np.uint32).ravel().tolist())
     b = np.random.default_rng(prng.key_data(tk).ravel().tolist())
     np.testing.assert_array_equal(a.random(100), b.random(100))
+
+
+def _every_float32(lo, hi):
+    """Every float32 in [lo, hi), both bounds of one sign."""
+    a, b = np.float32(abs(lo)).view(np.int32), np.float32(abs(hi)).view(np.int32)
+    bits = np.arange(min(a, b), max(a, b), dtype=np.int32)
+    return (bits.view(np.float32) * np.float32(np.sign(lo + hi))).astype(
+        np.float32)
+
+
+def test_exp_matches_xla_bit_for_bit():
+    """2^20 values of the fleet's lognormal exponent (0.08 N(0, 1)) and
+    2^20 uniform on [-80, 80], every float32 near both ends of the range
+    (the clamps, n = 127 and 128 near overflow, the flush to zero), the
+    infinities, nan and subnormals, all equal to jnp.exp bit for bit."""
+    rng = np.random.default_rng(5)
+    x = np.concatenate([
+        0.08 * rng.standard_normal(1 << 20), rng.uniform(-80, 80, 1 << 20),
+        _every_float32(88.0, 89.0), _every_float32(-88.5, -87.0),
+        [0.0, -0.0, 1e-45, -1e-45, 1e-39, np.inf, -np.inf, np.nan, 3.4e38,
+         -3.4e38, 88.72283, 88.72284, -87.33654, -87.33655]]).astype(np.float32)
+    want = np.asarray(jnp.exp(jnp.asarray(x)))
+    got = prng.exp_f32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 257, 4097, 300_000])
+def test_cumsum_matches_jnp_bit_for_bit(n):
+    rng = np.random.default_rng(n)
+    for x in (rng.random(n), rng.random(n) ** 4 / n,
+              rng.standard_normal(n)):
+        x = x.astype(np.float32)
+        np.testing.assert_array_equal(
+            prng.cumsum_f32(torch.from_numpy(x)).numpy(),
+            np.asarray(jnp.cumsum(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("n,shape", [(1, (5,)), (50, (7, 9)),
+                                     (4000, (30, 64)), (300, (1000,))])
+def test_choice_matches_jax_given_the_same_p(n, shape):
+    """Bit for bit: the same indices from the same key and probabilities
+    (a few of them zero, never drawn)."""
+    rng = np.random.default_rng(n)
+    p = (rng.random(n) ** 3).astype(np.float32)
+    p[1::7] = 0.0
+    p = (p / p.sum()).astype(np.float32)
+    jk, tk = _pair(n)
+    want = np.asarray(jax.random.choice(jk, n, shape, replace=True,
+                                        p=jnp.asarray(p)))
+    got = prng.choice(tk, n, shape, torch.from_numpy(p))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not np.isin(got.numpy(), np.flatnonzero(p == 0)).any()
+    with pytest.raises(ValueError, match="p must have shape"):
+        prng.choice(tk, n + 1, shape, torch.from_numpy(p))
+
+
+def test_normal_entry_point_is_the_plain_version_on_the_cpu():
+    key = prng.PRNGKey(11)
+    want = prng.normal_plain(key, (3, 1000), "cpu")
+    np.testing.assert_array_equal(ops.normal(key, (3, 1000),
+                                             device="cpu").numpy(),
+                                  want.numpy())
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        ops.normal(key, (3,), "meta")
