@@ -21,9 +21,15 @@ with its seconds:
            (256, 3,000); X^T: 25 of (256, 300,000)) with 5% of the workers
            erased, the normal kernel at one gaussian block (300,000 x 256),
            bit for bit), plus small cases (ragged, all masked, a
-           non-power-of-two n, b = 4,096, the one-pass FWHT); times of
+           non-power-of-two n, b = 4,096, the one-pass FWHT, and skewed
+           codes for the segment-sum kernels: one bucket, half the buckets
+           empty, out-of-range buckets, sigma other than +-1); times of
            kernel, plain version and a PyTorch yardstick, and the bound the
-           card's peaks give
+           card's peaks give.  The segment-sum apply's two phases (the sort
+           by bucket, then the gather) are timed apart from a profiler
+           trace of three launches, the SJLT Gram's apply and Gram halves
+           by their own calls, and each segment-sum kernel is launched
+           twice for the same bits
   newton   oversketched_newton at full width with the kernels, 3
            iterations (the oversketch family); launch counts read just
            before and after
@@ -75,6 +81,9 @@ CODED_ERASED = 0.05     # share of coded workers erased in the kernel check
 # and polynomial 19 (its sqrt branch one more), sqrt(2) 1.  The threefry
 # hash's ~120 integer operations are not counted.
 NORMAL_FLOPS = 56
+# The segment-sum apply's two phases, timed apart where a row has them,
+# and the launches of the profiler trace they were read from.
+PHASES = ("sort_ms", "gather_ms", "launches_traced")
 # Kernels that no ported path launches, and why; every other kernel must
 # be launched by some path's run.
 OFF_PATH = {"fwht": "at full width (n_pad = 2^19) the fwht entry point "
@@ -145,6 +154,60 @@ def compare(name: str, got, want, zero_ok: bool = False) -> dict:
             "entries_differing": int((got != want).sum())}
 
 
+def same_bits(name: str, fn, got) -> bool:
+    """A second launch of a kernel must give the first one's bits."""
+    import torch
+    if not torch.equal(fn(), got):
+        raise AssertionError(f"{name}: two launches differ")
+    return True
+
+
+def dev_us(e) -> float:
+    """A profiler event's own device microseconds."""
+    return float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+
+
+# Kernel names of the apply's sort (with its memset) and its gather.
+SORT_KERNELS = ("cs_hist", "cs_scan", "cs_scatter", "Memset")
+
+
+def phase_times(h, sigma, a, b, reps: int = 3) -> dict:
+    """The apply's two phases apart, read from a torch.profiler trace of
+    reps counted launches: the sort by bucket (its memset and the
+    histogram, scan and scatter kernels) and the gather, each kernel's
+    mean over the launches the trace holds.  On the H100 machine a trace
+    taken after two others in one process can miss the first launch (a
+    single launch then leaves none), so the row says how many it held."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.25)
+        for _ in range(reps):
+            ops.count_sketch_apply(h, sigma, a, b)
+        torch.cuda.synchronize()
+        time.sleep(0.25)
+    us, counts = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((t for t in (*SORT_KERNELS, "cs_gather") if t in e.key),
+                    None)
+        if name is not None:
+            us[name] = us.get(name, 0.0) + dev_us(e)
+            counts[name] = counts.get(name, 0) + e.count
+    if any(counts.get(t, 0) == 0 for t in ("cs_hist", "cs_scan",
+                                            "cs_scatter", "cs_gather")):
+        raise AssertionError(f"the profiler traced none of some of the "
+                             f"apply's kernels: {counts}")
+    return {"sort_ms": sum(us[t] / counts[t] for t in SORT_KERNELS
+                           if t in us) / 1e3,
+            "gather_ms": us["cs_gather"] / counts["cs_gather"] / 1e3,
+            "launches_traced": counts["cs_gather"]}
+
+
 def sketch_matrix(h, sigma, live, b: int, n: int):
     """The live blocks' count sketches as one sparse (live*b, n) matrix."""
     import torch
@@ -171,8 +234,12 @@ def check_kernels(ops, ref, h, sigma, a, mask, b) -> dict:
     got = ops.count_sketch_apply(h, sigma, a, b)
     a_t = ref.count_sketch_apply(h, sigma, a, b)
     row = compare("count_sketch_apply", got, a_t)
+    row["bit_identical"] = same_bits(
+        "count_sketch_apply", lambda: ops.count_sketch_apply(h, sigma, a, b),
+        got)
     del got
     row["ms"] = cuda_ms(lambda: ops.count_sketch_apply(h, sigma, a, b), 3)
+    row.update(phase_times(h, sigma, a, b))
     row["plain_ms"] = cuda_ms(lambda: ref.count_sketch_apply(h, sigma, a, b), 1)
     s_all = sketch_matrix(h, sigma, torch.arange(k, device=h.device), b, n)
     row["library_ms"] = cuda_ms(lambda: torch.sparse.mm(s_all, a), 3)
@@ -200,6 +267,9 @@ def check_kernels(ops, ref, h, sigma, a, mask, b) -> dict:
     # sketch_gram_count: the fused path, as the main path calls it.
     got = ops.sketch_gram_count(h, sigma, a, b, mask)
     row = compare("sketch_gram_count", got, ref.oversketch_gram(a_t, mask))
+    row["bit_identical"] = same_bits(
+        "sketch_gram_count",
+        lambda: ops.sketch_gram_count(h, sigma, a, b, mask), got)
     del a_t
     row["ms"] = cuda_ms(lambda: ops.sketch_gram_count(h, sigma, a, b, mask), 3)
     row["plain_ms"] = cuda_ms(
@@ -262,6 +332,9 @@ def check_family_kernels(ops, ref, a, sjlt, srht, mask, b) -> dict:
     want, plain_ms = timed_once(lambda: ref.sketch_gram_sjlt(h, sg, a, b,
                                                              mask))
     row = compare("sketch_gram_sjlt", got, want)
+    row["bit_identical"] = same_bits(
+        "sketch_gram_sjlt", lambda: ops.sketch_gram_sjlt(h, sg, a, b, mask),
+        got)
     del got, want
     row["ms"] = cuda_ms(lambda: ops.sketch_gram_sjlt(h, sg, a, b, mask), 3,
                         warm=False)
@@ -278,6 +351,42 @@ def check_family_kernels(ops, ref, a, sjlt, srht, mask, b) -> dict:
         float(kl) * (2.0 * s * n * d + b * d * (d + 1)),
         4.0 * (n * d + 2 * kl * s * n + d * d) + k)
     out["sketch_gram_sjlt"] = row
+
+    # The fused call's two halves apart: the layered apply of its live
+    # blocks (count_sketch_apply on their (K_live, s, n) codes, the same
+    # sort and gather), then the Gram of that A_tilde.
+    hl, sl = h[live].contiguous(), sg[live].contiguous()
+    a_t = ops.count_sketch_apply(hl, sl, a, b)
+    want, plain_ms = timed_once(lambda: ref.sjlt_apply(hl, sl, a, b))
+    app = compare("count_sketch_apply sjlt b=256", a_t, want)
+    del want
+    app["bit_identical"] = same_bits(
+        "count_sketch_apply sjlt b=256",
+        lambda: ops.count_sketch_apply(hl, sl, a, b), a_t)
+    app["ms"] = cuda_ms(lambda: ops.count_sketch_apply(hl, sl, a, b), 3)
+    app.update(phase_times(hl, sl, a, b))
+    app["plain_ms"] = plain_ms
+    s_live = sjlt_matrix(h, sg, live, b, n)
+    app["library_ms"] = cuda_ms(lambda: torch.sparse.mm(s_live, a), 3)
+    app["library_call"] = "torch.sparse.mm(CSR SJLT (K_live*b, n), A)"
+    del s_live
+    app["bound_ms"], app["bound_by"] = bound(
+        2.0 * kl * s * n * d, 4.0 * (n * d + 2 * kl * s * n + kl * b * d))
+    app["shape"] = {"K": kl, "s": s, "n": n, "d": d, "b": b}
+    out["sjlt_apply"] = app
+    ones = torch.ones(kl, dtype=torch.bool, device=a.device)
+    gram = compare("oversketch_gram sjlt A_tilde", ops.oversketch_gram(
+        a_t, ones), ref.oversketch_gram(a_t, ones))
+    gram["ms"] = cuda_ms(lambda: ops.oversketch_gram(a_t, ones), 3)
+    gram["plain_ms"] = cuda_ms(lambda: ref.oversketch_gram(a_t, ones), 3)
+    x_live = a_t.reshape(-1, d)
+    gram["library_ms"] = cuda_ms(lambda: torch.mm(x_live.T, x_live), 3)
+    gram["bound_ms"], gram["bound_by"] = bound(
+        float(kl) * b * d * (d + 1), 4.0 * (kl * b * d + d * d) + kl)
+    gram["shape"] = {"K": kl, "b": b, "d": d}
+    out["sjlt_gram"] = gram
+    del a_t, x_live, hl, sl
+    torch.cuda.empty_cache()
 
     rows, sg = srht["rows"], srht["sigma"]
     got = ops.sketch_gram_srht(rows, sg, a, mask)
@@ -355,21 +464,27 @@ def check_fwht(ops, ref, a, sigma_k) -> dict:
 
 
 def check_large_block(ops, ref, a, cs, sj, b) -> dict:
-    """count_sketch_apply and sketch_gram_count at b = 4,096 (the bucket-
-    split apply) on the distributed-avg path's first draw (K = 10), and
+    """count_sketch_apply and sketch_gram_count at b = 4,096 (the sorted-
+    gather apply) on the distributed-avg path's first draw (K = 10), and
     count_sketch_apply's layered form on the SJLT draw (K = 10, s = 4), as
-    the distributed-avg SJLT path applies it."""
+    the distributed-avg SJLT path applies it; the sort timed apart from the
+    gather, and each kernel launched twice for the same bits."""
     import torch
     n, d = a.shape
     out = {}
     h, sg = sj["h"], sj["sigma"]
     k, s, _ = h.shape
     want, plain_ms = timed_once(lambda: ref.sjlt_apply(h, sg, a, b))
-    row = compare("count_sketch_apply sjlt b=4096",
-                  ops.count_sketch_apply(h, sg, a, b), want)
+    got = ops.count_sketch_apply(h, sg, a, b)
+    row = compare("count_sketch_apply sjlt b=4096", got, want)
     del want
+    row["bit_identical"] = same_bits(
+        "count_sketch_apply sjlt b=4096",
+        lambda: ops.count_sketch_apply(h, sg, a, b), got)
+    del got
     row["ms"] = cuda_ms(lambda: ops.count_sketch_apply(h, sg, a, b), 3,
                         warm=False)
+    row.update(phase_times(h, sg, a, b))
     row["plain_ms"] = plain_ms
     s_all = sjlt_matrix(h, sg, torch.arange(k, device=h.device), b, n)
     row["library_ms"] = cuda_ms(lambda: torch.sparse.mm(s_all, a), 3)
@@ -385,10 +500,15 @@ def check_large_block(ops, ref, a, cs, sj, b) -> dict:
     mask = torch.ones(k, dtype=torch.bool, device=a.device)
     mask[k // 2] = False
     want, plain_ms = timed_once(lambda: ref.count_sketch_apply(h, sg, a, b))
-    row = compare("count_sketch_apply b=4096", ops.count_sketch_apply(
-        h, sg, a, b), want)
+    got = ops.count_sketch_apply(h, sg, a, b)
+    row = compare("count_sketch_apply b=4096", got, want)
+    row["bit_identical"] = same_bits(
+        "count_sketch_apply b=4096",
+        lambda: ops.count_sketch_apply(h, sg, a, b), got)
+    del got
     row["ms"] = cuda_ms(lambda: ops.count_sketch_apply(h, sg, a, b), 3,
                         warm=False)
+    row.update(phase_times(h, sg, a, b))
     row["plain_ms"] = plain_ms
     s_all = sketch_matrix(h, sg, torch.arange(k, device=h.device), b, n)
     row["library_ms"] = cuda_ms(lambda: torch.sparse.mm(s_all, a), 3)
@@ -406,8 +526,12 @@ def check_large_block(ops, ref, a, cs, sj, b) -> dict:
     gwant, gplain_ms = timed_once(lambda: ref.oversketch_gram(want, mask))
     del want
     kl = k - 1
-    row = compare("sketch_gram_count b=4096",
-                  ops.sketch_gram_count(h, sg, a, b, mask), gwant)
+    got = ops.sketch_gram_count(h, sg, a, b, mask)
+    row = compare("sketch_gram_count b=4096", got, gwant)
+    row["bit_identical"] = same_bits(
+        "sketch_gram_count b=4096",
+        lambda: ops.sketch_gram_count(h, sg, a, b, mask), got)
+    del got
     row["ms"] = cuda_ms(lambda: ops.sketch_gram_count(h, sg, a, b, mask), 3,
                         warm=False)
     row["plain_ms"] = plain_ms + gplain_ms
@@ -420,8 +544,66 @@ def check_large_block(ops, ref, a, cs, sj, b) -> dict:
     return out
 
 
+def check_skewed(ops, ref, device, g) -> dict:
+    """The segment-sum kernels on skewed codes, at b = 32 and b = 4,096:
+    every row in one bucket, half of the buckets empty, a third of the
+    codes outside [0, b) (dropped: the plain versions take them with sigma
+    0), and sigma of any value (uniform in [-2, 2), an eighth of it 0: the
+    kernels multiply by sigma as the plain versions do).  Layers 1-3 repeat
+    layer 0's bucket on a quarter of the rows."""
+    import torch
+    k, n, d = 5, 3001, 45
+    a = torch.randn(n, d, generator=g).to(device)
+    mask = (torch.arange(k) != 2).to(device)
+    errs = {}
+    for b in (32, 4096):
+        for kind in ("one_bucket", "half_empty", "out_of_range",
+                     "sigma_values"):
+            if kind == "one_bucket":
+                h = torch.full((k, 4, n), b // 3, dtype=torch.int32)
+            elif kind == "half_empty":
+                h = 2 * torch.randint(0, b // 2, (k, 4, n), generator=g,
+                                      dtype=torch.int32)
+            elif kind == "out_of_range":
+                h = torch.randint(-(b // 3), b + b // 3, (k, 4, n),
+                                  generator=g, dtype=torch.int32)
+            else:
+                h = torch.randint(0, b, (k, 4, n), generator=g,
+                                  dtype=torch.int32)
+            h[:, 1:, : n // 4] = h[:, :1, : n // 4]
+            h = h.to(device)
+            if kind == "sigma_values":
+                sg = torch.rand(k, 4, n, generator=g) * 4 - 2
+                sg[torch.rand(k, 4, n, generator=g) < 0.125] = 0.0
+            else:
+                sg = torch.randint(0, 2, (k, 4, n), generator=g).float()
+                sg = sg * 2 - 1
+            sg = sg.to(device)
+            keep = (h >= 0) & (h < b)
+            hc, sc = torch.where(keep, h, 0), torch.where(keep, sg, 0.0)
+            h1, s1 = h[:, 0].contiguous(), sg[:, 0].contiguous()
+            label = f"b{b}_{kind}"
+            errs[label] = {
+                "count_sketch_apply": compare(
+                    label, ops.count_sketch_apply(h1, s1, a, b),
+                    ref.count_sketch_apply(hc[:, 0], sc[:, 0], a,
+                                           b))["max_abs_err"],
+                "count_sketch_apply_sjlt": compare(
+                    label, ops.count_sketch_apply(h, sg, a, b),
+                    ref.sjlt_apply(hc, sc, a, b))["max_abs_err"],
+                "sketch_gram_count": compare(
+                    label, ops.sketch_gram_count(h1, s1, a, b, mask),
+                    ref.sketch_gram_count(hc[:, 0], sc[:, 0], a, b,
+                                          mask))["max_abs_err"],
+                "sketch_gram_sjlt": compare(
+                    label, ops.sketch_gram_sjlt(h, sg, a, b, mask),
+                    ref.sketch_gram_sjlt(hc, sc, a, b, mask))["max_abs_err"]}
+    return errs
+
+
 def check_small_cases(ops, ref, device) -> dict:
-    """A ragged case and an all-masked case for every kernel."""
+    """A ragged case and an all-masked case for every kernel, and the
+    segment-sum kernels on skewed codes."""
     import torch
     g = torch.Generator().manual_seed(SEED)
     k, n, d, b = 10, 1001, 37, 32
@@ -476,7 +658,7 @@ def check_small_cases(ops, ref, device) -> dict:
         errs[f"fwht_n{n_f}"] = {
             name: compare(name, getattr(ops, name)(x), want)["max_abs_err"]
             for name in ("fwht", "fwht_two_pass")}
-    # b = 4,096: past one (b x 32) tile, the bucket-split apply.
+    # b = 4,096: past one (b + 1) x 32 tile, the sorted-gather apply.
     kb, nb, db, bb = 3, 5000, 70, 4096
     hb = torch.randint(0, bb, (kb, nb), generator=g,
                        dtype=torch.int32).to(device)
@@ -500,6 +682,7 @@ def check_small_cases(ops, ref, device) -> dict:
     errs["b4096"]["count_sketch_apply_sjlt"] = compare(
         "count_sketch_apply sjlt", ops.count_sketch_apply(hl, sl, ab, bb),
         ref.sjlt_apply(hl, sl, ab, bb))["max_abs_err"]
+    errs["skewed"] = check_skewed(ops, ref, device, g)
     return errs
 
 
@@ -709,8 +892,6 @@ def profile_iterations(core, objective, data, w0, cfg, device,
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total", 0.0) or 0.0)
     # Device-side events only (kernels, copies, memsets): the operators
     # that launched them carry the same time again.
     events = sorted((e for e in prof.key_averages()
@@ -891,7 +1072,12 @@ def main() -> int:
         "b256_K150 (no path)": cs_b256},
         "coded_block_matvec": {"X encode (W = 1,296, s = 3,000)":
                                coded_rows["X"]},
-        "oversketch_gram": {"count-sketch A_tilde (no path)": count_gram}}
+        "oversketch_gram": {"count-sketch A_tilde (no path)": count_gram},
+        "sketch_gram_sjlt": {
+            "apply alone (count_sketch_apply, K_live = 120, s = 4, b = 256)":
+                rows["sjlt_apply"],
+            "Gram alone (oversketch_gram of that A_tilde)":
+                rows["sjlt_gram"]}}
     summary = []
     for name, kern in ops.KERNELS.items():
         r = rows[name]
@@ -914,8 +1100,10 @@ def main() -> int:
         if name in other:
             entry["other_shapes"] = {
                 k: {f: v[f] for f in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")}
+                                      "bound_ms", "bound_by", "library_ms",
+                                      *PHASES) if f in v}
                 for k, v in other[name].items()}
+        entry.update({f: r[f] for f in PHASES if f in r})
         if name == "normal":
             entry["yardstick_ms"] = r["yardstick_ms"]
             entry["yardstick"] = r["yardstick"]

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Time the fused sketch_gram_count kernel at several chunk sizes on one GPU.
+"""Time a fused sketch -> Gram kernel at several chunk sizes on one GPU.
 
-    python3 scripts/sweep_sketch_gram_chunk.py [--chunks 6,12,24] [--reps 3]
+    python3 scripts/sweep_sketch_gram_chunk.py [--chunks 6,12,24] [--layers 4]
 
-The kernel walks the sketch blocks in chunks: per chunk it writes the
-chunk's A_tilde with the segment-sum kernel and folds it into G with the
-Gram kernel.  ``kernels/sketch_gram.py::CHUNK_BYTES`` sets the chunk; this
-script sets it to each chunk size in turn (in blocks, whole groups of the
-apply's blocks per CTA) and times one fused call with CUDA events.
+The fused count-sketch and SJLT kernels sort the blocks' codes, then walk
+the blocks in chunks: per chunk they write the chunk's A_tilde with the
+segment-sum gather and fold it into G with the Gram kernel.
+``kernels/sketch_gram.py::CHUNK_BYTES`` sets the chunk; this script sets
+it to each chunk size in turn (in blocks) and times one fused call with
+CUDA events: ``sketch_gram_count`` with ``--layers 1`` (the default),
+``sketch_gram_sjlt`` with s = ``--layers`` layers otherwise.
 
-Inputs have the main path's shapes at full width: n = 300,000, d = 3,000,
-K = 150, b = 256, 30 blocks masked.  They are drawn on the card with
+Inputs have the blocks paths' shapes at full width: n = 300,000,
+d = 3,000, K = 150, b = 256, 30 blocks masked.  They are drawn on the card with
 torch's generator: the kernel's work does not depend on A's values, and
 the buckets are uniform as the main path's are.  Every chunk size is timed
 in two rounds, the second in reverse order, and its result is held
@@ -33,6 +35,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chunks", default="6,12,24,48,96,144",
                     help="chunk sizes in sketch blocks")
+    ap.add_argument("--layers", type=int, default=1,
+                    help="1: sketch_gram_count; s > 1: sketch_gram_sjlt")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -44,10 +48,13 @@ def main() -> int:
     from repro_torch.kernels import ops, sketch_gram
 
     k, n, d, b, masked = 150, 300_000, 3_000, 256, 30
+    s = args.layers
+    shape = (k, n) if s == 1 else (k, s, n)
+    fused = ops.sketch_gram_count if s == 1 else ops.sketch_gram_sjlt
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(args.seed)
-    h = torch.randint(0, b, (k, n), generator=g, device=dev, dtype=torch.int32)
-    sigma = torch.randint(0, 2, (k, n), generator=g, device=dev).float() * 2 - 1
+    h = torch.randint(0, b, shape, generator=g, device=dev, dtype=torch.int32)
+    sigma = torch.randint(0, 2, shape, generator=g, device=dev).float() * 2 - 1
     a = torch.randn(n, d, generator=g, device=dev)
     mask = torch.ones(k, dtype=torch.bool, device=dev)
     mask[torch.randperm(k, generator=g, device=dev)[:masked]] = False
@@ -61,12 +68,11 @@ def main() -> int:
     for rnd, order in enumerate((chunks, chunks[::-1])):
         for c in order:
             sketch_gram.CHUNK_BYTES = c * 4 * b * d
-            got_chunk = sketch_gram.chunk_blocks(
-                k, b, d, sketch_gram.count_blocks_per_cta(b))
+            got_chunk = sketch_gram.chunk_blocks(k, b, d)
             if got_chunk != c:
-                raise ValueError(f"chunk {c} is not a whole number of CTA "
-                                 f"groups: the kernel would take {got_chunk}")
-            out = ops.sketch_gram_count(h, sigma, a, b, mask)   # warm-up
+                raise ValueError(f"chunk {c}: the kernel would take "
+                                 f"{got_chunk}")
+            out = fused(h, sigma, a, b, mask)   # warm-up
             if first is None:
                 first = out
             err = float((out - first).abs().max() / first.abs().max())
@@ -75,7 +81,7 @@ def main() -> int:
             torch.cuda.synchronize()
             start.record()
             for _ in range(args.reps):
-                ops.sketch_gram_count(h, sigma, a, b, mask)
+                fused(h, sigma, a, b, mask)
             end.record()
             torch.cuda.synchronize()
             ms = start.elapsed_time(end) / args.reps
@@ -87,7 +93,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    print(json.dumps({"shapes": {"K": k, "n": n, "d": d, "b": b,
+    print(json.dumps({"shapes": {"K": k, "s": s, "n": n, "d": d, "b": b,
                                  "masked": masked},
                       "reps": args.reps,
                       "ms_by_chunk": {str(c): t for c, t in times.items()},

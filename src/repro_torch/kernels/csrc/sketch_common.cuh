@@ -1,20 +1,39 @@
 // Device code shared by the sketch kernels (sm_90a, fp32 SIMT).
 //
-//   cs_apply_kernel  A_tilde_k = scale * sum_t S_kt^T A for a range of
-//                    sketch blocks, each with s signed segment-sum layers
-//                    (count sketch: s = 1; SJLT: s > 1, scale 1/sqrt(s)),
-//                    in a (blocks, b, 32-column) shared-memory tile where
-//                    each warp owns whole tiles, so no two warps ever touch
-//                    one address.  When one (b x 32) tile does not fit, a
-//                    block's b buckets are split into ranges, one per warp.
-//   gram_kernel      G (+)= sum_k m_k A_tilde_k^T A_tilde_k over a range of
-//                    blocks, on the upper triangle of 128x128 output tiles,
-//                    each tile mirrored into its transpose.
-//   launch_sketch_gram  the two above, chunk by chunk over the blocks.
+// The segment-sum apply A_tilde_k = scale * sum_t S_kt^T A (count sketch:
+// s = 1 layer, scale 1; SJLT: s layers, scale 1/sqrt(s)) runs as a sorted
+// gather at every block size b:
+//
+//   sort    cs_hist/cs_scan/cs_scatter sort each block's (row, layer)
+//           entries by bucket, a stable counting sort on the device (rows
+//           stay ascending within a bucket; a bucket outside [0, b) is
+//           dropped, as the reference's segment_sum drops it) into a CSR
+//           list of (row, sigma) pairs.
+//   gather  cs_gather_kernel gives each warp one output row (block,
+//           bucket) of one column strip, which it sums in registers in the
+//           list's order, sigma times A's row, and writes once: no shared-
+//           memory read-modify-write and no float atomics.  The grid runs
+//           strip by strip, so the CTAs resident at once share one strip
+//           of A (n x width floats) in L2, and A's K s re-reads come from
+//           there.
+//
+// What bounds the apply on the H100 is where its partial sums live.  A
+// shared-memory tile per block holds them only while b is small, and then
+// every update is a shared load and store, with few warps per SM; past
+// b ~1,700 no tile fits and the partial sums would go to HBM.  The gather
+// keeps them in registers at any b and is bound by the L2 bandwidth of its
+// re-reads of A (a 128-byte line per entry per 32-column strip).
+//
+//   gram_kernel         G (+)= sum_k m_k A_tilde_k^T A_tilde_k over a range
+//                       of blocks, on the upper triangle of 128x128 output
+//                       tiles, each tile mirrored into its transpose.
+//   launch_sketch_gram  the sort, then a gather and the Gram, chunk by
+//                       chunk over blocks.
 //
 // All take the survivor mask (nullable: every block live) and skip a masked
-// block before reading any of its data.  Sums are IEEE fp32; no tensor
-// cores, no TF32.
+// block before reading any of its data.  Sums are IEEE fp32 in a fixed
+// order (no float atomics, no tensor cores, no TF32): two launches give the
+// same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,270 +41,268 @@
 
 namespace sketch {
 
-// ---------------------------------------------------------------- apply
-constexpr int CS_TD = 32;        // output columns per CTA: one per lane
-constexpr int CS_THREADS = 256;  // 8 warps
-constexpr int CS_WARPS = CS_THREADS / 32;
-constexpr int CS_ROWS = 64;      // rows of A per pass (two passes staged)
-constexpr int CS_BATCH = 8;      // rows one warp updates at once
-constexpr int CS_MAX_BLOCKS = 32;
-constexpr int SMEM_LIMIT = 232448;  // 227 KB, the H100's per-block maximum
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// One staged pass: a (CS_ROWS x 32) panel of A, then the live blocks'
-// buckets and signs, (kpc x s x CS_ROWS) each.
-__host__ __device__ inline int cs_stage_floats(int kpc, int s) {
-  return CS_ROWS * CS_TD + 2 * kpc * s * CS_ROWS;
-}
+// ------------------------------------------------------------ sort
+// Block k's entries are its (row, layer) pairs in the order e = row * s +
+// layer; the sort cuts them into `chunks` runs of ceil(n / chunks) rows.
+// Scratch: ent (K, s n) sorted (row, sigma's bits) pairs, off (K, b + 1)
+// bucket starts, cnt (K, chunks, b) per-chunk counts, then cursors.
+constexpr int SORT_WARPS = 4;  // chunks per CTA of the scatter
 
-// units tiles of (width x 32) floats beside two staged passes.
-__host__ __device__ inline int cs_smem_bytes(int units, int width, int kpc,
-                                             int s) {
-  return 4 * (units * width * CS_TD + 2 * cs_stage_floats(kpc, s));
-}
-
-// How the apply lays a block's buckets over CTAs.  Whole mode (parts == 1):
-// one CTA accumulates kpc whole blocks, one warp per block.  Split mode
-// (parts > 1, when not even one (b x 32) tile fits): a CTA takes one block
-// and CS_WARPS of its parts, one (width x 32) bucket range per warp; a
-// block spans parts / CS_WARPS CTAs, each re-reading the A strip.
-struct CsPlan {
-  int kpc;    // blocks per CTA
-  int parts;  // bucket ranges per block (1: whole)
-  int width;  // buckets per range
-};
-
-inline CsPlan cs_plan(int b, int s) {
-  const int stages = 8 * cs_stage_floats(0, 0);  // two panels, bytes
-  int kpc = (SMEM_LIMIT - stages) / (4 * (b * CS_TD + 4 * s * CS_ROWS));
-  if (kpc >= 1) return {kpc < CS_MAX_BLOCKS ? kpc : CS_MAX_BLOCKS, 1, b};
-  const int avail = SMEM_LIMIT - 8 * cs_stage_floats(1, s);
-  const int wmax = avail / (4 * CS_WARPS * CS_TD);
-  const int groups = (b + CS_WARPS * wmax - 1) / (CS_WARPS * wmax);
-  const int parts = groups * CS_WARPS;
-  return {1, parts, (b + parts - 1) / parts};
-}
-
-// 4-byte asynchronous copy global -> shared; zero-fills when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Add CS_BATCH staged rows of one layer into a (width x 32) tile whose
-// first bucket is off.  Shared memory has no native fp32 atomic add on
-// sm_90 (atomicAdd compiles to a compare-and-swap loop), so the warp that
-// owns the tile does plain read-modify-writes: all eight loads first, then
-// the eight stores, which keeps eight updates in flight.  That is right
-// only when the eight rows hit eight different buckets; the buckets are the
-// same in every lane, so 28 compares find a repeat (about one batch in ten
-// at b = 256), and such a batch is added row by row.  Each lane owns one
-// column, so successive calls (the next rows, another layer of the same
-// rows) need no ordering beyond the thread's own.  Rows past n carry sign
-// 0; buckets outside [off, off + width) are dropped, as the reference's
-// segment_sum drops buckets outside [0, b).  kSplit: skip a batch with no
-// bucket in range (warp-uniform).
-template <bool kSplit>
-__device__ __forceinline__ void cs_add_batch(float* __restrict__ tile,
-                                             const int* __restrict__ h8,
-                                             const float* __restrict__ s8,
-                                             const float* __restrict__ panel8,
-                                             int off, int width, int lane) {
-  const int4 ha = *reinterpret_cast<const int4*>(h8);
-  const int4 hb = *reinterpret_cast<const int4*>(h8 + 4);
-  const float4 sa = *reinterpret_cast<const float4*>(s8);
-  const float4 sb = *reinterpret_cast<const float4*>(s8 + 4);
-  const int hv[CS_BATCH] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
-  const float sv[CS_BATCH] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
-  int bucket[CS_BATCH];
-  bool any = false;
-#pragma unroll
-  for (int i = 0; i < CS_BATCH; ++i) {
-    const int hi = hv[i] - off;
-    bucket[i] = (unsigned)hi < (unsigned)width ? hi : -1 - i;
-    any |= bucket[i] >= 0;
-  }
-  if (kSplit && !any) return;
-  float v[CS_BATCH];
-#pragma unroll
-  for (int i = 0; i < CS_BATCH; ++i) v[i] = sv[i] * panel8[i * CS_TD + lane];
-  bool repeat = false;
-#pragma unroll
-  for (int i = 0; i < CS_BATCH; ++i)
-#pragma unroll
-    for (int k = i + 1; k < CS_BATCH; ++k) repeat |= bucket[i] == bucket[k];
-  if (!repeat) {
-    float old[CS_BATCH];
-#pragma unroll
-    for (int i = 0; i < CS_BATCH; ++i)
-      old[i] = bucket[i] >= 0 ? tile[bucket[i] * CS_TD + lane] : 0.f;
-#pragma unroll
-    for (int i = 0; i < CS_BATCH; ++i)
-      if (bucket[i] >= 0) tile[bucket[i] * CS_TD + lane] = old[i] + v[i];
-  } else {
-#pragma unroll
-    for (int i = 0; i < CS_BATCH; ++i)
-      if (bucket[i] >= 0) tile[bucket[i] * CS_TD + lane] += v[i];
+// cnt[k][c][q] = entries of chunk c in bucket q (int atomics: the counts
+// do not depend on their order).  grid = (chunks, K).
+__global__ void cs_hist_kernel(const int* __restrict__ h,
+                               const float* __restrict__ mask,
+                               int* __restrict__ cnt, int n, int b, int s,
+                               int chunks) {
+  const int c = blockIdx.x, k = blockIdx.y;
+  if (mask != nullptr && mask[k] == 0.f) return;
+  const int rpc = (n + chunks - 1) / chunks;
+  const int r0 = c * rpc, r1 = min(n, r0 + rpc);
+  int* row = cnt + ((size_t)k * chunks + c) * b;
+  for (int t = 0; t < s; ++t) {
+    const int* ht = h + ((size_t)k * s + t) * n;
+    for (int r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+      const int q = ht[r];
+      if ((unsigned)q < (unsigned)b) atomicAdd(row + q, 1);
+    }
   }
 }
 
-// grid = (ceil(kc / kpc) CTAs of kpc whole blocks, or kc * parts / CS_WARPS
-// CTAs of one block's CS_WARPS bucket ranges; ceil(d / 32) column strips):
-// the CTAs that share a strip of A are adjacent, so they read it from L2
-// together.  Blocks [k0, k0 + kc) of h/sigma (K_total, s, n); out is
-// (kc, b, d), block k0 + j at out[j], times scale.  Masked blocks are
-// neither accumulated nor written.  Passes are double-buffered: while the
-// warps add pass p, cp.async copies pass p + 1 into the other buffer.
-// kLayers = false compiles the count sketch (s = 1, scale 1) with its
-// layer loop and indexing folded away.
-template <bool kSplit, bool kLayers>
-__global__ void __launch_bounds__(CS_THREADS)
-cs_apply_kernel(const int* __restrict__ h, const float* __restrict__ sigma,
-                const float* __restrict__ a, const float* __restrict__ mask,
-                float* __restrict__ out, int n, int d, int b, int s_arg,
-                int k0, int kc, int kpc, int parts, int width, float scale) {
-  const int s = kLayers ? s_arg : 1;
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int live[CS_MAX_BLOCKS];
-  __shared__ int n_live;
-
-  // Units: whole mode, one per live block (offset 0, width b); split mode,
-  // this CTA's CS_WARPS bucket ranges of its one block.
-  const int groups = parts / CS_WARPS;
-  const int j0 = kSplit ? blockIdx.x / groups : blockIdx.x * kpc;
-  const int p0 = kSplit ? (blockIdx.x % groups) * CS_WARPS : 0;
-  const int c0 = blockIdx.y * CS_TD;
-  const int nk = kSplit ? 1 : min(kpc, kc - j0);
-  if (threadIdx.x == 0) {
-    int m = 0;
-    for (int j = 0; j < nk; ++j)
-      if (mask == nullptr || mask[k0 + j0 + j] != 0.f) live[m++] = j0 + j;
-    n_live = m;
+// Per block (grid = K, 1,024 threads): off[k][q] = the entries in buckets
+// below q (off[k][b] = all of them), and cnt[k][c][q] becomes the first
+// position of chunk c's entries in bucket q.
+__global__ void __launch_bounds__(1024)
+    cs_scan_kernel(int* __restrict__ cnt, int* __restrict__ off,
+                   const float* __restrict__ mask, int b, int chunks) {
+  const int k = blockIdx.x;
+  if (mask != nullptr && mask[k] == 0.f) return;
+  __shared__ int warp_sums[32];
+  int* ck = cnt + (size_t)k * chunks * b;
+  const int per = (b + blockDim.x - 1) / blockDim.x;
+  const int q0 = min(b, (int)threadIdx.x * per), q1 = min(b, q0 + per);
+  int local = 0;
+  for (int q = q0; q < q1; ++q)
+    for (int c = 0; c < chunks; ++c) local += ck[(size_t)c * b + q];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int x = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL_MASK, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    int v = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL_MASK, v, o);
+      if (lane >= o) v += y;
+    }
+    warp_sums[lane] = v;
   }
   __syncthreads();
-  const int nl = n_live;
-  if (nl == 0) return;
-  const int units = kSplit ? CS_WARPS : nl;
-  float* tile = smem;                                   // units * width * 32
-  float* stage = tile + units * width * CS_TD;          // 2 staged passes
-  for (int i = threadIdx.x; i < units * width * CS_TD; i += CS_THREADS)
-    tile[i] = 0.f;
-
-  const int per_stage = cs_stage_floats(kpc, s);
-  const int lrows = s * CS_ROWS;   // staged codes of one block per pass
-  auto fetch = [&](int r0, float* buf) {
-    for (int i = threadIdx.x; i < CS_ROWS * CS_TD; i += CS_THREADS) {
-      const int r = r0 + i / CS_TD, c = c0 + i % CS_TD;
-      const bool ok = r < n && c < d;
-      cp_async4(buf + i, ok ? a + (size_t)r * d + c : a, ok);
+  int run = x - local + (w > 0 ? warp_sums[w - 1] : 0);
+  int* ok = off + (size_t)k * (b + 1);
+  for (int q = q0; q < q1; ++q) {
+    ok[q] = run;
+    for (int c = 0; c < chunks; ++c) {
+      const int t = ck[(size_t)c * b + q];
+      ck[(size_t)c * b + q] = run;
+      run += t;
     }
-    int* hb = reinterpret_cast<int*>(buf + CS_ROWS * CS_TD);
-    float* sb = buf + CS_ROWS * CS_TD + kpc * lrows;
-    for (int i = threadIdx.x; i < nl * lrows; i += CS_THREADS) {
-      const int j = i / lrows, t = (i / CS_ROWS) % s, r = r0 + i % CS_ROWS;
-      const bool ok = r < n;
-      const size_t g =
-          ok ? ((size_t)(k0 + live[j]) * s + t) * n + r : 0;
-      cp_async4(hb + i, h + g, ok);
-      cp_async4(sb + i, sigma + g, ok);
-    }
-    cp_async_commit();
-  };
-  fetch(0, stage);
+  }
+  if (threadIdx.x == blockDim.x - 1) ok[b] = run;
+}
 
+// One warp per chunk (grid = (ceil(chunks / SORT_WARPS), K)) walks its
+// entries 32 at a time in order: lanes with one bucket find their rank
+// among themselves (__match_any_sync), write (row, sigma) at the bucket's
+// cursor plus rank, and the lowest of them moves the cursor.  Entries keep
+// their order within a bucket, so the sort is stable and the same on every
+// call.
+__global__ void cs_scatter_kernel(const int* __restrict__ h,
+                                  const float* __restrict__ sigma,
+                                  const float* __restrict__ mask, int* cnt,
+                                  uint2* __restrict__ ent, int n, int b,
+                                  int s, int chunks) {
+  const int k = blockIdx.y;
+  const int c = blockIdx.x * SORT_WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int r0 = 0, p = 0; r0 < n; r0 += CS_ROWS, p ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();  // pass p landed; every warp is done with pass p - 1
-    if (r0 + CS_ROWS < n) fetch(r0 + CS_ROWS, stage + (p ^ 1) * per_stage);
-    const float* panel = stage + p * per_stage;
-    const int* hs = reinterpret_cast<const int*>(panel + CS_ROWS * CS_TD);
-    const float* ss = panel + CS_ROWS * CS_TD + kpc * lrows;
-    const int nr = min(CS_ROWS, n - r0);
-    if (kSplit) {
-      const int off = (p0 + warp) * width;
-      for (int t = 0; t < s; ++t)
-        for (int r = 0; r < nr; r += CS_BATCH)
-          cs_add_batch<true>(tile + warp * width * CS_TD,
-                             hs + t * CS_ROWS + r, ss + t * CS_ROWS + r,
-                             panel + r * CS_TD, off, width, lane);
-    } else {
-      for (int j = warp; j < nl; j += CS_WARPS)
-        for (int t = 0; t < s; ++t)
-          for (int r = 0; r < nr; r += CS_BATCH)
-            cs_add_batch<false>(tile + j * b * CS_TD,
-                                hs + j * lrows + t * CS_ROWS + r,
-                                ss + j * lrows + t * CS_ROWS + r,
-                                panel + r * CS_TD, 0, b, lane);
+  if (c >= chunks || (mask != nullptr && mask[k] == 0.f)) return;
+  volatile int* cur = cnt + ((size_t)k * chunks + c) * b;
+  uint2* ek = ent + (size_t)k * s * n;
+  const int rpc = (n + chunks - 1) / chunks;
+  const int r0 = c * rpc, r1 = min(n, r0 + rpc);
+  const int e_end = r1 > r0 ? (r1 - r0) * s : 0;
+  for (int e0 = 0; e0 < e_end; e0 += 32) {
+    const int e = e0 + lane;
+    int key = -1;
+    uint2 val = make_uint2(0u, 0u);
+    if (e < e_end) {
+      const int r = r0 + e / s, t = e % s;
+      const size_t src = ((size_t)k * s + t) * n + r;
+      const int q = h[src];
+      if ((unsigned)q < (unsigned)b) {
+        key = q;
+        val = make_uint2((uint32_t)r, __float_as_uint(sigma[src]));
+      }
+    }
+    const unsigned peers = __match_any_sync(FULL_MASK, key);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    int base = 0;
+    if (key >= 0) {
+      base = cur[key];
+      ek[base + rank] = val;
+    }
+    __syncwarp();
+    if (key >= 0 && rank == 0) cur[key] = base + __popc(peers);
+    __syncwarp();
+  }
+}
+
+// ----------------------------------------------------------- gather
+// grid = ceil(d / W) strips x kc blocks x ceil(b / 8) bucket groups, the
+// strip outermost; 8 warps, one bucket each.  The warp's lanes form 32 / W
+// groups of W columns: group g sums entries g, g + 32/W, ... of the
+// bucket's list, then the groups' sums are added in a fixed tree.  Entries
+// are read 32 at a time by the warp and passed round by shuffles; A's rows
+// are read through L2, where the strip stays while the resident CTAs work
+// on it.  out is (kc, b, d), block k0 + j at out[j], times scale.
+template <int W, bool kLayers>
+__global__ void __launch_bounds__(256)
+    cs_gather_kernel(const int* __restrict__ off,
+                     const uint2* __restrict__ ent,
+                     const float* __restrict__ a,
+                     const float* __restrict__ mask, float* __restrict__ out,
+                     int n, int d, int b, int s, int k0, int kc, float scale) {
+  constexpr int G = 32 / W;
+  const int groups = (b + 7) / 8;
+  const long long per_strip = (long long)kc * groups;
+  const int strip = (int)(blockIdx.x / per_strip);
+  const int rem = (int)(blockIdx.x % per_strip);
+  const int j = rem / groups;
+  const int k = k0 + j;
+  if (mask != nullptr && mask[k] == 0.f) return;
+  const int q = (rem % groups) * 8 + (threadIdx.x >> 5);
+  if (q >= b) return;
+  const int lane = threadIdx.x & 31;
+  const int g = lane / W;
+  const int col = strip * W + lane % W;
+  const bool col_ok = col < d;
+  const int* ok = off + (size_t)k * (b + 1);
+  const int e0 = ok[q], e1 = ok[q + 1];
+  const uint2* ek = ent + (size_t)k * s * n;
+  const float* ac = a + (col_ok ? col : 0);
+  float acc = 0.f;
+  for (int base = e0; base < e1; base += 32) {
+    const int m = min(32, e1 - base);
+    const uint2 mine = lane < m ? __ldcs(ek + base + lane) : make_uint2(0u, 0u);
+#pragma unroll
+    for (int i = 0; i < 32 / G; ++i) {
+      const int idx = i * G + g;
+      const uint32_t row = __shfl_sync(FULL_MASK, mine.x, idx);
+      const float sg = __uint_as_float(__shfl_sync(FULL_MASK, mine.y, idx));
+      if (idx < m && col_ok) acc = fmaf(sg, __ldg(ac + (size_t)row * d), acc);
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < units * width * CS_TD; i += CS_THREADS) {
-    const int c = c0 + i % CS_TD;
-    const int row = i / CS_TD;  // unit * width + bucket
-    const int u = row / width;
-    const int bucket = kSplit ? (p0 + u) * width + row % width : row % width;
-    const int j = kSplit ? live[0] : live[u];
-    if (c < d && bucket < b)
-      out[((size_t)j * b + bucket) * d + c] = kLayers ? tile[i] * scale
-                                                      : tile[i];
-  }
+#pragma unroll
+  for (int o = W; o < 32; o <<= 1) acc += __shfl_down_sync(FULL_MASK, acc, o);
+  if (g == 0 && col_ok)
+    out[((size_t)j * b + q) * d + col] = kLayers ? acc * scale : acc;
 }
 
-// Blocks per CTA of the apply (the unit in which callers size chunks).
-inline int cs_blocks_per_cta(int b, int s) { return cs_plan(b, s).kpc; }
-
-template <bool kLayers>
-inline cudaError_t launch_cs_apply_t(const int* h, const float* sigma,
-                                     const float* a, const float* mask,
-                                     float* out, int n, int d, int b, int s,
-                                     int k0, int kc, float scale,
-                                     cudaStream_t stream) {
-  const CsPlan plan = cs_plan(b, s);
-  const dim3 block(CS_THREADS);
-  if (plan.parts == 1) {
-    const int kpc = kc < plan.kpc ? kc : plan.kpc;
-    const int smem = cs_smem_bytes(kpc, b, kpc, s);
-    cudaError_t err = cudaFuncSetAttribute(
-        cs_apply_kernel<false, kLayers>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((kc + kpc - 1) / kpc, (d + CS_TD - 1) / CS_TD);
-    cs_apply_kernel<false, kLayers><<<grid, block, smem, stream>>>(
-        h, sigma, a, mask, out, n, d, b, s, k0, kc, kpc, 1, b, scale);
-  } else {
-    const int smem = cs_smem_bytes(CS_WARPS, plan.width, 1, s);
-    cudaError_t err = cudaFuncSetAttribute(
-        cs_apply_kernel<true, kLayers>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(kc * (plan.parts / CS_WARPS), (d + CS_TD - 1) / CS_TD);
-    cs_apply_kernel<true, kLayers><<<grid, block, smem, stream>>>(
-        h, sigma, a, mask, out, n, d, b, s, k0, kc, 1, plan.parts,
-        plan.width, scale);
-  }
-  return cudaGetLastError();
-}
-
-// s = 1 takes the count-sketch instantiation (scale must then be 1).
-inline cudaError_t launch_cs_apply(const int* h, const float* sigma,
+template <int W>
+inline cudaError_t launch_gather_w(const int* off, const uint2* ent,
                                    const float* a, const float* mask,
                                    float* out, int n, int d, int b, int s,
                                    int k0, int kc, float scale,
                                    cudaStream_t stream) {
-  if (b < 1 || s < 1 || kc < 1) return cudaErrorInvalidValue;
-  return s == 1 ? launch_cs_apply_t<false>(h, sigma, a, mask, out, n, d, b,
-                                           1, k0, kc, scale, stream)
-                : launch_cs_apply_t<true>(h, sigma, a, mask, out, n, d, b, s,
-                                          k0, kc, scale, stream);
+  const long long blocks =
+      (long long)((d + W - 1) / W) * kc * ((b + 7) / 8);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (s == 1)
+    cs_gather_kernel<W, false><<<(unsigned)blocks, 256, 0, stream>>>(
+        off, ent, a, mask, out, n, d, b, 1, k0, kc, scale);
+  else
+    cs_gather_kernel<W, true><<<(unsigned)blocks, 256, 0, stream>>>(
+        off, ent, a, mask, out, n, d, b, s, k0, kc, scale);
+  return cudaGetLastError();
+}
+
+// How the host planned the apply (kernels/count_sketch.py, apply_plan):
+// `chunks` sort chunks per block and `width` columns per strip.
+struct ApplyPlan {
+  int chunks;
+  int width;
+};
+
+// The scratch, in int32 words: ent 2 K s n, off K (b + 1), cnt K chunks b.
+struct SortScratch {
+  uint2* ent;
+  int* off;
+  int* cnt;
+};
+inline SortScratch sort_scratch(uint32_t* base, int k, int s, int n, int b) {
+  uint2* ent = reinterpret_cast<uint2*>(base);
+  int* off = reinterpret_cast<int*>(base + 2 * (size_t)k * s * n);
+  return {ent, off, off + (size_t)k * (b + 1)};
+}
+
+// The sort of all k blocks (masked ones skipped).
+inline cudaError_t launch_sort(const int* h, const float* sigma,
+                               const float* mask, SortScratch sc, int k,
+                               int n, int b, int s, int chunks,
+                               cudaStream_t stream) {
+  if (chunks < 1 || (long long)s * n >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(
+      sc.cnt, 0, sizeof(int) * (size_t)k * chunks * b, stream);
+  if (err != cudaSuccess) return err;
+  cs_hist_kernel<<<dim3(chunks, k), 256, 0, stream>>>(h, mask, sc.cnt, n, b,
+                                                      s, chunks);
+  cs_scan_kernel<<<k, 1024, 0, stream>>>(sc.cnt, sc.off, mask, b, chunks);
+  cs_scatter_kernel<<<dim3((chunks + SORT_WARPS - 1) / SORT_WARPS, k),
+                      32 * SORT_WARPS, 0, stream>>>(h, sigma, mask, sc.cnt,
+                                                    sc.ent, n, b, s, chunks);
+  return cudaGetLastError();
+}
+
+// The gather of blocks [k0, k0 + kc) into out (kc, b, d).
+inline cudaError_t launch_gather(SortScratch sc, const float* a,
+                                 const float* mask, float* out, int n, int d,
+                                 int b, int s, int k0, int kc, int width,
+                                 float scale, cudaStream_t stream) {
+  switch (width) {
+    case 8:
+      return launch_gather_w<8>(sc.off, sc.ent, a, mask, out, n, d, b, s, k0,
+                                kc, scale, stream);
+    case 16:
+      return launch_gather_w<16>(sc.off, sc.ent, a, mask, out, n, d, b, s, k0,
+                                 kc, scale, stream);
+    case 32:
+      return launch_gather_w<32>(sc.off, sc.ent, a, mask, out, n, d, b, s, k0,
+                                 kc, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The apply of all k blocks into out (k, b, d): the sort, then the gather.
+inline cudaError_t launch_cs_apply(const int* h, const float* sigma,
+                                   const float* a, float* out,
+                                   uint32_t* scratch, int k, int s, int n,
+                                   int d, int b, ApplyPlan plan, float scale,
+                                   cudaStream_t stream) {
+  if (b < 1 || s < 1 || k < 1 || n < 1 || d < 1) return cudaErrorInvalidValue;
+  const SortScratch sc = sort_scratch(scratch, k, s, n, b);
+  cudaError_t err =
+      launch_sort(h, sigma, nullptr, sc, k, n, b, s, plan.chunks, stream);
+  if (err != cudaSuccess) return err;
+  return launch_gather(sc, a, nullptr, out, n, d, b, s, 0, k, plan.width,
+                       scale, stream);
 }
 
 // ----------------------------------------------------------------- gram
@@ -379,21 +396,29 @@ inline cudaError_t launch_gram(const float* at, const float* mask, float* g,
   return cudaGetLastError();
 }
 
+
 // ------------------------------------------------- fused sketch -> Gram
 // G = (1 / max(sum m, 1)) sum_k m_k A_tilde_k^T A_tilde_k with A_tilde_k
-// from the layered segment-sum apply, chunk blocks at a time through
-// scratch (chunk, b, d): the first chunk overwrites G, the last divides by
-// the survivor count.
+// from the layered segment-sum apply: the sort of all k blocks once, then,
+// chunk blocks at a time through scratch (chunk, b, d), the gather and the
+// Gram; the first chunk overwrites G, the last divides by the survivor
+// count.  iscratch holds the sort (sort_scratch).
 inline cudaError_t launch_sketch_gram(const int* h, const float* sigma,
                                       const float* a, const float* mask,
-                                      float* g, float* scratch, int k, int s,
-                                      int n, int d, int b, int chunk,
+                                      float* g, float* scratch,
+                                      uint32_t* iscratch, int k, int s, int n,
+                                      int d, int b, int chunk, ApplyPlan plan,
                                       float scale, cudaStream_t stream) {
-  if (chunk < 1 || k < 1) return cudaErrorInvalidValue;
+  if (chunk < 1 || k < 1 || b < 1 || s < 1 || n < 1 || d < 1)
+    return cudaErrorInvalidValue;
+  const SortScratch sc = sort_scratch(iscratch, k, s, n, b);
+  cudaError_t err =
+      launch_sort(h, sigma, mask, sc, k, n, b, s, plan.chunks, stream);
+  if (err != cudaSuccess) return err;
   for (int k0 = 0; k0 < k; k0 += chunk) {
     const int kc = chunk < k - k0 ? chunk : k - k0;
-    cudaError_t err = launch_cs_apply(h, sigma, a, mask, scratch, n, d, b, s,
-                                      k0, kc, scale, stream);
+    err = launch_gather(sc, a, mask, scratch, n, d, b, s, k0, kc, plan.width,
+                        scale, stream);
     if (err != cudaSuccess) return err;
     err = launch_gram(scratch, mask, g, k0, kc, k, b, d, k0 > 0,
                       k0 + kc >= k, stream);

@@ -12,27 +12,23 @@
 // Bound on the H100: at the main path's shapes (K = 150, n = 300,000,
 // d = 3,000, b = 256) the Gram's 2 K b d^2 fp32 operations dominate the
 // apply's 2 K n d, against about 4 GB of input: it is bound by the fp32
-// FFMA rate.  Design: walk the blocks in chunks of a few tens of blocks
-// (the wrapper's CHUNK_BYTES); for each chunk the segment-sum kernel of
-// count_sketch.cu writes the live blocks' A_tilde into a scratch buffer
-// and the symmetric tiled Gram kernel of oversketch_gram.cu folds m_k
-// A_k^T A_k into G (the first chunk overwrites G, the last divides by the
-// survivor count).  The full (K, b, d) A_tilde never exists at once, and a
-// masked block is neither sketched nor read.
+// FFMA rate.  Design: sort every live block's codes by bucket once, then
+// walk the blocks in chunks of a few tens of blocks (the wrapper's
+// CHUNK_BYTES); for each chunk the sorted gather of sketch_common.cuh
+// writes the live blocks' A_tilde into a scratch buffer and the symmetric
+// tiled Gram kernel of oversketch_gram.cu folds m_k A_k^T A_k into G (the
+// first chunk overwrites G, the last divides by the survivor count).  The
+// full (K, b, d) A_tilde never exists at once, and a masked block is
+// neither sketched nor read.
 #include "sketch_common.cuh"
-
-// Sketch blocks one CTA of the apply accumulates at once; the wrapper
-// sizes each chunk as a whole number of such groups.
-extern "C" int sketch_gram_blocks_per_cta(int b) {
-  return sketch::cs_blocks_per_cta(b, 1);
-}
 
 extern "C" int sketch_gram_count_launch(const int* h, const float* sigma,
                                         const float* a, const float* mask,
-                                        float* g, float* scratch, int k,
-                                        int n, int d, int b, int chunk,
-                                        void* stream) {
-  return (int)sketch::launch_sketch_gram(h, sigma, a, mask, g, scratch, k, 1,
-                                         n, d, b, chunk, 1.f,
-                                         (cudaStream_t)stream);
+                                        float* g, float* scratch,
+                                        uint32_t* iscratch, int k, int n,
+                                        int d, int b, int chunk, int chunks,
+                                        int width, void* stream) {
+  return (int)sketch::launch_sketch_gram(
+      h, sigma, a, mask, g, scratch, iscratch, k, 1, n, d, b, chunk,
+      {chunks, width}, 1.f, (cudaStream_t)stream);
 }

@@ -22,14 +22,15 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels._check import check_cuda, on_cpu, stream
+from repro_torch.kernels.count_sketch import apply_plan
 
 KERNEL = CudaKernel(
     "sketch_gram_count", "sketch_gram.cu", "sketch_gram_count_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     replaces="src/repro/kernels/sketch_gram.py:275")
 SJLT_KERNEL = CudaKernel(
     "sketch_gram_sjlt", "sketch_gram_sjlt.cu", "sketch_gram_sjlt_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                    ctypes.c_void_p],
     replaces="src/repro/kernels/sketch_gram.py:296")
 SRHT_KERNEL = CudaKernel(
@@ -37,27 +38,43 @@ SRHT_KERNEL = CudaKernel(
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     replaces="src/repro/kernels/sketch_gram.py:318")
 
-# Budget for one chunk's A_tilde: 24 blocks at b = 256, d = 3,000.  On an
-# H100 (scripts/sweep_sketch_gram_chunk.py) chunks of 24 to 144 blocks run
+# Budget for one chunk's A_tilde: 27 blocks at b = 256, d = 3,000.  On an
+# H100 (scripts/sweep_sketch_gram_chunk.py) chunks of 24 to 144 blocks ran
 # the fused count-sketch call within 5% of each other and ~20% faster than
 # chunks of 6 or 12, whose A_tilde fits in L2: more apply CTAs per chunk
 # fill the last wave better, and the Gram half reads A_tilde from HBM at
-# little cost.  The SJLT and SRHT kernels take the same budget, untuned.
+# little cost.  The SRHT kernel takes the same budget, untuned.
 CHUNK_BYTES = 80 << 20
 
 
-def chunk_blocks(k: int, block_size: int, d: int, per_cta: int = 1) -> int:
-    """Sketch blocks per chunk: as many whole groups of ``per_cta`` blocks
-    (the blocks one CTA of the apply holds) as keep the chunk's A_tilde
-    under CHUNK_BYTES, at least one group, at most k."""
-    fit = CHUNK_BYTES // max(4 * block_size * d, 1)
-    return min(max(fit // per_cta, 1) * per_cta, k)
+def chunk_blocks(k: int, block_size: int, d: int) -> int:
+    """Sketch blocks per chunk: as many as keep the chunk's A_tilde under
+    CHUNK_BYTES, at least one, at most k."""
+    return min(max(CHUNK_BYTES // max(4 * block_size * d, 1), 1), k)
 
 
-def count_blocks_per_cta(block_size: int) -> int:
-    """Blocks one CTA of the count-sketch apply holds at ``block_size``."""
-    return KERNEL.host_function("sketch_gram_blocks_per_cta",
-                                [ctypes.c_int])(int(block_size))
+def _sketch_gram(kernel: CudaKernel, h: torch.Tensor, sigma: torch.Tensor,
+                 a: torch.Tensor, block_size: int, survivors: torch.Tensor,
+                 s: int) -> torch.Tensor:
+    k, n = h.shape[0], h.shape[-1]
+    d = a.shape[1]
+    b = int(block_size)
+    chunk, plan = chunk_blocks(k, b, d), apply_plan(k, s, n, b)
+    mask = survivors.to(torch.float32)
+    g = torch.empty((d, d), dtype=torch.float32, device=a.device)
+    scratch = torch.empty((chunk, b, d), dtype=torch.float32, device=a.device)
+    iscratch = torch.empty(plan.scratch_ints, dtype=torch.int32,
+                           device=a.device)
+    # The SJLT entry takes the layer count and the scale; the count
+    # sketch's has neither.
+    layered = kernel is SJLT_KERNEL
+    layers = (s,) if layered else ()
+    scale = (1.0 / math.sqrt(s),) if layered else ()
+    kernel.launch(h.data_ptr(), sigma.data_ptr(), a.data_ptr(),
+                  mask.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+                  iscratch.data_ptr(), k, *layers, n, d, b, chunk,
+                  plan.sort_chunks, plan.width, *scale, stream(a))
+    return g
 
 
 def sketch_gram_count(h: torch.Tensor, sigma: torch.Tensor, a: torch.Tensor,
@@ -67,19 +84,11 @@ def sketch_gram_count(h: torch.Tensor, sigma: torch.Tensor, a: torch.Tensor,
         return ref.sketch_gram_count(h, sigma, a, block_size, survivors)
     k, n = h.shape
     d = a.shape[1]
-    b = int(block_size)
     check_cuda("sketch_gram_count", h=(h, torch.int32, (k, n)),
                sigma=(sigma, torch.float32, (k, n)),
                a=(a, torch.float32, (n, d)),
                survivors=(survivors, torch.bool, (k,)))
-    chunk = chunk_blocks(k, b, d, count_blocks_per_cta(b))
-    mask = survivors.to(torch.float32)
-    g = torch.empty((d, d), dtype=torch.float32, device=a.device)
-    scratch = torch.empty((chunk, b, d), dtype=torch.float32, device=a.device)
-    KERNEL.launch(h.data_ptr(), sigma.data_ptr(), a.data_ptr(), mask.data_ptr(),
-                  g.data_ptr(), scratch.data_ptr(), k, n, d, b, chunk,
-                  stream(a))
-    return g
+    return _sketch_gram(KERNEL, h, sigma, a, block_size, survivors, 1)
 
 
 def sketch_gram_sjlt(h: torch.Tensor, sigma: torch.Tensor, a: torch.Tensor,
@@ -90,21 +99,11 @@ def sketch_gram_sjlt(h: torch.Tensor, sigma: torch.Tensor, a: torch.Tensor,
         return ref.sketch_gram_sjlt(h, sigma, a, block_size, survivors)
     k, s, n = h.shape
     d = a.shape[1]
-    b = int(block_size)
     check_cuda("sketch_gram_sjlt", h=(h, torch.int32, (k, s, n)),
                sigma=(sigma, torch.float32, (k, s, n)),
                a=(a, torch.float32, (n, d)),
                survivors=(survivors, torch.bool, (k,)))
-    per_cta = SJLT_KERNEL.host_function(
-        "sketch_gram_sjlt_blocks_per_cta", [ctypes.c_int] * 2)(b, s)
-    chunk = chunk_blocks(k, b, d, per_cta)
-    mask = survivors.to(torch.float32)
-    g = torch.empty((d, d), dtype=torch.float32, device=a.device)
-    scratch = torch.empty((chunk, b, d), dtype=torch.float32, device=a.device)
-    SJLT_KERNEL.launch(h.data_ptr(), sigma.data_ptr(), a.data_ptr(),
-                       mask.data_ptr(), g.data_ptr(), scratch.data_ptr(), k,
-                       s, n, d, b, chunk, 1.0 / math.sqrt(s), stream(a))
-    return g
+    return _sketch_gram(SJLT_KERNEL, h, sigma, a, block_size, survivors, s)
 
 
 def sketch_gram_srht(rows: torch.Tensor, sigma: torch.Tensor, a: torch.Tensor,

@@ -105,7 +105,8 @@ def test_launches_are_counted(cuda):
                                    "normal": 1}
 
 
-# Past b ~ 1,680 one (b x 32) tile no longer fits: the bucket-split apply.
+# Past b ~ 1,700 no (b x 32) shared-memory tile fits: the apply's sort
+# and gather must hold there, as at every b.
 @pytest.mark.parametrize("k,n,d,b", [(3, 5000, 70, 4096), (4, 900, 33, 2000)])
 def test_count_sketch_kernels_at_large_block_size(cuda, k, n, d, b):
     h, sigma, a = _inputs(cuda, k, n, d, b, seed=b)
@@ -135,12 +136,13 @@ def _mask(kind, k, device):
 
 @pytest.mark.parametrize("k,s,n,d,b", [(6, 4, 301, 37, 32), (5, 3, 1000, 129, 64),
                                        (7, 4, 2048, 260, 256),
-                                       (2, 2, 700, 20, 4096)])
+                                       (2, 2, 700, 20, 4096),
+                                       (4, 1, 500, 30, 64)])
 @pytest.mark.parametrize("mask", MASKS)
 def test_sketch_gram_sjlt(cuda, k, s, n, d, b, mask):
     h, sigma, a = _sjlt_inputs(cuda, k, s, n, d, b, seed=n)
-    # Two layers of one row in one bucket must add.
-    h[:, 1, :50] = h[:, 0, :50]
+    # Two layers of one row in one bucket must add (one layer: none).
+    h[:, 1:, :50] = h[:, :1, :50]
     m = _mask(mask, k, cuda)
     got = ops.sketch_gram_sjlt(h, sigma, a, b, m)
     if mask == "none":
@@ -151,7 +153,7 @@ def test_sketch_gram_sjlt(cuda, k, s, n, d, b, mask):
 
 
 # The layered count-sketch apply is the SJLT apply of the distributed-avg
-# path (b = 4,096 takes the bucket-split form).
+# path (b = 4,096 takes the sorted-gather form).
 @pytest.mark.parametrize("k,s,n,d,b", [(6, 4, 301, 37, 32), (3, 4, 5000, 70, 4096),
                                        (2, 2, 700, 20, 2000)])
 def test_layered_count_sketch_apply_is_the_sjlt_apply(cuda, k, s, n, d, b):
@@ -159,6 +161,118 @@ def test_layered_count_sketch_apply_is_the_sjlt_apply(cuda, k, s, n, d, b):
     h[:, 1, :50] = h[:, 0, :50]
     got = ops.count_sketch_apply(h, sigma, a, b)
     assert _rel_err(got, ref.sjlt_apply(h, sigma, a, b)) < REL_TOL
+
+
+# Block sizes on both sides of b ~ 1,700, past which no (b x 32) shared-
+# memory tile fits: the sorted gather serves them all.
+FORM_SIZES = [256, 1024, 1600, 1800, 2000, 4096]
+# (n, d): n not a multiple of a sort chunk, d = 1, d not a multiple of a
+# 32-column strip and not of 4, d a multiple of both.
+GEOMS = [(3001, 45), (700, 1), (128, 33), (1000, 64)]
+BUCKETS = ["one_bucket", "half_empty", "out_of_range"]
+
+
+def _skewed(device, kind, k, s, n, d, b, seed):
+    """Codes (K, s, n) with every row in one bucket, half of the buckets
+    empty, or a third of the codes outside [0, b); layers 1.. repeat layer
+    0's bucket on a quarter of the rows."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "one_bucket":
+        h = torch.full((k, s, n), b // 3, dtype=torch.int32)
+    elif kind == "half_empty":
+        h = 2 * torch.randint(0, (b + 1) // 2, (k, s, n), generator=g,
+                              dtype=torch.int32)
+    else:
+        h = torch.randint(-(b // 3), b + b // 3, (k, s, n), generator=g,
+                          dtype=torch.int32)
+    h[:, 1:, : n // 4] = h[:, :1, : n // 4]
+    sigma = torch.randint(0, 2, (k, s, n), generator=g).float() * 2 - 1
+    a = torch.randn(n, d, generator=g)
+    return h.to(device), sigma.to(device), a.to(device)
+
+
+def _in_range(h, sigma, b):
+    """The codes the plain versions take: a bucket outside [0, b) adds
+    nothing, as the reference's segment_sum drops it."""
+    keep = (h >= 0) & (h < b)
+    return torch.where(keep, h, 0), torch.where(keep, sigma, 0.0)
+
+
+@pytest.mark.parametrize("b", FORM_SIZES)
+@pytest.mark.parametrize("kind", BUCKETS)
+@pytest.mark.parametrize("n,d", GEOMS[:2])
+def test_count_sketch_apply_skewed_buckets(cuda, b, kind, n, d):
+    h, sigma, a = _skewed(cuda, kind, 3, 1, n, d, b, seed=b + n)
+    h, sigma = h[:, 0].contiguous(), sigma[:, 0].contiguous()
+    got = ops.count_sketch_apply(h, sigma, a, b)
+    want = ref.count_sketch_apply(*_in_range(h, sigma, b), a, b)
+    assert _rel_err(got, want) < REL_TOL
+    # One fixed order of summation: the same bits on every call.
+    assert torch.equal(ops.count_sketch_apply(h, sigma, a, b), got)
+
+
+@pytest.mark.parametrize("b", FORM_SIZES)
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+@pytest.mark.parametrize("n,d", GEOMS)
+def test_layered_apply_with_layer_collisions(cuda, b, s, n, d):
+    h, sigma, a = _skewed(cuda, "out_of_range", 3, s, n, d, b, seed=s * b)
+    got = ops.count_sketch_apply(h, sigma, a, b)
+    want = ref.sjlt_apply(*_in_range(h, sigma, b), a, b)
+    assert _rel_err(got, want) < REL_TOL
+    assert torch.equal(ops.count_sketch_apply(h, sigma, a, b), got)
+
+
+@pytest.mark.parametrize("b", FORM_SIZES)
+@pytest.mark.parametrize("kind", BUCKETS)
+def test_fused_grams_skewed_buckets(cuda, b, kind):
+    n, d = GEOMS[2]
+    h, sigma, a = _skewed(cuda, kind, 5, 4, n, d, b, seed=b)
+    m = torch.arange(5, device=cuda) != 2
+    hc, sc = _in_range(h, sigma, b)
+    got = ops.sketch_gram_sjlt(h, sigma, a, b, m)
+    assert _rel_err(got, ref.sketch_gram_sjlt(hc, sc, a, b, m)) < REL_TOL
+    assert torch.equal(ops.sketch_gram_sjlt(h, sigma, a, b, m), got)
+    h1, s1 = h[:, 0].contiguous(), sigma[:, 0].contiguous()
+    got = ops.sketch_gram_count(h1, s1, a, b, m)
+    want = ref.sketch_gram_count(hc[:, 0], sc[:, 0], a, b, m)
+    assert _rel_err(got, want) < REL_TOL
+    assert torch.equal(ops.sketch_gram_count(h1, s1, a, b, m), got)
+
+
+def test_apply_takes_a_misaligned_a(cuda):
+    """A whose rows are not 16-byte aligned: the gather reads A a float at
+    a time, so any alignment serves."""
+    n, d, b = 777, 64, 256
+    h, sigma, _ = _inputs(cuda, 4, n, d, b, seed=3)
+    a = torch.randn(n * d + 1, generator=torch.Generator().manual_seed(3))
+    a = a.to(cuda)[1:].view(n, d)
+    assert a.data_ptr() % 16 != 0
+    got = ops.count_sketch_apply(h, sigma, a, b)
+    assert _rel_err(got, ref.count_sketch_apply(h, sigma, a, b)) < REL_TOL
+
+
+@pytest.mark.parametrize("b", [256, 4096])
+@pytest.mark.parametrize("s", [1, 4])
+def test_segment_sums_multiply_by_sigma(cuda, b, s):
+    """sigma of any value, zeros included, multiplies its row of A, as in
+    the plain versions: the kernels keep sigma's value, not its sign."""
+    k, n, d = 4, 1500, 40
+    h, _, a = _sjlt_inputs(cuda, k, s, n, d, b, seed=b + s)
+    g = torch.Generator().manual_seed(s)
+    sigma = torch.rand(k, s, n, generator=g) * 4 - 2
+    sigma[:, :, ::7] = 0.0
+    sigma[:, :, 1::7] = 0.5
+    sigma = sigma.to(cuda)
+    m = torch.arange(k, device=cuda) != 1
+    got = ops.count_sketch_apply(h, sigma, a, b)
+    assert _rel_err(got, ref.sjlt_apply(h, sigma, a, b)) < REL_TOL
+    got = ops.sketch_gram_sjlt(h, sigma, a, b, m)
+    assert _rel_err(got, ref.sketch_gram_sjlt(h, sigma, a, b, m)) < REL_TOL
+    h1, s1 = h[:, 0].contiguous(), sigma[:, 0].contiguous()
+    got = ops.count_sketch_apply(h1, s1, a, b)
+    assert _rel_err(got, ref.count_sketch_apply(h1, s1, a, b)) < REL_TOL
+    got = ops.sketch_gram_count(h1, s1, a, b, m)
+    assert _rel_err(got, ref.sketch_gram_count(h1, s1, a, b, m)) < REL_TOL
 
 
 def _srht_inputs(device, k, n, d, b, seed=0):

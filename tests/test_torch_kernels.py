@@ -264,3 +264,36 @@ def test_launch_counts_reset():
                                 "oversketch_gram", "coded_block_matvec",
                                 "sketch_gram_sjlt", "sketch_gram_srht",
                                 "fwht", "fwht_two_pass", "normal"}
+
+
+# (K, s, n, b) -> sort chunks: one per ~8,192 entries, 1 to 64.
+PLANS = [(10, 4, 300_000, 4096, 64), (10, 1, 300_000, 4096, 37),
+         (150, 1, 300_000, 256, 37), (120, 4, 300_000, 256, 64),
+         (3, 1, 1000, 4096, 1), (2, 3, 50_000, 16, 19)]
+
+
+@pytest.mark.parametrize("k,s,n,b,chunks", PLANS)
+def test_apply_plan_sizes_the_sort(k, s, n, b, chunks):
+    """The CUDA apply's plan at any b: the sort's chunks, the gather's
+    width, and its scratch: the sorted (row, sigma) pairs, the bucket
+    starts and the per-chunk counts, as int32 words."""
+    from repro_torch.kernels import count_sketch as cs
+    assert cs.apply_plan(k, s, n, b) == cs.ApplyPlan(
+        chunks, cs.GATHER_WIDTH, 2 * k * s * n + k * (b + 1) + k * chunks * b)
+
+
+def test_apply_plan_refuses_more_than_int_entries():
+    from repro_torch.kernels import count_sketch as cs
+    cs.apply_plan(1, 1, (1 << 31) - 1, 256)
+    with pytest.raises(ValueError, match="below 2"):
+        cs.apply_plan(1, 4, 1 << 29, 256)
+
+
+def test_fused_kernels_chunk_blocks():
+    """The fused kernels' chunks keep A_tilde under CHUNK_BYTES: 27 blocks
+    at b = 256, d = 3,000; one block at least, K at most."""
+    from repro_torch.kernels import sketch_gram
+    assert sketch_gram.chunk_blocks(150, 256, 3000) == 27
+    assert sketch_gram.chunk_blocks(10, 4096, 3000) == 1
+    assert sketch_gram.chunk_blocks(5, 256, 3000) == 5
+    assert sketch_gram.chunk_blocks(3, 1 << 20, 3000) == 1
