@@ -27,9 +27,12 @@ with its seconds:
            kernel, plain version and a PyTorch yardstick, and the bound the
            card's peaks give.  The segment-sum apply's two phases (the sort
            by bucket, then the gather) are timed apart from a profiler
-           trace of three launches, the SJLT Gram's apply and Gram halves
-           by their own calls, and each segment-sum kernel is launched
-           twice for the same bits
+           trace of three launches, as are the masked Gram's tile and
+           reduce kernels and the SRHT call's partial transform and Gram;
+           the SJLT Gram's apply and Gram halves by their own calls.  Each
+           segment-sum kernel, the masked Gram and the SRHT Gram are
+           launched twice for the same bits, and the Grams must equal
+           their transposes exactly
   newton   oversketched_newton at full width with the kernels, 3
            iterations (the oversketch family); launch counts read just
            before and after
@@ -69,6 +72,13 @@ SRC = ROOT / "src"
 # Published H100 SXM peaks (dense, no sparsity): fp32 outside the tensor
 # cores, and HBM3 bandwidth.
 FP32_FLOPS = 67e12
+# One fp32 addition a lane a clock: half of FP32_FLOPS, which counts an FMA
+# as two operations.
+FP32_ADDS = 33.5e12
+# The SRHT kernel's panel rows P and column strip w
+# (src/repro_torch/kernels/csrc/sketch_gram_srht.cu: SP, SW).
+SRHT_PANEL = 256
+SRHT_STRIP = 32
 HBM_BYTES_PER_S = 3.35e12
 REL_TOL = 1e-4          # kernel vs plain, relative to max |plain|
 ITERS = 3
@@ -162,6 +172,23 @@ def same_bits(name: str, fn, got) -> bool:
     return True
 
 
+def symmetric(name: str, g) -> bool:
+    """A Gram kernel's output must equal its transpose, bit for bit."""
+    import torch
+    if not torch.equal(g, g.T):
+        raise AssertionError(f"{name}: G is not exactly symmetric")
+    return True
+
+
+def gram_slices(b: int, k: int, d: int) -> int:
+    """The slices the masked Gram cuts k blocks of b rows into on this
+    card (kernels/oversketch_matmul.py)."""
+    import torch
+    from repro_torch.kernels import oversketch_matmul
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return oversketch_matmul.gram_slices(k * b, d, sms)
+
+
 def dev_us(e) -> float:
     """A profiler event's own device microseconds."""
     return float(getattr(e, "self_device_time_total", 0.0) or 0.0)
@@ -169,43 +196,55 @@ def dev_us(e) -> float:
 
 # Kernel names of the apply's sort (with its memset) and its gather.
 SORT_KERNELS = ("cs_hist", "cs_scan", "cs_scatter", "Memset")
+# The masked Gram's three kernels (sketch_common.cuh, launch_gram).
+GRAM_KERNELS = ("gram_live", "sketch::gram_kernel", "gram_reduce")
 
 
-def phase_times(h, sigma, a, b, reps: int = 3) -> dict:
-    """The apply's two phases apart, read from a torch.profiler trace of
-    reps counted launches: the sort by bucket (its memset and the
-    histogram, scan and scatter kernels) and the gather, each kernel's
-    mean over the launches the trace holds.  On the H100 machine a trace
-    taken after two others in one process can miss the first launch (a
-    single launch then leaves none), so the row says how many it held."""
+def traced_ms(fn, groups: dict, reps: int = 3) -> dict:
+    """Device ms of groups of kernels, read by name from a torch.profiler
+    trace of reps calls of fn: for each group, the sum over its kernels of
+    each kernel's mean over the launches the trace holds, and the launches
+    of the group's first kernel traced.  On the H100 machine a trace taken
+    after two others in one process can miss the first launch (a single
+    launch then leaves none), so each row says how many it held."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import ops
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(0.25)
         for _ in range(reps):
-            ops.count_sketch_apply(h, sigma, a, b)
+            fn()
         torch.cuda.synchronize()
         time.sleep(0.25)
     us, counts = {}, {}
+    names = [t for ts in groups.values() for t in ts]
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = next((t for t in (*SORT_KERNELS, "cs_gather") if t in e.key),
-                    None)
+        name = next((t for t in names if t in e.key), None)
         if name is not None:
             us[name] = us.get(name, 0.0) + dev_us(e)
             counts[name] = counts.get(name, 0) + e.count
-    if any(counts.get(t, 0) == 0 for t in ("cs_hist", "cs_scan",
-                                            "cs_scatter", "cs_gather")):
-        raise AssertionError(f"the profiler traced none of some of the "
-                             f"apply's kernels: {counts}")
-    return {"sort_ms": sum(us[t] / counts[t] for t in SORT_KERNELS
-                           if t in us) / 1e3,
-            "gather_ms": us["cs_gather"] / counts["cs_gather"] / 1e3,
-            "launches_traced": counts["cs_gather"]}
+    out = {}
+    for label, ts in groups.items():
+        if any(counts.get(t, 0) == 0 for t in ts if t != "Memset"):
+            raise AssertionError(f"the profiler traced none of some of "
+                                 f"{label}'s kernels: {counts}")
+        out[label] = sum(us[t] / counts[t] for t in ts if t in us) / 1e3
+        out[label.replace("_ms", "_launches_traced")] = counts[ts[0]]
+    return out
+
+
+def phase_times(h, sigma, a, b, reps: int = 3) -> dict:
+    """The apply's two phases apart (traced_ms): the sort by bucket (its
+    memset and the histogram, scan and scatter kernels) and the gather."""
+    from repro_torch.kernels import ops
+    t = traced_ms(lambda: ops.count_sketch_apply(h, sigma, a, b),
+                  {"gather_ms": ("cs_gather",), "sort_ms": SORT_KERNELS},
+                  reps)
+    return {"sort_ms": t["sort_ms"], "gather_ms": t["gather_ms"],
+            "launches_traced": t["gather_launches_traced"]}
 
 
 def sketch_matrix(h, sigma, live, b: int, n: int):
@@ -316,6 +355,30 @@ def srht_encode(rows_k, sigma_k, n: int):
     return sign * (sigma_k[:, None] / math.sqrt(rows_k.numel()))
 
 
+def srht_bound(n: int, d: int, b: int, k: int, kl: int) -> tuple:
+    """The SRHT Gram's bound: (ms, by, P, additions).  Per live block the
+    partial transform through panels of P rows, counted only over the
+    ceil(n / P) panels that hold real rows: a length-P butterfly (log2 P
+    additions an element) and one addition per sample, column and panel
+    (b / P an element), at the cheapest P, each at the fp32 lane rate; the
+    Gram's b d (d + 1) operations at FP32_FLOPS; against one read of A,
+    the signs and the rows, and the mask, and one write of G."""
+    n_pad = 1 << max(0, (n - 1).bit_length())
+
+    def adds(p: int) -> float:
+        panels = -(-n // p)
+        return float(kl) * d * panels * (p * math.log2(p) + b)
+    p_best = min((1 << e for e in range(1, n_pad.bit_length())), key=adds,
+                 default=1)
+    t_ops = (adds(p_best) / FP32_ADDS
+             + float(kl) * b * d * (d + 1) / FP32_FLOPS) * 1e3
+    t_bytes = (4.0 * (n * d + kl * (n + b) + d * d) + k) / HBM_BYTES_PER_S \
+        * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", p_best, adds(p_best)
+    return t_bytes, "bytes", p_best, adds(p_best)
+
+
 def check_family_kernels(ops, ref, a, sjlt, srht, mask, b) -> dict:
     """The fused SJLT and SRHT Grams against their plain versions at the
     main path's inputs (A, each family's first-iteration draw, the mask)."""
@@ -393,9 +456,24 @@ def check_family_kernels(ops, ref, a, sjlt, srht, mask, b) -> dict:
     want, plain_ms = timed_once(lambda: ref.sketch_gram_srht(rows, sg, a,
                                                              mask))
     row = compare("sketch_gram_srht", got, want)
+    row["bit_identical"] = same_bits(
+        "sketch_gram_srht", lambda: ops.sketch_gram_srht(rows, sg, a, mask),
+        got)
+    row["symmetric"] = symmetric("sketch_gram_srht", got)
     del got, want
     row["ms"] = cuda_ms(lambda: ops.sketch_gram_srht(rows, sg, a, mask), 2,
                         warm=False)
+    # The partial transform and the Gram apart: each kernel's mean over the
+    # launches traced, times the chunks of one call.
+    t = traced_ms(lambda: ops.sketch_gram_srht(rows, sg, a, mask),
+                  {"transform_ms": ("srht_panel",), "gram_ms": GRAM_KERNELS},
+                  reps=2)
+    from repro_torch.kernels import sketch_gram
+    chunks = -(-k // sketch_gram.chunk_blocks(k, b, d))
+    row["transform_ms"] = t["transform_ms"] * chunks
+    row["gram_ms"] = t["gram_ms"] * chunks
+    row["chunks"], row["launches_traced"] = chunks, \
+        t["transform_launches_traced"]
     row["plain_ms"] = plain_ms
 
     def library():
@@ -405,21 +483,9 @@ def check_family_kernels(ops, ref, a, sjlt, srht, mask, b) -> dict:
     row["library_ms"] = cuda_ms(library, 1)
     row["library_call"] = ("per live block torch.mm(dense encode^T, A), "
                            "then torch.mm")
-    n_pad = 1 << (n - 1).bit_length()
-    n1 = 1 << (n_pad.bit_length() - 1) // 2
-    # The bound counts the fewest operations the function needs: per live
-    # block a transform of length n2 = n_pad / n1 over every n2-row chunk,
-    # then an n1-term sum for each of the b sampled rows (H_n = H_n1 (x)
-    # H_n2), and the Gram.  The kernel's own formulation, a dense (n x b)
-    # encode product, does ops_this_formulation.
-    gram_ops = float(kl) * b * d * (d + 1)
-    row["ops_this_formulation"] = float(kl) * 2.0 * n * b * d + gram_ops
-    row["ops_partial_transform"] = float(kl) * (
-        n_pad * d * math.log2(n_pad // n1) + 2.0 * b * n1 * d) + gram_ops
-    row["bound_ms"], row["bound_by"] = bound(
-        row["ops_partial_transform"],
-        4.0 * (n * d + kl * (n + b) + d * d) + k)
-    row["this_formulation_ms"] = bound(row["ops_this_formulation"], 0.0)[0]
+    row["bound_ms"], row["bound_by"], row["bound_P"], row["adds"] = \
+        srht_bound(n, d, b, k, kl)
+    row["kernel_P"], row["kernel_w"] = SRHT_PANEL, SRHT_STRIP
     out["sketch_gram_srht"] = row
     return out
 
@@ -749,7 +815,16 @@ def check_nystrom_gram(ops, ref, a, a_t, mask) -> dict:
     got = ops.oversketch_gram(a_t, mask)
     row = compare("oversketch_gram nystrom", got, ref.oversketch_gram(a_t,
                                                                       mask))
+    row["bit_identical"] = same_bits(
+        "oversketch_gram nystrom", lambda: ops.oversketch_gram(a_t, mask), got)
+    row["symmetric"] = symmetric("oversketch_gram nystrom", got)
+    row["slices"] = gram_slices(b, k, d)
     row["ms"] = cuda_ms(lambda: ops.oversketch_gram(a_t, mask), 5)
+    # The tile kernel, the fixed-order reduce of the slices' partials and
+    # the live-block list apart.
+    row.update(traced_ms(lambda: ops.oversketch_gram(a_t, mask), {
+        "tiles_ms": ("sketch::gram_kernel",), "reduce_ms": ("gram_reduce",),
+        "live_ms": ("gram_live",)}))
     row["plain_ms"] = cuda_ms(lambda: ref.oversketch_gram(a_t, mask), 3)
     x_live = a_t[live].reshape(-1, d)
     row["library_ms"] = cuda_ms(lambda: torch.mm(x_live.T, x_live), 5)

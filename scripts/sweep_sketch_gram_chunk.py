@@ -2,14 +2,17 @@
 """Time a fused sketch -> Gram kernel at several chunk sizes on one GPU.
 
     python3 scripts/sweep_sketch_gram_chunk.py [--chunks 6,12,24] [--layers 4]
+        [--srht]
 
-The fused count-sketch and SJLT kernels sort the blocks' codes, then walk
-the blocks in chunks: per chunk they write the chunk's A_tilde with the
-segment-sum gather and fold it into G with the Gram kernel.
+The fused kernels walk the blocks in chunks: per chunk they write the
+chunk's A_tilde (the count sketch's and the SJLT's by the segment-sum
+gather, after one sort of every block's codes; the SRHT's by the partial
+Hadamard transform) and fold it into G with the Gram kernel.
 ``kernels/sketch_gram.py::CHUNK_BYTES`` sets the chunk; this script sets
 it to each chunk size in turn (in blocks) and times one fused call with
 CUDA events: ``sketch_gram_count`` with ``--layers 1`` (the default),
-``sketch_gram_sjlt`` with s = ``--layers`` layers otherwise.
+``sketch_gram_sjlt`` with s = ``--layers`` layers otherwise, and
+``sketch_gram_srht`` with ``--srht`` (b sampled rows in [0, 2^19)).
 
 Inputs have the blocks paths' shapes at full width: n = 300,000,
 d = 3,000, K = 150, b = 256, 30 blocks masked.  They are drawn on the card with
@@ -37,6 +40,8 @@ def main() -> int:
                     help="chunk sizes in sketch blocks")
     ap.add_argument("--layers", type=int, default=1,
                     help="1: sketch_gram_count; s > 1: sketch_gram_sjlt")
+    ap.add_argument("--srht", action="store_true",
+                    help="sketch_gram_srht instead")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -50,10 +55,19 @@ def main() -> int:
     k, n, d, b, masked = 150, 300_000, 3_000, 256, 30
     s = args.layers
     shape = (k, n) if s == 1 else (k, s, n)
-    fused = ops.sketch_gram_count if s == 1 else ops.sketch_gram_sjlt
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(args.seed)
-    h = torch.randint(0, b, shape, generator=g, device=dev, dtype=torch.int32)
+    if args.srht:
+        s, shape = 1, (k, n)
+        h = torch.randint(0, 1 << (n - 1).bit_length(), (k, b), generator=g,
+                          device=dev, dtype=torch.int32)
+
+        def fused(rows, sigma, a, b, mask):
+            return ops.sketch_gram_srht(rows, sigma, a, mask)
+    else:
+        fused = ops.sketch_gram_count if s == 1 else ops.sketch_gram_sjlt
+        h = torch.randint(0, b, shape, generator=g, device=dev,
+                          dtype=torch.int32)
     sigma = torch.randint(0, 2, shape, generator=g, device=dev).float() * 2 - 1
     a = torch.randn(n, d, generator=g, device=dev)
     mask = torch.ones(k, dtype=torch.bool, device=dev)
@@ -93,7 +107,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    print(json.dumps({"shapes": {"K": k, "s": s, "n": n, "d": d, "b": b,
+    print(json.dumps({"kernel": fused.__name__ if not args.srht
+                      else "sketch_gram_srht",
+                      "shapes": {"K": k, "s": s, "n": n, "d": d, "b": b,
                                  "masked": masked},
                       "reps": args.reps,
                       "ms_by_chunk": {str(c): t for c, t in times.items()},

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the segment-sum kernels of one source tree on one GPU.
+"""Time the sketch and Gram kernels of one source tree on one GPU.
 
     python3 scripts/time_sketch_kernels.py [--src DIR] [--label NAME]
+        [--only NAME,...]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
 so that two versions of the kernels can be timed in one run on one
@@ -12,8 +13,14 @@ and d = 3,000:
 
   sketch_gram_count   K = 150, b = 256, 30 blocks masked (the main path)
   sketch_gram_sjlt    the same with s = 4 layers (families_sjlt)
+  sketch_gram_srht    the same with b sampled Hadamard rows in [0, 2^19)
+                      (families_srht)
+  oversketch_gram     a (150, 256, 3,000) A_tilde, the same 30 blocks
+                      masked (families_nystrom, _leverage, _gaussian)
   count_sketch_apply  K = 10, b = 4,096, s = 1 and s = 4 (distributed-
                       avg); K = 150, s = 1 and K = 120, s = 4 at b = 256
+
+``--only`` keeps the named kernels.
 
 Inputs are drawn on the card with torch's generator from ``--seed``, the
 same in every run.  Each call is timed with CUDA events over ``--reps``
@@ -38,7 +45,10 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernel names (default: all)")
     args = ap.parse_args()
+    only = set(filter(None, args.only.split(",")))
     sys.path.insert(0, str(Path(args.src).resolve()))
 
     import torch
@@ -73,17 +83,35 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.reps
 
+    n_pad = 1 << (n - 1).bit_length()
     cases = [("sketch_gram_count", 150, 1, 256),
              ("sketch_gram_sjlt", 150, 4, 256),
+             ("sketch_gram_srht", 150, 1, 256),
+             ("oversketch_gram", 150, 1, 256),
              ("count_sketch_apply", 10, 1, 4096),
              ("count_sketch_apply", 10, 4, 4096),
              ("count_sketch_apply", 150, 1, 256),
              ("count_sketch_apply", 120, 4, 256)]
     for name, k, s, b in cases:
+        if only and name not in only:
+            continue
         h, sigma = codes(k, s, b)
         if name == "count_sketch_apply":
             def call():
                 return ops.count_sketch_apply(h, sigma, a, b)
+        elif name == "sketch_gram_srht":
+            h = torch.randint(0, n_pad, (k, b), generator=g, device=dev,
+                              dtype=torch.int32)
+            sigma = torch.randint(0, 2, (k, n), generator=g,
+                                  device=dev).float() * 2 - 1
+
+            def call():
+                return ops.sketch_gram_srht(h, sigma, a, mask)
+        elif name == "oversketch_gram":
+            h = torch.randn(k, b, d, generator=g, device=dev)
+
+            def call():
+                return ops.oversketch_gram(h, mask)
         else:
             def call():
                 return getattr(ops, name)(h, sigma, a, b, mask)

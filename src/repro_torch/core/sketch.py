@@ -106,7 +106,7 @@ def oversketched_gram(key: torch.Tensor, a: torch.Tensor,
                       survivors: Optional[torch.Tensor] = None, *,
                       use_kernels: bool = False) -> torch.Tensor:
     """One-shot H_hat ~= A^T A with straggler resiliency; ``use_kernels``
-    takes the fused sketch -> Gram kernel (A_tilde never formed whole)."""
+    takes the fused sketch -> Gram kernel (A_tilde a chunk at a time)."""
     cs = sample_countsketch(key, a.shape[0], cfg, device=a.device)
     if survivors is None:
         survivors = torch.ones(cs.total_blocks, dtype=torch.bool,

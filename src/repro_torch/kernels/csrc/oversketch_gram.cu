@@ -6,17 +6,22 @@
 // whose survivor mask is applied inside the accumulation.
 //
 // Bound on the H100: 2 K b d^2 fp32 operations against K b d reads, so it
-// is bound by the fp32 FFMA rate (no tensor cores: the reference is IEEE
-// fp32).  The kernel computes only the upper triangle of 128 x 128 output
-// tiles (G is symmetric), which halves the operations, and mirrors each
-// tile into its transpose.  Each CTA stages 8 x 128 slices of the two
-// column strips in shared memory and keeps an 8 x 8 register micro-tile per
-// thread; a masked block is skipped before any of its rows are read.
+// is bound by the fp32 FFMA pipe (no tensor cores: the reference is IEEE
+// fp32); G is symmetric, so only the upper triangle of 128 x 128 tiles is
+// computed.  At the paths' shapes (120 live blocks of b = 256, d = 3,000)
+// that is 300 tiles, which as one CTA each fill 1.14 waves of the 264 CTAs
+// an H100 holds (57% of the card busy at best).  The design
+// (sketch_common.cuh, launch_gram) therefore cuts the live rows into
+// slices sized at run time from the SM count so that tile x slice work
+// items fill whole waves, feeds each CTA's FFMAs from a 3-stage cp.async
+// ring with 16-byte fragment loads, and sums the slices' partial tiles in a
+// fixed order in a second kernel that also mirrors each tile into its
+// transpose.  A masked block's rows are never read.
 #include "sketch_common.cuh"
 
 extern "C" int oversketch_gram_launch(const float* at, const float* mask,
-                                      float* g, int k, int b, int d,
-                                      void* stream) {
-  return (int)sketch::launch_gram(at, mask, g, 0, k, k, b, d, 0, 1,
-                                  (cudaStream_t)stream);
+                                      float* g, float* gscratch, int k, int b,
+                                      int d, int slices, void* stream) {
+  return (int)sketch::launch_gram(at, mask, g, gscratch, 0, k, k, b, d,
+                                  slices, 0, 1, (cudaStream_t)stream);
 }

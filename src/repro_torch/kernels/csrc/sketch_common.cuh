@@ -24,9 +24,9 @@
 // keeps them in registers at any b and is bound by the L2 bandwidth of its
 // re-reads of A (a 128-byte line per entry per 32-column strip).
 //
-//   gram_kernel         G (+)= sum_k m_k A_tilde_k^T A_tilde_k over a range
-//                       of blocks, on the upper triangle of 128x128 output
-//                       tiles, each tile mirrored into its transpose.
+//   launch_gram         G (+)= sum_k m_k A_tilde_k^T A_tilde_k over a range
+//                       of blocks: split-row upper-triangle tiles, then a
+//                       fixed-order reduce that mirrors each tile (below).
 //   launch_sketch_gram  the sort, then a gather and the Gram, chunk by
 //                       chunk over blocks.
 //
@@ -306,26 +306,148 @@ inline cudaError_t launch_cs_apply(const int* h, const float* sigma,
 }
 
 // ----------------------------------------------------------------- gram
+// G (+)= sum_k m_k A_k^T A_k over blocks [k0, k0 + kc) of at (kc, b, d),
+// block k0 + j at at[j].  What bounds it on the H100 is the fp32 FFMA
+// pipe: 2 b d^2 operations per live block against b d reads (IEEE fp32,
+// no tensor cores).  Three launches:
+//
+//   gram_live_kernel    compacts the live blocks of the range into a list
+//                       (live[0] = their count, live[1..] = their indices).
+//   gram_kernel         one CTA per (upper-triangle 128 x 128 tile, slice):
+//                       the live rows (live blocks x b) are cut into
+//                       `slices` equal runs, and each CTA sums its run into
+//                       a partial tile in scratch.  The wrapper sizes the
+//                       slices (oversketch_matmul.py::gram_slices) so that
+//                       tiles x slices fill whole waves of the CTAs the
+//                       card holds; counted over live rows, a chunk with
+//                       masked blocks still gives every CTA an equal share.
+//   gram_reduce_kernel  sums each tile's partials in slice order, adds the
+//                       old G (accumulate), divides by the survivor count
+//                       (finalize), and writes the tile and its mirror.
+//
+// Inside gram_kernel: a 3-stage cp.async ring of 32-row stages (96 KB of
+// dynamic shared memory, two CTAs an SM), one __syncthreads a stage, and
+// an 8 x 8 register micro-tile per thread read as two float4 of each strip
+// (4 LDS.128 per 64 FFMA).  Each thread walks its copy rows' block and row
+// forward instead of dividing by b per row.  Every copy is 4 bytes with
+// zero fill, so any d and any row stride take the one path.  On an NVIDIA
+// H100 80GB HBM3 at 700 W (scripts/time_sketch_kernels.py, the nystrom-
+// shaped Gram at 4 slices) 32-row stages ran in 8.0 ms against 8.7 for 4
+// stages of 16 rows, and 10.9 with a division and a list read per copied
+// row (7.5 ms at the 6 slices gram_slices now picks).  The
+// partials are reduced in a fixed order (no float atomics): two launches
+// give the same bits, and G = G^T exactly (both halves of a diagonal tile
+// sum the same products in the same order).  Partials in scratch, not a
+// cluster reducing through distributed shared memory: at d = 3,000 they
+// are 80-120 MB written once and read once, and the reduce took 0.06 ms
+// of the nystrom-shaped Gram's 7.97 at 4 slices on the H100 above; nothing
+// limits how many slices share a tile.
 constexpr int GT = 128;        // output tile edge
-constexpr int GK = 8;          // reduction rows per shared-memory step
+constexpr int GK = 32;         // reduction rows per stage
+constexpr int G_STAGES = 3;    // stages in flight
 constexpr int G_THREADS = 256; // 16 x 16 threads, 8 x 8 outputs each
+constexpr int G_SMEM = G_STAGES * 2 * GK * GT * (int)sizeof(float);
+constexpr int G_BAND = 32;     // rows of a tile per reduce CTA
 
-// grid = T (T + 1) / 2 upper-triangle tile pairs, T = ceil(d / 128).
-// at is (kc, b, d), block k0 + j at at[j]; mask indexes the full (K_total,)
-// range.  accumulate: add into g instead of overwriting it.  finalize:
-// divide by max(sum of the full mask, 1) (K_total when mask is null).
-__global__ void __launch_bounds__(G_THREADS, 2)
-gram_kernel(const float* __restrict__ at, const float* __restrict__ mask,
-            float* __restrict__ g, int k0, int kc, int k_total, int b, int d,
-            int accumulate, int finalize) {
-  __shared__ float as[GK][GT];
-  __shared__ float bs[GK][GT];
-  const int T = (d + GT - 1) / GT;
-  int t = blockIdx.x, ti = 0;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Upper-triangle tile t of T x T tiles -> (ti, tj), ti <= tj, row-major.
+__device__ __forceinline__ void gram_tile(int t, int T, int& ti, int& tj) {
+  ti = 0;
   while (t >= T - ti) { t -= T - ti; ++ti; }
-  const int tj = ti + t;
+  tj = ti + t;
+}
+
+// One warp: live[0] = live blocks of [k0, k0 + kc), live[1..] their
+// indices j (at[j]) in order; *n_avail = max(sum of the full mask, 1)
+// (K_total when mask is null; a sum of 0s and 1s, exact in any order).
+__global__ void gram_live_kernel(const float* __restrict__ mask,
+                                 int* __restrict__ live,
+                                 float* __restrict__ n_avail, int k0, int kc,
+                                 int k_total) {
+  const int lane = threadIdx.x;
+  int count = 0;
+  for (int base = 0; base < kc; base += 32) {
+    const int j = base + lane;
+    const bool on = j < kc && (mask == nullptr || mask[k0 + j] != 0.f);
+    const unsigned bits = __ballot_sync(FULL_MASK, on);
+    if (on) live[1 + count + __popc(bits & ((1u << lane) - 1u))] = j;
+    count += __popc(bits);
+  }
+  float s = 0.f;
+  if (mask == nullptr) s = lane == 0 ? (float)k_total : 0.f;
+  else for (int k = lane; k < k_total; k += 32) s += mask[k];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL_MASK, s, o);
+  if (lane == 0) {
+    live[0] = count;
+    *n_avail = fmaxf(s, 1.f);
+  }
+}
+
+// grid = tiles x slices, the tile fastest (the CTAs resident at once share
+// their slice's rows in L2).  partial is (slices, tiles, 128, 128).
+__global__ void __launch_bounds__(G_THREADS, 2)
+gram_kernel(const float* __restrict__ at, const int* __restrict__ live,
+            float* __restrict__ partial, int b, int d, int slices) {
+  extern __shared__ float4 g_smem4[];
+  float* const sm = reinterpret_cast<float*>(g_smem4);
+  const int T = (d + GT - 1) / GT, tiles = T * (T + 1) / 2;
+  const int tile = blockIdx.x % tiles, slice = blockIdx.x / tiles;
+  int ti, tj;
+  gram_tile(tile, T, ti, tj);
   const int i0 = ti * GT, j0 = tj * GT;
+  const int rows = live[0] * b;  // < 2^31: the host checks kc b
+  const int r0 = (int)((long long)rows * slice / slices);
+  const int r1 = (int)((long long)rows * (slice + 1) / slices);
+  const int stages = (r1 - r0 + GK - 1) / GK;
+  const int* const blocks = live + 1;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  // Thread t copies column t % 128 of both strips for rows GR (t / 128)
+  // + q, q < GR, of each stage: it walks its rows' live block `pos` and
+  // row `rin` in that block forward, GK rows a stage, with no division.
+  constexpr int GR = GK * GT / G_THREADS;
+  const int lc = threadIdx.x % GT, lr = GR * (threadIdx.x / GT);
+  const bool oka = i0 + lc < d, okb = j0 + lc < d;
+  int pos = (r0 + lr) / b, rin = (r0 + lr) % b;
+
+  // Stage s (the loads are issued in order s = 0, 1, ...).
+  auto load = [&](int s) {
+    float* as = sm + (s % G_STAGES) * 2 * GK * GT;
+    float* bs = as + GK * GT;
+    const int rbase = r0 + s * GK + lr;
+    int p = pos, ri = rin;
+    const float* row = at;
+    if (rbase < r1) row = at + ((size_t)blocks[p] * b + ri) * d;
+#pragma unroll
+    for (int q = 0; q < GR; ++q) {
+      const bool ok = rbase + q < r1;
+      const int rr = lr + q;
+      cp_async4(as + rr * GT + lc, ok && oka ? row + i0 + lc : at, ok && oka);
+      cp_async4(bs + rr * GT + lc, ok && okb ? row + j0 + lc : at, ok && okb);
+      if (++ri == b) {
+        ri = 0;
+        ++p;
+        if (rbase + q + 1 < r1) row = at + (size_t)blocks[p] * b * d;
+      } else {
+        row += d;
+      }
+    }
+    for (rin += GK; rin >= b; rin -= b) ++pos;
+  };
 
   float acc[8][8];
 #pragma unroll
@@ -333,66 +455,113 @@ gram_kernel(const float* __restrict__ at, const float* __restrict__ mask,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int kk = 0; kk < kc; ++kk) {
-    if (mask != nullptr && mask[k0 + kk] == 0.f) continue;  // CTA-uniform
-    const float* blk = at + (size_t)kk * b * d;
-    for (int r0 = 0; r0 < b; r0 += GK) {
 #pragma unroll
-      for (int q = 0; q < GK * GT / G_THREADS; ++q) {
-        const int e = threadIdx.x + q * G_THREADS;
-        const int rr = e / GT, col = e % GT, r = r0 + rr;
-        const bool ok = r < b;
-        as[rr][col] = (ok && i0 + col < d) ? blk[(size_t)r * d + i0 + col] : 0.f;
-        bs[rr][col] = (ok && j0 + col < d) ? blk[(size_t)r * d + j0 + col] : 0.f;
-      }
-      __syncthreads();
+  for (int s = 0; s < G_STAGES - 1; ++s) {
+    if (s < stages) load(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < stages; ++it) {
+    cp_async_wait<G_STAGES - 2>();
+    __syncthreads();  // stage it landed; stage it - 1's buffer is free
+    if (it + G_STAGES - 1 < stages) load(it + G_STAGES - 1);
+    cp_async_commit();
+    const float* as = sm + (it % G_STAGES) * 2 * GK * GT;
+    const float* bs = as + GK * GT;
 #pragma unroll
-      for (int rr = 0; rr < GK; ++rr) {
-        float x[8], y[8];
+    for (int rr = 0; rr < GK; ++rr) {
+      const float4 x0 = *reinterpret_cast<const float4*>(as + rr * GT + 4 * ty);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(as + rr * GT + 64 + 4 * ty);
+      const float4 y0 = *reinterpret_cast<const float4*>(bs + rr * GT + 4 * tx);
+      const float4 y1 =
+          *reinterpret_cast<const float4*>(bs + rr * GT + 64 + 4 * tx);
+      const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      const float y[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
 #pragma unroll
-        for (int i = 0; i < 8; ++i) x[i] = as[rr][ty + 16 * i];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) y[j] = bs[rr][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-      }
-      __syncthreads();
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
     }
   }
+  cp_async_wait<0>();
 
-  float n_avail = 1.f;
-  if (finalize) {
-    float s = 0.f;
-    if (mask == nullptr) s = (float)k_total;
-    else for (int k = 0; k < k_total; ++k) s += mask[k];
-    n_avail = fmaxf(s, 1.f);
-  }
+  // Tile row 4 ty + i (i < 4) or 64 + 4 ty + i - 4; columns likewise.
+  float* out = partial + ((size_t)slice * tiles + tile) * GT * GT;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int row = i0 + ty + 16 * i;
-    if (row >= d) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = j0 + tx + 16 * j;
-      if (col >= d) continue;
-      float v = acc[i][j];
-      if (accumulate) v += g[(size_t)row * d + col];
-      if (finalize) v = v / n_avail;
-      g[(size_t)row * d + col] = v;
-      if (ti != tj) g[(size_t)col * d + row] = v;
-    }
+    const int row = (i < 4 ? 0 : 64) + 4 * ty + (i & 3);
+    float4* o = reinterpret_cast<float4*>(out + row * GT);
+    o[tx] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    o[16 + tx] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
 }
 
+// grid = (tiles, 128 / G_BAND): one band of G_BAND rows of a tile.  Sums
+// the band's partials in slice order; accumulate adds g's old value,
+// finalize divides by *n_avail; writes g and, off the diagonal, the
+// mirror through shared memory.
+__global__ void __launch_bounds__(256)
+gram_reduce_kernel(const float* __restrict__ partial,
+                   const float* __restrict__ n_avail, float* __restrict__ g,
+                   int d, int slices, int accumulate, int finalize) {
+  __shared__ float band[G_BAND][GT + 1];
+  const int T = (d + GT - 1) / GT, tiles = T * (T + 1) / 2;
+  const int tile = blockIdx.x;
+  int ti, tj;
+  gram_tile(tile, T, ti, tj);
+  const int i0 = ti * GT + blockIdx.y * G_BAND, j0 = tj * GT;
+  const float div = *n_avail;
+  const int col = threadIdx.x % GT;
+  for (int rr = threadIdx.x / GT; rr < G_BAND; rr += 256 / GT) {
+    const float* p = partial + (size_t)tile * GT * GT +
+                     (blockIdx.y * G_BAND + rr) * GT + col;
+    float v = 0.f;
+    for (int s = 0; s < slices; ++s) v += p[(size_t)s * tiles * GT * GT];
+    const int row = i0 + rr, c = j0 + col;
+    if (row < d && c < d) {
+      if (accumulate) v += g[(size_t)row * d + c];
+      if (finalize) v = v / div;
+      g[(size_t)row * d + c] = v;
+    }
+    band[rr][col] = v;
+  }
+  if (ti == tj) return;  // CTA-uniform
+  __syncthreads();
+  const int rr = threadIdx.x % G_BAND;
+  for (int cc = threadIdx.x / G_BAND; cc < GT; cc += 256 / G_BAND)
+    if (i0 + rr < d && j0 + cc < d)
+      g[(size_t)(j0 + cc) * d + i0 + rr] = band[rr][cc];
+}
+
+// The Gram of blocks [k0, k0 + kc) of at into g.  scratch holds the
+// partial tiles (slices, tiles, 128, 128), n_avail, then the kc + 1 ints of
+// the live list (kernels/oversketch_matmul.py::gram_scratch allocates it).
 inline cudaError_t launch_gram(const float* at, const float* mask, float* g,
-                               int k0, int kc, int k_total, int b, int d,
-                               int accumulate, int finalize,
-                               cudaStream_t stream) {
-  const int T = (d + GT - 1) / GT;
-  gram_kernel<<<T * (T + 1) / 2, G_THREADS, 0, stream>>>(
-      at, mask, g, k0, kc, k_total, b, d, accumulate, finalize);
+                               float* scratch, int k0, int kc, int k_total,
+                               int b, int d, int slices, int accumulate,
+                               int finalize, cudaStream_t stream) {
+  if (slices < 1 || kc < 0 || b < 1 || d < 1 ||
+      (long long)kc * b >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  const int T = (d + GT - 1) / GT, tiles = T * (T + 1) / 2;
+  if ((long long)tiles * slices > 0x7fffffffLL) return cudaErrorInvalidValue;
+  float* n_avail = scratch + (size_t)slices * tiles * GT * GT;
+  int* live = reinterpret_cast<int*>(n_avail + 1);
+  gram_live_kernel<<<1, 32, 0, stream>>>(mask, live, n_avail, k0, kc,
+                                         k_total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(gram_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             G_SMEM);
+  if (err != cudaSuccess) return err;
+  gram_kernel<<<tiles * slices, G_THREADS, G_SMEM, stream>>>(at, live,
+                                                             scratch, b, d,
+                                                             slices);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gram_reduce_kernel<<<dim3(tiles, GT / G_BAND), 256, 0, stream>>>(
+      scratch, n_avail, g, d, slices, accumulate, finalize);
   return cudaGetLastError();
 }
 
@@ -402,12 +571,14 @@ inline cudaError_t launch_gram(const float* at, const float* mask, float* g,
 // from the layered segment-sum apply: the sort of all k blocks once, then,
 // chunk blocks at a time through scratch (chunk, b, d), the gather and the
 // Gram; the first chunk overwrites G, the last divides by the survivor
-// count.  iscratch holds the sort (sort_scratch).
+// count.  iscratch holds the sort (sort_scratch); gscratch the Gram's
+// scratch for chunk blocks (launch_gram).
 inline cudaError_t launch_sketch_gram(const int* h, const float* sigma,
                                       const float* a, const float* mask,
                                       float* g, float* scratch,
-                                      uint32_t* iscratch, int k, int s, int n,
-                                      int d, int b, int chunk, ApplyPlan plan,
+                                      uint32_t* iscratch, float* gscratch,
+                                      int k, int s, int n, int d, int b,
+                                      int chunk, int slices, ApplyPlan plan,
                                       float scale, cudaStream_t stream) {
   if (chunk < 1 || k < 1 || b < 1 || s < 1 || n < 1 || d < 1)
     return cudaErrorInvalidValue;
@@ -420,8 +591,8 @@ inline cudaError_t launch_sketch_gram(const int* h, const float* sigma,
     err = launch_gather(sc, a, mask, scratch, n, d, b, s, k0, kc, plan.width,
                         scale, stream);
     if (err != cudaSuccess) return err;
-    err = launch_gram(scratch, mask, g, k0, kc, k, b, d, k0 > 0,
-                      k0 + kc >= k, stream);
+    err = launch_gram(scratch, mask, g, gscratch, k0, kc, k, b, d, slices,
+                      k0 > 0, k0 + kc >= k, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

@@ -13,22 +13,23 @@
 // d = 3,000, b = 256) the Gram's 2 K b d^2 fp32 operations dominate the
 // apply's 2 K n d, against about 4 GB of input: it is bound by the fp32
 // FFMA rate.  Design: sort every live block's codes by bucket once, then
-// walk the blocks in chunks of a few tens of blocks (the wrapper's
-// CHUNK_BYTES); for each chunk the sorted gather of sketch_common.cuh
-// writes the live blocks' A_tilde into a scratch buffer and the symmetric
-// tiled Gram kernel of oversketch_gram.cu folds m_k A_k^T A_k into G (the
-// first chunk overwrites G, the last divides by the survivor count).  The
-// full (K, b, d) A_tilde never exists at once, and a masked block is
-// neither sketched nor read.
+// walk the blocks in chunks of at most the wrapper's CHUNK_BYTES (all 150
+// blocks at those shapes); for each chunk the sorted gather of
+// sketch_common.cuh writes the live blocks' A_tilde into a scratch buffer
+// and the masked Gram of sketch_common.cuh (launch_gram, also behind
+// oversketch_gram.cu) folds m_k A_k^T A_k into G (the first chunk
+// overwrites G, the last divides by the survivor count).  A masked block
+// is neither sketched nor read.
 #include "sketch_common.cuh"
 
 extern "C" int sketch_gram_count_launch(const int* h, const float* sigma,
                                         const float* a, const float* mask,
                                         float* g, float* scratch,
-                                        uint32_t* iscratch, int k, int n,
-                                        int d, int b, int chunk, int chunks,
-                                        int width, void* stream) {
+                                        uint32_t* iscratch, float* gscratch,
+                                        int k, int n, int d, int b, int chunk,
+                                        int slices, int chunks, int width,
+                                        void* stream) {
   return (int)sketch::launch_sketch_gram(
-      h, sigma, a, mask, g, scratch, iscratch, k, 1, n, d, b, chunk,
-      {chunks, width}, 1.f, (cudaStream_t)stream);
+      h, sigma, a, mask, g, scratch, iscratch, gscratch, k, 1, n, d, b,
+      chunk, slices, {chunks, width}, 1.f, (cudaStream_t)stream);
 }

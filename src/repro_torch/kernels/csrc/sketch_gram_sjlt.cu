@@ -25,11 +25,11 @@
 extern "C" int sketch_gram_sjlt_launch(const int* h, const float* sigma,
                                        const float* a, const float* mask,
                                        float* g, float* scratch,
-                                       uint32_t* iscratch, int k, int s,
-                                       int n, int d, int b, int chunk,
-                                       int chunks, int width, float scale,
-                                       void* stream) {
+                                       uint32_t* iscratch, float* gscratch,
+                                       int k, int s, int n, int d, int b,
+                                       int chunk, int slices, int chunks,
+                                       int width, float scale, void* stream) {
   return (int)sketch::launch_sketch_gram(
-      h, sigma, a, mask, g, scratch, iscratch, k, s, n, d, b, chunk,
-      {chunks, width}, scale, (cudaStream_t)stream);
+      h, sigma, a, mask, g, scratch, iscratch, gscratch, k, s, n, d, b,
+      chunk, slices, {chunks, width}, scale, (cudaStream_t)stream);
 }

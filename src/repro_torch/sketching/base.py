@@ -10,7 +10,7 @@ family:
   apply(state, a)          -> (total_blocks, b, d) per-block S_i^T A
   gram(state, a, survivors) -> (d, d) masked, rescaled Gram
   gram_fused(state, a, survivors) -> (d, d) or None: the family's fused
-      sketch -> Gram kernel (A_tilde never formed whole), if it has one
+      sketch -> Gram kernel (A_tilde a chunk at a time), if it has one
   fused_path(d)            -> "fused" | "unfused": which path
       ``gram(use_kernels=True)`` takes.  The port's fused kernels have one
       form for every d, so it never reports the reference's "fused_tiled"

@@ -298,6 +298,99 @@ def test_sketch_gram_srht(cuda, k, n, d, b, mask):
     torch.testing.assert_close(got, got.T, rtol=0, atol=0)
 
 
+# The SRHT kernel transforms panels of P = 256 rows: n below P, exactly a
+# power of two, one past a panel edge; every sampled row at or past n;
+# repeated sampled rows; b not a multiple of 32 and past one CTA's 256
+# samples; d = 1; sigma of any value.
+SRHT_CASES = [(3, 100, 37, 32, "any"), (3, 256, 37, 32, "any"),
+              (3, 1024, 20, 64, "any"), (3, 257, 37, 32, "any"),
+              (3, 513, 33, 37, "any"), (3, 600, 40, 64, "past_n"),
+              (3, 700, 40, 64, "repeated"), (3, 900, 1, 64, "any"),
+              (2, 3000, 70, 300, "any"), (3, 1500, 45, 50, "sigma_values")]
+
+
+@pytest.mark.parametrize("k,n,d,b,kind", SRHT_CASES)
+@pytest.mark.parametrize("mask", ["all", "one", "none"])
+def test_sketch_gram_srht_panels(cuda, k, n, d, b, kind, mask):
+    rows, sigma, a = _srht_inputs("cpu", k, n, d, b, seed=n + b)
+    g = torch.Generator().manual_seed(b)
+    n_pad = 1 << max(0, (n - 1).bit_length())
+    if kind == "past_n":
+        rows = torch.randint(n, n_pad, (k, b), generator=g, dtype=torch.int32)
+    elif kind == "repeated":
+        rows[:, 1::2] = rows[:, ::2][:, : b // 2]
+        rows[:, -3:] = rows[:, :1]
+    elif kind == "sigma_values":
+        sigma = torch.rand(k, n, generator=g) * 4 - 2
+        sigma[torch.rand(k, n, generator=g) < 0.125] = 0.0
+    rows, sigma, a = rows.to(cuda), sigma.to(cuda), a.to(cuda)
+    m = {"all": torch.ones(k, dtype=torch.bool),
+         "one": torch.arange(k) == k - 1,
+         "none": torch.zeros(k, dtype=torch.bool)}[mask].to(cuda)
+    got = ops.sketch_gram_srht(rows, sigma, a, m)
+    if mask == "none":
+        assert not got.any()
+        return
+    assert _rel_err(got, ref.sketch_gram_srht(rows, sigma, a, m)) < REL_TOL
+    assert torch.equal(got, got.T)
+    assert torch.equal(ops.sketch_gram_srht(rows, sigma, a, m), got)
+
+
+# The masked Gram cuts the live rows into slices (oversketch_matmul
+# .gram_slices sizes them from the SM count): counts that do not divide the
+# live rows, more slices than rows, and d at and past a 128-column tile edge.
+@pytest.mark.parametrize("slices", [1, 3, 7, 64, 300])
+@pytest.mark.parametrize("d", [1, 37, 128, 129, 257, 260])
+def test_gram_of_any_slice_count(cuda, monkeypatch, slices, d):
+    from repro_torch.kernels import oversketch_matmul
+    monkeypatch.setattr(oversketch_matmul, "gram_slices",
+                        lambda rows, d_, sms: slices)
+    k, b = 7, 37
+    g = torch.Generator().manual_seed(d + slices)
+    a_t = torch.randn(k, b, d, generator=g).to(cuda)
+    m = (torch.arange(k) % 3 != 1).to(cuda)   # 5 live blocks, 185 rows
+    got = ops.oversketch_gram(a_t, m)
+    assert _rel_err(got, ref.oversketch_gram(a_t, m)) < REL_TOL
+    assert torch.equal(got, got.T)
+    assert torch.equal(ops.oversketch_gram(a_t, m), got)
+
+
+# The fused kernels fold chunks of 3 blocks: a chunk with one live block,
+# one with every block masked, one with two (accumulate, then finalize on
+# the last), with the Gram cut into slices that divide nothing.
+@pytest.mark.parametrize("family", ["count", "sjlt", "srht"])
+@pytest.mark.parametrize("slices", [1, 5])
+@pytest.mark.parametrize("d", [37, 129])
+def test_fused_grams_walk_masked_chunks(cuda, monkeypatch, family, slices, d):
+    from repro_torch.kernels import oversketch_matmul, sketch_gram
+    monkeypatch.setattr(oversketch_matmul, "gram_slices",
+                        lambda rows, d_, sms: slices)
+    k, n, b = 9, 700, 32
+    monkeypatch.setattr(sketch_gram, "CHUNK_BYTES", 3 * 4 * b * d)
+    assert sketch_gram.chunk_blocks(k, b, d) == 3
+    m = torch.tensor([1, 0, 0, 0, 0, 0, 1, 1, 0], dtype=torch.bool).to(cuda)
+    if family == "srht":
+        rows, sigma, a = _srht_inputs(cuda, k, n, d, b, seed=d)
+        got = ops.sketch_gram_srht(rows, sigma, a, m)
+        want = ref.sketch_gram_srht(rows, sigma, a, m)
+        again = ops.sketch_gram_srht(rows, sigma, a, m)
+    else:
+        s = 3 if family == "sjlt" else 1
+        h, sigma, a = _sjlt_inputs(cuda, k, s, n, d, b, seed=d)
+        if family == "count":
+            h, sigma = h[:, 0].contiguous(), sigma[:, 0].contiguous()
+        fused = ops.sketch_gram_sjlt if family == "sjlt" else \
+            ops.sketch_gram_count
+        plain = ref.sketch_gram_sjlt if family == "sjlt" else \
+            ref.sketch_gram_count
+        got = fused(h, sigma, a, b, m)
+        want = plain(h, sigma, a, b, m)
+        again = fused(h, sigma, a, b, m)
+    assert _rel_err(got, want) < REL_TOL
+    assert torch.equal(got, got.T)
+    assert torch.equal(again, got)
+
+
 @pytest.mark.parametrize("k,n,d", [(3, 1, 5), (2, 64, 37), (1, 4096, 300),
                                    (2, 8192, 33), (1, 1 << 17, 20)])
 def test_fwht_forms_match_the_butterfly(cuda, k, n, d):

@@ -290,10 +290,41 @@ def test_apply_plan_refuses_more_than_int_entries():
 
 
 def test_fused_kernels_chunk_blocks():
-    """The fused kernels' chunks keep A_tilde under CHUNK_BYTES: 27 blocks
-    at b = 256, d = 3,000; one block at least, K at most."""
+    """The fused kernels' chunks keep A_tilde under CHUNK_BYTES: all 150
+    blocks at b = 256, d = 3,000 and all 10 at b = 4,096 (163 and 10 fit);
+    one block at least, K at most."""
     from repro_torch.kernels import sketch_gram
-    assert sketch_gram.chunk_blocks(150, 256, 3000) == 27
-    assert sketch_gram.chunk_blocks(10, 4096, 3000) == 1
+    assert sketch_gram.chunk_blocks(150, 256, 3000) == 150
+    assert sketch_gram.chunk_blocks(200, 256, 3000) == 163
+    assert sketch_gram.chunk_blocks(10, 4096, 3000) == 10
     assert sketch_gram.chunk_blocks(5, 256, 3000) == 5
     assert sketch_gram.chunk_blocks(3, 1 << 20, 3000) == 1
+
+
+# (live rows, d, SMs) -> slices of the masked Gram: the fewest whose
+# (tile, slice) work items fill the last wave of the card's 2 CTAs an SM to
+# 97%, else the best fill; at least 256 rows a slice.
+GRAM_PLANS = [(30_720, 3000, 132, 6),   # nystrom: 300 tiles, 1,800 items
+              (6_912, 3000, 132, 6),    # a chunk of 27 blocks
+              (30_720, 3000, 114, 3),   # 114 SMs: 900 of 912 slots
+              (1_024, 3000, 132, 4),    # 4 slices at most: the best fill
+              (192, 37, 132, 1),        # fewer rows than one slice takes
+              (30_720, 37, 132, 120),   # one tile: as many as rows allow
+              (10 ** 6, 30_000, 132, 1),  # 27,730 tiles fill 99%
+              (0, 3000, 132, 1)]
+
+
+@pytest.mark.parametrize("rows,d,sms,slices", GRAM_PLANS)
+def test_gram_slices_fill_whole_waves(rows, d, sms, slices):
+    from repro_torch.kernels import oversketch_matmul as om
+    assert om.gram_slices(rows, d, sms) == slices
+    tiles = om.gram_tiles(d)
+    resident = om.GRAM_CTAS_PER_SM * sms
+
+    def fill(s):
+        return tiles * s / (-(-tiles * s // resident) * resident)
+    most = max(1, rows // om.GRAM_MIN_SLICE_ROWS)
+    assert all(fill(s) < om.GRAM_WAVE_FILL for s in range(1, slices))
+    if fill(slices) < om.GRAM_WAVE_FILL:
+        assert all(fill(s) <= fill(slices) for s in range(1, most + 1))
+    assert slices == 1 or rows // slices >= om.GRAM_MIN_SLICE_ROWS
