@@ -20,10 +20,14 @@ with its seconds:
            mat-vec at both product-code encodes (X: 1,296 workers of
            (256, 3,000); X^T: 25 of (256, 300,000)) with 5% of the workers
            erased, the normal kernel at one gaussian block (300,000 x 256),
-           bit for bit), plus small cases (ragged, all masked, a
-           non-power-of-two n, b = 4,096, the one-pass FWHT, and skewed
-           codes for the segment-sum kernels: one bucket, half the buckets
-           empty, out-of-range buckets, sigma other than +-1); times of
+           bit for bit, with its table's one-off build, and the draw
+           kernel at the main path's and nystrom's draws, bit for bit:
+           randint (150, 300,000) in [0, 256), rademacher of that shape,
+           randint (150, 256) in [0, 300,000)), plus small cases
+           (ragged, all masked, a non-power-of-two n, b = 4,096, the
+           one-pass FWHT, and skewed codes for the segment-sum kernels:
+           one bucket, half the buckets empty, out-of-range buckets, sigma
+           other than +-1); times of
            kernel, plain version and a PyTorch yardstick, and the bound the
            card's peaks give.  The segment-sum apply's two phases (the sort
            by bucket, then the gather) are timed apart from a profiler
@@ -37,7 +41,8 @@ with its seconds:
            iterations (the oversketch family); launch counts read just
            before and after
   profile  the same call with 2 iterations under torch.profiler: device
-           time by operator and the device's idle share
+           time by operator, the draw kernel's, and the device's idle
+           share; then the sjlt family's 2 iterations the same way
   families the same loop with the sjlt, srht, nystrom, leverage and
            gaussian families, 2 iterations each, launch counts read around
            each run
@@ -84,13 +89,21 @@ REL_TOL = 1e-4          # kernel vs plain, relative to max |plain|
 ITERS = 3
 PATH_ITERS = 2          # iterations of each further path
 SEED = 0
+BLOCK = 256             # b of the blocks paths
 DISTAVG_BLOCK = 4096    # b > d = 3,000, as distributed-avg requires
 CODED_ERASED = 0.05     # share of coded workers erased in the kernel check
-# Float operations of one normal draw in prng.normal_plain (an FMA counts
-# two): the uniform 4, -u^2 1, log1p 31 (either branch), erfinv's select
-# and polynomial 19 (its sqrt branch one more), sqrt(2) 1.  The threefry
-# hash's ~120 integer operations are not counted.
-NORMAL_FLOPS = 56
+# One 32-bit integer instruction a lane a clock on the INT32 lanes: 64 of
+# the SM's 128 a clock, half of FP32_ADDS.
+INT32_OPS = 16.7e12
+# SASS instructions of one threefry2x32 hash (csrc/threefry.cuh) in the
+# draw kernel's BITS loop, counted with cuobjdump -sass
+# (scripts/count_sass.py): 68, that is 20 funnel shifts, 21 xors (LOP3),
+# 10 IADD3 and 17 IMAD.IADD (the rounds' adds, the key schedule folded
+# in); the loop's other 9 are the counter, the address, the store and the
+# branch.  Hopper issues IMAD on the FMA pipe beside the INT32 lanes, so
+# the lanes carry 51 a hash: the bound counts those at INT32_OPS (all 68
+# at the issue rate, 2 x INT32_OPS, take less).
+HASH_INT_OPS = 51
 # The segment-sum apply's two phases, timed apart where a row has them,
 # and the launches of the profiler trace they were read from.
 PHASES = ("sort_ms", "gather_ms", "launches_traced")
@@ -129,8 +142,10 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(ops: float, nbytes: float) -> tuple:
-    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound(ops: float, nbytes: float, rate: float = FP32_FLOPS) -> tuple:
+    """(ms, by): the larger of ops at ``rate`` (fp32 operations, or
+    INT32_OPS for integer instructions) and nbytes at HBM_BYTES_PER_S."""
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -838,8 +853,15 @@ def check_nystrom_gram(ops, ref, a, a_t, mask) -> dict:
 def check_normal(ops, prng, key, shape, device) -> dict:
     """The normal kernel at one gaussian block's draw against the plain
     version on the card, every bit; torch.randn of the same shape beside
-    it as a yardstick of another function."""
+    it as a yardstick of another function; the table's build once."""
     import torch
+    from repro_torch.kernels import normal
+    normal.table(device)
+    table, build_ms = timed_once(lambda: normal.build_table(device))
+    if not torch.equal(table.view(torch.int32),
+                       normal.table(device).view(torch.int32)):
+        raise AssertionError("normal: two builds of the table differ")
+    del table
     got = ops.normal(key, shape, device)
     want, plain_ms = timed_once(lambda: prng.normal_plain(key, shape, device))
     differing = int((got.view(torch.int32) != want.view(torch.int32)).sum())
@@ -858,10 +880,68 @@ def check_normal(ops, prng, key, shape, device) -> dict:
         lambda: torch.randn(shape, device=device), 5)
     row["yardstick"] = "torch.randn, same shape (not the same function)"
     count = math.prod(shape)
-    row["bound_ms"], row["bound_by"] = bound(float(NORMAL_FLOPS) * count,
-                                             4.0 * count)
+    row["bound_ms"], row["bound_by"] = bound(float(HASH_INT_OPS) * count,
+                                             4.0 * count, INT32_OPS)
+    row["bound_rate"] = "INT32_OPS"
+    row["table_build_ms"] = build_ms
     row["shape"] = list(shape)
     return row
+
+
+def check_draw(ops, prng, key, n: int, k: int, b: int, device) -> dict:
+    """The draw kernel against the plain version on the card, every bit,
+    at the main path's draw of one iteration (the count sketch's h in
+    [0, b) and sigma, (k, n)) and nystrom's rows ((k, b) in [0, n)), with
+    the keys the samplers split; torch.randint of the same shape beside
+    each as a yardstick of another function.  The first case is the row;
+    the others go under other_shapes."""
+    import torch
+    kh, ks = prng.split(key)
+    cases = {
+        "randint h (K, n) in [0, b)": (
+            lambda: ops.randint(kh, (k, n), 0, b, device=device),
+            lambda: prng.randint(kh, (k, n), 0, b, device=device),
+            (k, n), b, 2),
+        "rademacher sigma (K, n)": (
+            lambda: ops.rademacher(ks, (k, n), device=device),
+            lambda: prng.rademacher(ks, (k, n), device=device),
+            (k, n), 2, 1),
+        "randint nystrom rows (K, b) in [0, n)": (
+            lambda: ops.randint(key, (k, b), 0, n, device=device),
+            lambda: prng.randint(key, (k, b), 0, n, device=device),
+            (k, b), n, 2)}
+    rows = {}
+    for label, (kernel, plain, shape, span, hashes) in cases.items():
+        got = kernel()
+        want, plain_ms = timed_once(plain)
+        bits = ((got.view(torch.int32) != want.view(torch.int32))
+                if got.dtype == torch.float32 else got != want)
+        differing = int(bits.sum())
+        if differing or got.dtype != want.dtype:
+            raise AssertionError(f"draw {label}: {differing} draws differ "
+                                 "from the plain version")
+        row = {"max_abs_err": float((got.double() - want.double()).abs()
+                                    .max()), "entries_differing": 0}
+        del got, want
+        row["ms"] = cuda_ms(kernel, 5)
+        row["plain_ms"] = plain_ms
+        row["library_ms"] = None
+        row["library_call"] = "none: no PyTorch call draws jax's bits"
+        row["yardstick_ms"] = cuda_ms(
+            lambda: torch.randint(0, span, shape, device=device,
+                                  dtype=torch.int32), 5)
+        row["yardstick"] = "torch.randint, same shape (not the same function)"
+        count = math.prod(shape)
+        row["bound_ms"], row["bound_by"] = bound(
+            float(HASH_INT_OPS) * hashes * count, 4.0 * count, INT32_OPS)
+        row["bound_rate"] = "INT32_OPS"
+        row["hashes"] = hashes * count
+        row["shape"] = list(shape)
+        row["span"] = span
+        rows[label] = row
+    first, *rest = rows
+    return {**rows[first], "case": first,
+            "other_shapes": {name: rows[name] for name in rest}}
 
 
 CHECK_CASES = {   # verify recipe: b = 64 > d = 20 for distributed-avg
@@ -908,6 +988,31 @@ def run_small_reference(core, ops, data_mod, prng) -> dict:
     return out
 
 
+def sketch_configs(core, d: int, sketch_dim_mult: int) -> tuple:
+    """The blocks paths' sketch (m = sketch_dim_mult x d, with d rounded up
+    to whole blocks of BLOCK) and distributed-avg's (8 blocks of
+    DISTAVG_BLOCK)."""
+    sketch_dim = sketch_dim_mult * (-(-d // BLOCK) * BLOCK)
+    return (core.OverSketchConfig(sketch_dim, BLOCK, 0.25),
+            core.OverSketchConfig(8 * DISTAVG_BLOCK, DISTAVG_BLOCK, 0.25))
+
+
+def path_config(core, path: str, scfg, dcfg, **kw):
+    """The NewtonConfig of a named path: newton (the oversketch family, the
+    main path), families_X (sketch family X on scfg) or distavg_X
+    (distributed-avg with debias, family X on dcfg); kw sets the rest."""
+    family = path.partition("_")[2]
+    if path == "newton":
+        return core.NewtonConfig(sketch=scfg, **kw)
+    if path.startswith("families_"):
+        return core.NewtonConfig(sketch=scfg, sketch_family=family, **kw)
+    if path.startswith("distavg_"):
+        return core.NewtonConfig(sketch=dcfg, sketch_family=family,
+                                 sketch_mode="distributed-avg", debias=True,
+                                 **kw)
+    raise ValueError(f"unknown path {path!r}")
+
+
 def run_path(core, ops, objective, data, w0, cfg, label: str,
              expect: dict) -> dict:
     """One full-width run of a path through the entry point, launch counts
@@ -950,8 +1055,9 @@ def run_path(core, ops, objective, data, w0, cfg, label: str,
 
 def profile_iterations(core, objective, data, w0, cfg, device,
                        top: int = 12) -> dict:
-    """Device time by operator over one more run of the main path
-    (torch.profiler), and the device's idle share of its wall time."""
+    """Device time by operator over one more run of a path (torch.profiler),
+    2 iterations, the draw kernel's share, and the device's idle share of
+    its wall time."""
     import dataclasses
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -973,8 +1079,11 @@ def profile_iterations(core, objective, data, w0, cfg, device,
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=dev_us, reverse=True)
     device_ms = sum(dev_us(e) for e in events) / 1e3
-    return {"iters": 2, "wall_ms": wall_ms, "device_ms": device_ms,
-            "idle_share": 1.0 - device_ms / wall_ms,
+    draws = [e for e in events if "draw_kernel" in e.key]
+    return {"iters": 2, "wall_ms": wall_ms,
+            "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+            "draw_kernel_ms": sum(dev_us(e) for e in draws) / 1e3,
+            "draw_kernel_launches": sum(e.count for e in draws),
             "top": [{"op": e.key[:90], "device_ms": dev_us(e) / 1e3,
                      "calls": e.count} for e in events[:top]]}
 
@@ -1019,14 +1128,13 @@ def main() -> int:
     data = data_mod.profile_dataset("synthetic", prng.PRNGKey(SEED),
                                     full_scale=True, device=dev)
     n, d = data.x.shape
-    b = 256
-    # m = sketch_dim_mult x d, with d rounded up to whole blocks.
-    sketch_dim = WORKER_SETUP["synthetic"]["sketch_dim_mult"] * (-(-d // b) * b)
-    scfg = core.OverSketchConfig(sketch_dim, b, 0.25)
+    b = BLOCK
+    scfg, dcfg = sketch_configs(
+        core, d, WORKER_SETUP["synthetic"]["sketch_dim_mult"])
     torch.cuda.synchronize()
     emit({"phase": "data", "n": n, "d": d, "n_test": data.x_test.shape[0],
           "profile": [prof.n_train, prof.n_features, prof.n_test],
-          "sketch_dim": sketch_dim, "block_size": b,
+          "sketch_dim": scfg.sketch_dim, "block_size": b,
           "total_blocks": scfg.total_blocks,
           "label_balance": float((data.y > 0).float().mean()),
           "seconds": time.perf_counter() - t0})
@@ -1046,7 +1154,6 @@ def main() -> int:
     mask = torch.ones(scfg.total_blocks, dtype=torch.bool)
     mask[torch.from_numpy(drop)] = False
     mask = mask.to(dev)
-    dcfg = core.OverSketchConfig(8 * DISTAVG_BLOCK, DISTAVG_BLOCK, 0.25)
     ops.reset_launch_counts()
     rows = check_kernels(ops, ref, state.h, state.sigma, a, mask, b)
     del state
@@ -1069,6 +1176,8 @@ def main() -> int:
     del a, a_t
     gauss = sketching.get("gaussian", scfg).sample(draw, n, device=dev)
     rows["normal"] = check_normal(ops, prng, gauss["keys"][0], (n, b), dev)
+    del gauss
+    rows["draw"] = check_draw(ops, prng, draw, n, scfg.total_blocks, b, dev)
     torch.cuda.empty_cache()
     coded_rows = check_coded(ops, ref, data, b, dev)
     rows["coded_block_matvec"] = coded_rows["XT"]
@@ -1082,48 +1191,67 @@ def main() -> int:
           "small_cases_max_abs_err": small,
           "tolerance_rel": REL_TOL, "seconds": time.perf_counter() - t0})
 
-    # The main path: counts set to 0 just before, read just after.
-    cfg = core.NewtonConfig(iters=ITERS, sketch=scfg, gradient_policy="coded",
-                            use_kernels=True, track_test_error=True,
-                            seed=SEED)
+    # The main path: counts set to 0 just before, read just after.  Each
+    # iteration draws its count sketch (h, then sigma) with the draw kernel.
+    cfg = path_config(core, "newton", scfg, dcfg, iters=ITERS,
+                      gradient_policy="coded", use_kernels=True,
+                      track_test_error=True, seed=SEED)
     paths = {"newton": run_path(core, ops, objective, data, w0, cfg,
                                 "newton", {"sketch_gram_count": ITERS,
-                                           "coded_block_matvec": 2 * ITERS})}
+                                           "coded_block_matvec": 2 * ITERS,
+                                           "draw": 2 * ITERS})}
 
     # Where the time goes: the main path once more under torch.profiler
-    # (its launches come after the counts were read).
+    # (its launches come after the counts were read), then the sjlt family.
     t0 = time.perf_counter()
     prof = profile_iterations(core, objective, data, w0, cfg, dev)
     emit({"phase": "profile", **prof, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    prof = profile_iterations(
+        core, objective, data, w0,
+        path_config(core, "families_sjlt", scfg, dcfg, iters=PATH_ITERS,
+                    gradient_policy="coded", use_kernels=True, seed=SEED),
+        dev)
+    emit({"phase": "profile_families_sjlt", **prof,
+          "seconds": time.perf_counter() - t0})
 
     # The other sketch families and distributed-avg, each driven and
-    # counted on its own.
+    # counted on its own.  The draw kernel launches twice an iteration where
+    # the family draws codes or signs and rows (h and sigma; sigma and the
+    # SRHT's rows), once on nystrom (its rows), and never on leverage (its
+    # rows come from prng.choice's plain uniform on the card) or gaussian
+    # (its blocks come from the normal kernel).
     base = dict(iters=PATH_ITERS, gradient_policy="coded", use_kernels=True,
                 seed=SEED)
     coded_launches = {"coded_block_matvec": 2 * PATH_ITERS}
     k = scfg.total_blocks
     for fam, expect in (
-            ("sjlt", {"sketch_gram_sjlt": PATH_ITERS}),
-            ("srht", {"sketch_gram_srht": PATH_ITERS}),
-            ("nystrom", {"oversketch_gram": PATH_ITERS}),
-            ("leverage", {"oversketch_gram": PATH_ITERS}),
+            ("sjlt", {"sketch_gram_sjlt": PATH_ITERS,
+                      "draw": 2 * PATH_ITERS}),
+            ("srht", {"sketch_gram_srht": PATH_ITERS,
+                      "draw": 2 * PATH_ITERS}),
+            ("nystrom", {"oversketch_gram": PATH_ITERS, "draw": PATH_ITERS}),
+            ("leverage", {"oversketch_gram": PATH_ITERS, "draw": 0}),
             ("gaussian", {"oversketch_gram": PATH_ITERS,
-                          "normal": k * PATH_ITERS})):
-        paths[f"families_{fam}"] = run_path(
+                          "normal": k * PATH_ITERS, "draw": 0})):
+        label = f"families_{fam}"
+        paths[label] = run_path(
             core, ops, objective, data, w0,
-            core.NewtonConfig(sketch=scfg, sketch_family=fam, **base),
-            f"families_{fam}", {**expect, **coded_launches})
+            path_config(core, label, scfg, dcfg, **base), label,
+            {**expect, **coded_launches})
     k_d = dcfg.total_blocks
-    for fam, expect in (("oversketch", {"count_sketch_apply": PATH_ITERS}),
-                        ("sjlt", {"count_sketch_apply": PATH_ITERS}),
+    for fam, expect in (("oversketch", {"count_sketch_apply": PATH_ITERS,
+                                        "draw": 2 * PATH_ITERS}),
+                        ("sjlt", {"count_sketch_apply": PATH_ITERS,
+                                  "draw": 2 * PATH_ITERS}),
                         ("srht", {"fwht": 0,
-                                  "fwht_two_pass": k_d * PATH_ITERS})):
-        paths[f"distavg_{fam}"] = run_path(
+                                  "fwht_two_pass": k_d * PATH_ITERS,
+                                  "draw": 2 * PATH_ITERS})):
+        label = f"distavg_{fam}"
+        paths[label] = run_path(
             core, ops, objective, data, w0,
-            core.NewtonConfig(sketch=dcfg, sketch_family=fam,
-                              sketch_mode="distributed-avg", debias=True,
-                              **base),
-            f"distavg_{fam}", {**expect, **coded_launches})
+            path_config(core, label, scfg, dcfg, **base), label,
+            {**expect, **coded_launches})
     del data
     torch.cuda.empty_cache()
 
@@ -1152,7 +1280,8 @@ def main() -> int:
             "apply alone (count_sketch_apply, K_live = 120, s = 4, b = 256)":
                 rows["sjlt_apply"],
             "Gram alone (oversketch_gram of that A_tilde)":
-                rows["sjlt_gram"]}}
+                rows["sjlt_gram"]},
+        "draw": rows["draw"]["other_shapes"]}
     summary = []
     for name, kern in ops.KERNELS.items():
         r = rows[name]
@@ -1176,12 +1305,14 @@ def main() -> int:
             entry["other_shapes"] = {
                 k: {f: v[f] for f in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
-                                      *PHASES) if f in v}
+                                      "yardstick_ms", *PHASES) if f in v}
                 for k, v in other[name].items()}
         entry.update({f: r[f] for f in PHASES if f in r})
-        if name == "normal":
-            entry["yardstick_ms"] = r["yardstick_ms"]
-            entry["yardstick"] = r["yardstick"]
+        if name in ("normal", "draw"):
+            entry.update({f: r[f] for f in ("yardstick_ms", "yardstick",
+                                            "bound_rate", "table_build_ms",
+                                            "case")
+                          if f in r})
         summary.append(entry)
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     emit({"kernels": summary})

@@ -71,8 +71,8 @@ def sample_countsketch(key: torch.Tensor, num_rows: int,
     device = resolve_device(device)
     kh, ks = prng.split(key)
     shape = (cfg.total_blocks, num_rows)
-    h = prng.randint(kh, shape, 0, cfg.block_size, device=device)
-    sigma = prng.rademacher(ks, shape, device=device)
+    h = kops.randint(kh, shape, 0, cfg.block_size, device=device)
+    sigma = kops.rademacher(ks, shape, device=device)
     return CountSketch(h=h, sigma=sigma, block_size=cfg.block_size)
 
 

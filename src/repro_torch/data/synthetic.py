@@ -2,12 +2,13 @@
 (Sec. 5.1), port of ``repro/data/synthetic.py``: features uniform on
 [-1, 1]^d, labels from a random ground-truth logistic model.
 
-Draws come from ``repro_torch.prng``, so a key gives the reference's
-features and ground-truth weights bit for bit, and the column spectrum
-follows ``jnp.geomspace``'s float32 steps.  The labels compare a sigmoid
-of a matrix product with a uniform draw, and torch sums and rounds that
-product in another order than XLA, so a label whose probability sits on
-its draw can still flip.  Large draws are made in chunks on ``device``.
+Draws come from the port's draw entry points (``kernels.ops.uniform`` and
+``normal``: the draw and normal kernels on the card, ``prng`` on the CPU),
+so a key gives the reference's features and ground-truth weights bit for
+bit, and the column spectrum follows ``jnp.geomspace``'s float32 steps.
+The labels compare a sigmoid of a matrix product with a uniform draw, and
+torch sums and rounds that product in another order than XLA, so a label
+whose probability sits on its draw can still flip.
 """
 from __future__ import annotations
 
@@ -51,10 +52,10 @@ def make_logistic_dataset(key: torch.Tensor, n: int, d: int,
     scales = _geomspace(1.0, 1.0 / max(cond, 1.0), d, device)
 
     def sample(kx_, ky_, m):
-        x = prng.uniform(kx_, (m, d), -1.0, 1.0, device=device)
+        x = kops.uniform(kx_, (m, d), -1.0, 1.0, device=device)
         x *= scales
         p = torch.sigmoid(x @ w + b)
-        u = prng.uniform(ky_, (m,), device=device)
+        u = kops.uniform(ky_, (m,), device=device)
         y = torch.where(u < p, 1.0, -1.0)
         return x, y
 

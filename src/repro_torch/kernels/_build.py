@@ -25,9 +25,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("coded_matvec.cu", "count_sketch.cu", "fwht.cu", "normal.cu",
-           "oversketch_gram.cu", "sketch_gram.cu", "sketch_gram_sjlt.cu",
-           "sketch_gram_srht.cu")
+SOURCES = ("coded_matvec.cu", "count_sketch.cu", "draw.cu", "fwht.cu",
+           "normal.cu", "oversketch_gram.cu", "sketch_gram.cu",
+           "sketch_gram_sjlt.cu", "sketch_gram_srht.cu")
 
 # The ptxas report (registers, shared memory, spills) of each build made
 # by this process, by source name.

@@ -1,24 +1,23 @@
 // normal on Hopper: jax.random.normal's float32 draws, bit for bit the
-// plain version (repro_torch/prng.py::normal_plain), in one grid-stride
-// launch.
+// plain version (repro_torch/prng.py::normal_plain), as one hash and one
+// table read a draw.
 //
 // A kernel of the port alone: it replaces no Pallas kernel.  The reference
 // draws its normals with XLA (jax.random.normal); the plain version
-// reproduces them as ~130 int64 elementwise launches of threefry per 2^24
-// draws, then XLA's erfinv through float64, which is far too slow for the
-// gaussian sketch family's 1.15e10 draws per Newton iteration at full
-// width.  Here each thread hashes its counters and carries one draw through
-// the same float32 operations in registers: output bytes bound it, 4 per
-// draw.
+// hashes with ~130 int64 elementwise launches per 2^24 draws, then runs
+// XLA's erfinv through float64, which is far too slow for the gaussian
+// sketch family's 1.15e10 draws per Newton iteration at full width.
 //
-// Bit-identical by construction, step by step as prng.py computes:
-//   bits   threefry2x32 (20 rounds) of the 64-bit counter i, key (k0, k1),
-//          the two output words XORed (uint32 arithmetic);
-//   u      the mantissa trick, minus 1, then uniform's FMA on
+// A normal draw is a function of the top 23 bits of its 32-bit word
+// alone: the uniform is the mantissa trick on bits >> 9, then one fixed
+// FMA and a max.  So there are 2^23 outputs, and the table T[m] of all of
+// them (32 MiB of float32) is exact by construction.  normal_table_kernel
+// computes it once per device, in the float32 steps of prng.py:
+//   u      the mantissa m over 2^23, then uniform's FMA on
 //          [nextafter(-1, 0), 1) and the max with its lower end;
 //   erfinv XLA's polynomial in w = -log1p(-u u), with log1p and log in
 //          XLA's CPU form (prng.log1p_f32, prng.log_f32);
-//   out    sqrt(2) erfinv(u).
+//   T[m]   sqrt(2) erfinv(u).
 // Every float32 operation is an explicitly rounded intrinsic (__fadd_rn,
 // __fmul_rn, __fdiv_rn: nothing is contracted into an FMA), every _fma of
 // prng.py is computed as it is there (the product and the sum in float64,
@@ -26,9 +25,21 @@
 // rounded, then rounded to float32.  The polynomial coefficients and the
 // uniform's bounds come from prng.py at launch (kernels/normal.py packs
 // them), so the two versions cannot drift apart.
+//
+// normal_kernel then draws: threefry2x32 of counter i (threefry.cuh), a
+// 4-byte read of T[bits >> 9] and a streaming store.  The table stays in
+// the H100's 50 MB L2 while the output streams past it (__stcs marks the
+// stores evict-first), so what bounds a draw is the hash's integer
+// instructions and the table's 32-byte L2 sector per read, not the 4
+// bytes written.  At 32 MiB the reads cost more than from a table of 16
+// MiB or less, and neither an evict_last policy nor a persisting L2
+// window (its set-aside is smaller than the table) helps
+// (scripts/time_normal_gather.py).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "threefry.cuh"
 
 namespace {
 
@@ -46,33 +57,11 @@ struct Consts {
 constexpr int N_CONSTS = sizeof(Consts) / sizeof(float);
 
 constexpr int THREADS = 256;
+constexpr int TABLE_SIZE = 1 << 23;   // one entry per 23-bit mantissa
 
 __device__ __forceinline__ float fma64(float a, float b, float c) {
   return __double2float_rn(
       __dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
-}
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint64_t i) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = (uint32_t)(i >> 32) + ks[0];
-  uint32_t x1 = (uint32_t)i + ks[1];
-#pragma unroll
-  for (int r = 0; r < 5; ++r) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, rot[r % 2][j]) ^ x0;
-    }
-    x0 += ks[(r + 1) % 3];
-    x1 += ks[(r + 2) % 3] + (uint32_t)(r + 1);
-  }
-  return x0 ^ x1;
 }
 
 __device__ float log_f32(const Consts& c, float x) {
@@ -129,20 +118,28 @@ __device__ float erfinv_f32(const Consts& c, float x) {
   return fabsf(x) == 1.0f ? __fmul_rn(x, INFINITY) : __fmul_rn(p, x);
 }
 
+// T[m] for m in [0, 2^23): the computed form of every draw.
 __global__ void __launch_bounds__(THREADS)
-    normal_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ consts,
-                  float* __restrict__ out, int64_t size) {
+    normal_table_kernel(const float* __restrict__ consts,
+                        float* __restrict__ table) {
   __shared__ Consts c;
   for (int i = threadIdx.x; i < N_CONSTS; i += THREADS)
     reinterpret_cast<float*>(&c)[i] = consts[i];
   __syncthreads();
+  const uint32_t m = blockIdx.x * THREADS + threadIdx.x;
+  const float f = __fsub_rn(__uint_as_float(m | 0x3F800000u), 1.0f);
+  const float u = fmaxf(c.lo, fma64(f, c.scale, c.lo));
+  table[m] = __fmul_rn(c.sqrt2, erfinv_f32(c, u));
+}
+
+__global__ void __launch_bounds__(THREADS)
+    normal_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ table,
+                  float* __restrict__ out, int64_t size) {
   const int64_t stride = (int64_t)gridDim.x * THREADS;
   for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < size;
        i += stride) {
-    const uint32_t bits = threefry_bits(k0, k1, (uint64_t)i);
-    const float f = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
-    const float u = fmaxf(c.lo, fma64(f, c.scale, c.lo));
-    out[i] = __fmul_rn(c.sqrt2, erfinv_f32(c, u));
+    const uint32_t bits = threefry::bits(k0, k1, (uint64_t)i);
+    __stcs(out + i, __ldg(table + (bits >> 9)));
   }
 }
 
@@ -150,8 +147,19 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" int normal_consts_count() { return N_CONSTS; }
 
-// out[i] = normal draw i of key (k0, k1), i in [0, size).
-extern "C" int normal_launch(uint32_t k0, uint32_t k1, const float* consts,
+extern "C" int normal_table_size() { return TABLE_SIZE; }
+
+// table[m] = the normal draw of every word whose top 23 bits are m.
+extern "C" int normal_table_launch(const float* consts, float* table,
+                                   void* stream) {
+  normal_table_kernel<<<TABLE_SIZE / THREADS, THREADS, 0,
+                        (cudaStream_t)stream>>>(consts, table);
+  return (int)cudaGetLastError();
+}
+
+// out[i] = normal draw i of key (k0, k1), i in [0, size), read from the
+// table.
+extern "C" int normal_launch(uint32_t k0, uint32_t k1, const float* table,
                              float* out, long long size, void* stream) {
   if (size <= 0) return 0;
   int sms = 0, dev = 0;
@@ -161,6 +169,6 @@ extern "C" int normal_launch(uint32_t k0, uint32_t k1, const float* consts,
   const long long cap = (long long)(sms > 0 ? sms : 132) * 8;
   const int blocks = (int)(want < cap ? want : cap);
   normal_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      k0, k1, consts, out, (int64_t)size);
+      k0, k1, table, out, (int64_t)size);
   return (int)cudaGetLastError();
 }

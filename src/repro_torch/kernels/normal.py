@@ -7,11 +7,19 @@ on a CUDA device it launches the kernel, where the plain version's
 threefry on int64 tensors would take tens of seconds per Newton iteration
 of the gaussian sketch family at full width; on the CPU it takes the plain
 version; any other device raises.
+
+A normal draw depends only on the top 23 bits of its 32-bit word
+(``prng.normal_of_mantissas``), so the kernel reads each draw from a table
+of all 2^23 of them (32 MiB of float32).  ``table`` builds it on a device
+at first use, by the kernel's own computed form of the plain version's
+float32 steps, in one launch of the table kernel (not counted as a launch
+of ``normal``), waits for that launch, and keeps the table for the
+process, so that a draw on any stream reads a finished table.
 """
 from __future__ import annotations
 
 import ctypes
-import math
+from typing import Dict
 
 import numpy as np
 import torch
@@ -27,6 +35,9 @@ KERNEL = CudaKernel(
     replaces="none: port-only, jax.random.normal's bits "
              "(src/repro/sketching/gaussian.py:44)")
 
+TABLE_SIZE = 1 << 23     # one draw per 23-bit mantissa
+_TABLES: Dict[torch.device, torch.Tensor] = {}
+
 
 def constants() -> np.ndarray:
     """prng's float32 constants in ``csrc/normal.cu``'s ``Consts`` order."""
@@ -36,6 +47,53 @@ def constants() -> np.ndarray:
          prng._MIN_NORMAL, prng._LOG1P_SMALL, *prng._LOG1P_NUM,
          *prng._LOG1P_DEN, *prng._ERFINV_W_LT5, *prng._ERFINV_W_GE5,
          lo, np.float32(1.0) - lo, prng.SQRT2], dtype=np.float32)
+
+
+def _cuda(device) -> torch.device:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"normal: the table lives on a CUDA device, got "
+                         f"{device}")
+    return torch.device("cuda", device.index if device.index is not None
+                        else torch.cuda.current_device())
+
+
+def build_table(device) -> torch.Tensor:
+    """A new table on the CUDA ``device``: ``table[m]`` is the normal draw
+    of every word whose top 23 bits are m, by the table kernel."""
+    device = _cuda(device)
+    consts = constants()
+    for symbol, want in (("normal_consts_count", consts.size),
+                         ("normal_table_size", TABLE_SIZE)):
+        got = KERNEL.host_function(symbol, [])()
+        if got != want:
+            raise RuntimeError(f"normal: csrc/normal.cu's {symbol} is {got}, "
+                               f"kernels/normal.py's {want}")
+    dev_consts = torch.from_numpy(consts).to(device)
+    out = torch.empty(TABLE_SIZE, dtype=torch.float32, device=device)
+    err = KERNEL.host_function("normal_table_launch", [ctypes.c_void_p] * 3)(
+        dev_consts.data_ptr(), out.data_ptr(), stream(out))
+    if err != 0:
+        raise RuntimeError(f"normal: the table kernel failed with CUDA "
+                           f"error {err}")
+    return out
+
+
+def table(device) -> torch.Tensor:
+    """The device's table, built at first use on the current stream, which
+    is then synchronized once: later draws on other streams need no event."""
+    device = _cuda(device)
+    if device not in _TABLES:
+        built = build_table(device)
+        torch.cuda.current_stream(device).synchronize()
+        _TABLES[device] = built
+    return _TABLES[device]
+
+
+def table_plain(device) -> torch.Tensor:
+    """The table by the plain version's steps, on any device."""
+    m = torch.arange(TABLE_SIZE, dtype=torch.int32, device=device)
+    return prng.normal_of_mantissas(m)
 
 
 def normal(key: torch.Tensor, shape: prng.Shape = (),
@@ -49,15 +107,9 @@ def normal(key: torch.Tensor, shape: prng.Shape = (),
     if device.type != "cuda":
         raise ValueError(f"normal: device must be the CPU or a CUDA device, "
                          f"got {device}")
-    shape = prng._shape(shape)
-    consts = constants()
-    n_consts = KERNEL.host_function("normal_consts_count", [])()
-    if n_consts != consts.size:
-        raise RuntimeError(f"normal: csrc/normal.cu takes {n_consts} "
-                           f"constants, prng.py gives {consts.size}")
-    out = torch.empty(shape, dtype=torch.float32, device=device)
-    k0, k1 = prng._words(key)
-    dev_consts = torch.from_numpy(consts).to(device)
-    KERNEL.launch(k0, k1, dev_consts.data_ptr(), out.data_ptr(),
-                  math.prod(shape), stream(out))
+    out = torch.empty(prng._shape(shape), dtype=torch.float32, device=device)
+    if out.numel():
+        k0, k1 = prng._words(key)
+        KERNEL.launch(k0, k1, table(device).data_ptr(), out.data_ptr(),
+                      out.numel(), stream(out))
     return out

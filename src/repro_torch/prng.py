@@ -21,7 +21,10 @@ on the ``device`` they are given (the CUDA device when none is given,
 ``resolve_device``), on int64 tensors masked to 32 bits, and are
 counter-based: ``bits[i]`` depends only on ``(key, i)``, so large
 draws are made in chunks of ``CHUNK`` elements and never hold int64
-temporaries for the whole shape.
+temporaries for the whole shape.  These are the plain versions: the
+port's draws on the card go through ``kernels.ops`` (``randint``,
+``rademacher``, ``uniform``, ``bernoulli``, ``normal``), whose CUDA
+kernels compute the same bits and which take these on the CPU.
 
 Every draw is bit-exact against jax on the CPU.  ``normal_plain`` is
 ``sqrt(2) * erfinv(u)`` with XLA's float32 erfinv polynomial, its Horner
@@ -59,13 +62,13 @@ def _words(key: torch.Tensor) -> Tuple[int, int]:
     return int(k[0]) & M32, int(k[1]) & M32
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+def _rotl(x, r: int):
     return ((x << r) | (x >> (32 - r))) & M32
 
 
-def _threefry2x32(k0: int, k1: int, x0: torch.Tensor,
-                  x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """threefry2x32 with 20 rounds on int64 tensors holding uint32 words."""
+def _threefry2x32(k0: int, k1: int, x0, x1):
+    """threefry2x32 with 20 rounds on int64 tensors (or numpy arrays)
+    holding uint32 words."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & M32
     x1 = (x1 + ks[1]) & M32
@@ -93,18 +96,23 @@ def PRNGKey(seed: int) -> torch.Tensor:
     return torch.tensor([0, seed & M32], dtype=torch.int64)
 
 
+def _key_hash(key: torch.Tensor, x1: np.ndarray) -> torch.Tensor:
+    """The keys threefry(key, (0, x1[i])), shape (len(x1), 2).  Hashed in
+    numpy on the host: a key op is a few words, and numpy's per-operation
+    cost is a fraction of torch's."""
+    k0, k1 = _words(key)
+    y0, y1 = _threefry2x32(k0, k1, np.zeros_like(x1), x1)
+    return torch.from_numpy(np.stack([y0, y1], axis=1))
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: (num, 2) keys, key i = threefry(key, (0, i))."""
-    y0, y1 = _hash_counters(key, 0, int(num), "cpu")
-    return torch.stack([y0, y1], dim=1)
+    return _key_hash(key, np.arange(int(num), dtype=np.int64))
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: threefry(key, (0, data)) for uint32 data."""
-    k0, k1 = _words(key)
-    x1 = torch.tensor([int(data) & M32], dtype=torch.int64)
-    y0, y1 = _threefry2x32(k0, k1, torch.zeros_like(x1), x1)
-    return torch.cat([y0, y1])
+    return _key_hash(key, np.array([int(data) & M32], dtype=np.int64))[0]
 
 
 def key_data(key: torch.Tensor) -> np.ndarray:
@@ -129,24 +137,40 @@ def _chunked(key: torch.Tensor, shape: Tuple[int, ...], dtype, device,
     return out.reshape(shape)
 
 
+def _mantissa_floats(m: torch.Tensor) -> torch.Tensor:
+    """The float32 m / 2^23 of 23-bit integers m, as the mantissa trick
+    makes it."""
+    return (m | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
 def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
-    """Mantissa trick of jax's uniform: float32 in [0, 1)."""
-    fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    return fb.view(torch.float32) - 1.0
+    """Mantissa trick of jax's uniform: float32 in [0, 1) from the top 23
+    bits of each word."""
+    return _mantissa_floats(bits >> 9)
+
+
+def _uniform_params(minval: float, maxval: float) -> Tuple[np.float32,
+                                                            np.float32]:
+    """uniform's float32 lower end and scale, maxval - minval rounded to
+    float32."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return lo, np.float32(hi - lo)
+
+
+def _uniform_of(f: torch.Tensor, lo: np.float32,
+                scale: np.float32) -> torch.Tensor:
+    """max(lo, f scale + lo) for unit floats f, with XLA's fused FMA."""
+    lo_t = torch.tensor(lo, device=f.device)
+    return torch.maximum(lo_t, _fma(f, float(scale), lo_t))
 
 
 def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
             maxval: float = 1.0, *, device=None) -> torch.Tensor:
     """float32 uniform on [minval, maxval) (``jax.random.uniform``)."""
     device = resolve_device(device)
-    lo = torch.tensor(np.float32(minval), device=device)
-    hi = torch.tensor(np.float32(maxval), device=device)
-    scale = hi - lo
-
-    def fn(bits):
-        # XLA fuses the scale and shift into one FMA; so does this.
-        return torch.maximum(lo, _fma(_unit_floats(bits), scale, lo))
-    return _chunked(key, _shape(shape), torch.float32, device, fn)
+    lo, scale = _uniform_params(minval, maxval)
+    return _chunked(key, _shape(shape), torch.float32, device,
+                    lambda bits: _uniform_of(_unit_floats(bits), lo, scale))
 
 
 def bernoulli(key: torch.Tensor, p: float = 0.5, shape: Shape = (), *,
@@ -169,16 +193,24 @@ def rademacher(key: torch.Tensor, shape: Shape = (), *,
     return _chunked(key, _shape(shape), dtype, device, fn)
 
 
+def _randint_params(minval: int, maxval: int) -> Tuple[int, int, int]:
+    """randint's lower end, span (1 when the range is empty) and the
+    multiplier that folds the high word in: jax's (2^16 mod span)^2 mod
+    span with the square taken in uint32, so it wraps (to 0 from 2^32)
+    for spans past 2^16, as jax's does."""
+    lo, hi = int(minval), int(maxval)
+    if not (-(1 << 31) <= lo < (1 << 31) and -(1 << 31) <= hi < (1 << 31)):
+        raise ValueError("randint bounds must fit in int32")
+    span = (hi - lo) & M32 if hi > lo else 1
+    return lo, span, ((((1 << 16) % span) ** 2) & M32) % span
+
+
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int, *,
             device=None) -> torch.Tensor:
     """int32 draws in [minval, maxval) (``jax.random.randint``), from two
     32-bit words per element folded modulo the span in uint32 arithmetic."""
     device = resolve_device(device)
-    lo, hi = int(minval), int(maxval)
-    if not (-(1 << 31) <= lo < (1 << 31) and -(1 << 31) <= hi < (1 << 31)):
-        raise ValueError("randint bounds must fit in int32")
-    span = (hi - lo) & M32 if hi > lo else 1
-    mult = ((1 << 16) % span) ** 2 % span
+    lo, span, mult = _randint_params(minval, maxval)
     k_hi, k_lo = split(key)
     shape = _shape(shape)
     size = math.prod(shape)
@@ -332,12 +364,22 @@ NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
+def normal_of_mantissas(m: torch.Tensor) -> torch.Tensor:
+    """The normal draw of every 32-bit word whose top 23 bits are m:
+    sqrt(2) erfinv(u), u normal's uniform of the word.  A draw depends on
+    those bits alone, so over all 2^23 values of m this is every normal
+    draw there is (the normal kernel's table, ``kernels/normal.py``)."""
+    lo, scale = _uniform_params(NORMAL_LO, 1.0)
+    u = _uniform_of(_mantissa_floats(m), lo, scale)
+    return torch.tensor(np.float32(SQRT2), device=m.device) * erfinv(u)
+
+
 def normal_plain(key: torch.Tensor, shape: Shape, device) -> torch.Tensor:
     """float32 standard normal draws (``jax.random.normal``) on any device:
     sqrt(2) erfinv(u).  The entry point is ``kernels.ops.normal``, which
     takes this on the CPU and the normal kernel on a CUDA device."""
-    u = uniform(key, shape, NORMAL_LO, 1.0, device=device)
-    return torch.tensor(np.float32(SQRT2), device=device) * erfinv(u)
+    return _chunked(key, _shape(shape), torch.float32, device,
+                    lambda bits: normal_of_mantissas(bits >> 9))
 
 
 def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import prng, resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.sketching.base import SketchFamily
 from repro_torch.sketching.registry import register
 
@@ -24,8 +24,7 @@ class NystromFamily(SketchFamily):
 
     def sample(self, key: torch.Tensor, num_rows: int, device=None) -> dict:
         shape = (self.cfg.total_blocks, self.cfg.block_size)
-        return {"rows": prng.randint(key, shape, 0, num_rows,
-                                     device=resolve_device(device))}
+        return {"rows": kops.randint(key, shape, 0, num_rows, device=device)}
 
     def apply(self, state: dict, a: torch.Tensor,
               use_kernels: bool = False) -> torch.Tensor:

@@ -33,9 +33,9 @@ class SJLTFamily(SketchFamily):
         device = resolve_device(device)
         kh, ks = prng.split(key)
         shape = (self.cfg.total_blocks, self.nnz_per_row, num_rows)
-        return {"h": prng.randint(kh, shape, 0, self.cfg.block_size,
+        return {"h": kops.randint(kh, shape, 0, self.cfg.block_size,
                                   device=device),
-                "sigma": prng.rademacher(ks, shape, device=device)}
+                "sigma": kops.rademacher(ks, shape, device=device)}
 
     def apply(self, state: dict, a: torch.Tensor,
               use_kernels: bool = False) -> torch.Tensor:

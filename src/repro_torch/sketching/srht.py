@@ -32,9 +32,9 @@ class SRHTFamily(SketchFamily):
         device = resolve_device(device)
         ks, kp = prng.split(key)
         blocks = self.cfg.total_blocks
-        return {"sigma": prng.rademacher(ks, (blocks, num_rows),
+        return {"sigma": kops.rademacher(ks, (blocks, num_rows),
                                          device=device),
-                "rows": prng.randint(kp, (blocks, self.cfg.block_size), 0,
+                "rows": kops.randint(kp, (blocks, self.cfg.block_size), 0,
                                      next_pow2(num_rows), device=device)}
 
     def apply(self, state: dict, a: torch.Tensor,

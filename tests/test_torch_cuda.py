@@ -95,6 +95,10 @@ def test_launches_are_counted(cuda):
                            torch.zeros(8, device=cuda),
                            torch.zeros(2, dtype=torch.bool, device=cuda))
     ops.normal(prng.PRNGKey(0), (5,), cuda)
+    ops.randint(prng.PRNGKey(0), (5,), 0, 3, device=cuda)
+    ops.uniform(prng.PRNGKey(0), (0,), device=cuda)     # nothing to launch
+    ops.rademacher(prng.PRNGKey(0), (5,), device=cuda)
+    # The normal table's build is no launch of normal.
     assert ops.launch_counts() == {"sketch_gram_count": 2,
                                    "count_sketch_apply": 1,
                                    "oversketch_gram": 0,
@@ -102,7 +106,7 @@ def test_launches_are_counted(cuda):
                                    "sketch_gram_sjlt": 0,
                                    "sketch_gram_srht": 0,
                                    "fwht": 1, "fwht_two_pass": 1,
-                                   "normal": 1}
+                                   "normal": 1, "draw": 2}
 
 
 # Past b ~ 1,700 no (b x 32) shared-memory tile fits: the apply's sort
@@ -436,6 +440,90 @@ def test_normal_kernel_is_the_plain_version_bit_for_bit(cuda, shape):
                        prng.normal_plain(key, shape, "cpu").view(torch.int32))
     assert torch.equal(ops.normal(key, shape).view(torch.int32),
                        got.view(torch.int32))
+
+
+def test_normal_table_is_the_computed_form_on_every_mantissa(cuda):
+    """The table kernel's 2^23 draws equal the plain version's steps, on
+    the card and on the CPU, and the cached table is that table."""
+    from repro_torch.kernels import normal
+    got = normal.build_table(cuda)
+    assert got.shape == (normal.TABLE_SIZE,)
+    want = normal.table_plain(cuda)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.cpu().view(torch.int32),
+                       normal.table_plain("cpu").view(torch.int32))
+    assert torch.equal(normal.table(cuda).view(torch.int32),
+                       got.view(torch.int32))
+
+
+DRAW_SHAPES = [(0,), (1,), (1000,), (3, 4097), ((1 << 20) + 3,)]
+
+
+def _same(got, want):
+    """Equal dtype, shape and bits."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("shape", DRAW_SHAPES)
+def test_draw_kernel_is_the_plain_version_bit_for_bit(cuda, shape):
+    """Each draw of the kernel against prng's plain draw on the card and on
+    the CPU."""
+    key = prng.fold_in(prng.PRNGKey(6), 2)
+    for entry, plain, args in (
+            (ops.randint, prng.randint, (0, 256)),
+            (ops.randint, prng.randint, (-3, 300_000)),
+            (ops.rademacher, prng.rademacher, ()),
+            (ops.uniform, prng.uniform, ()),
+            (ops.uniform, prng.uniform, (-1.0, 1.0)),
+            (ops.uniform, prng.uniform, (prng.NORMAL_LO, 1.0)),
+            (ops.bernoulli, prng.bernoulli, ())):
+        if entry is ops.bernoulli:
+            got = entry(key, 0.3, shape, device=cuda)
+            wants = [plain(key, 0.3, shape, device=d) for d in (cuda, "cpu")]
+        else:
+            got = entry(key, shape, *args, device=cuda)
+            wants = [plain(key, shape, *args, device=d) for d in (cuda, "cpu")]
+        assert got.is_cuda
+        for want in wants:
+            _same(got, want)
+
+
+def test_draw_counters_past_two_to_the_32(cuda):
+    """The kernel hashes the 64-bit counter: words across 2^32 are
+    prng._bits' at the same first counter."""
+    from repro_torch.kernels import draw
+    key = prng.PRNGKey(12)
+    for start in ((1 << 32) - 5, (1 << 33) + 7, 0):
+        got = draw.bits(key, start, 5000, device=cuda)
+        want = prng._bits(key, start, 5000, cuda)
+        assert torch.equal(got.long() & prng.M32, want)
+        _same(got, draw.bits(key, start, 5000, device="cpu"))
+
+
+@pytest.mark.parametrize("span", [1, 256, 300_000, 1 << 19, (1 << 31) - 1])
+def test_draw_randint_at_every_span(cuda, span):
+    """Spans of the paths (256, 300,000, 2^19), one and the largest, from a
+    negative lower end; an empty range gives its lower end."""
+    key = prng.PRNGKey(span % 1000)
+    lo = -5
+    got = ops.randint(key, (7, 3001), lo, lo + span, device=cuda)
+    _same(got, prng.randint(key, (7, 3001), lo, lo + span, device=cuda))
+    _same(got, prng.randint(key, (7, 3001), lo, lo + span, device="cpu"))
+    assert int(got.min()) >= lo and int(got.max()) < lo + span
+    empty = ops.randint(key, (100,), lo, lo - 1, device=cuda)
+    _same(empty, prng.randint(key, (100,), lo, lo - 1, device="cpu"))
+    assert bool((empty == lo).all())
+
+
+def test_draw_refuses_what_it_does_not_draw(cuda):
+    with pytest.raises(TypeError, match="float32"):
+        ops.rademacher(prng.PRNGKey(0), (3,), dtype=torch.float64,
+                       device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        ops.randint(prng.PRNGKey(0), (3,), 0, 1 << 31, device=cuda)
 
 
 @pytest.mark.parametrize("family", ["gaussian", "nystrom", "leverage"])

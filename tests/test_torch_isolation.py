@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor the JAX package, and
 its entry points refuse to run without a device when no GPU is present."""
+import ast
 import json
 import pkgutil
 import subprocess
@@ -24,7 +25,8 @@ def _modules():
 def test_port_imports_neither_jax_nor_repro():
     names = _modules()
     for name in ("core.newton", "kernels.sketch_gram", "kernels.srht",
-                 "kernels.coded_matvec", "kernels.normal", "sketching.sjlt",
+                 "kernels.coded_matvec", "kernels.normal", "kernels.draw",
+                 "sketching.sjlt",
                  "sketching.srht", "sketching.debias", "sketching.gaussian",
                  "sketching.nystrom", "sketching.leverage"):
         assert f"repro_torch.{name}" in names
@@ -94,3 +96,91 @@ def test_kernel_build_needs_nvcc():
         pytest.skip("the kernels are already built")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(missing[:1])
+
+
+PLAIN_DRAWS = {"randint", "rademacher", "uniform", "bernoulli"}
+
+
+def _prng_calls(names):
+    """(file, line, function, device keyword) of every call ``prng.<name>``
+    in the port's modules outside ``prng`` and ``kernels``."""
+    root = SRC / "repro_torch"
+    out = []
+    for path in sorted(root.rglob("*.py")):
+        rel = path.relative_to(root).as_posix()
+        if rel == "prng.py" or rel.startswith("kernels/"):
+            continue
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.module == \
+                    "repro_torch.prng":
+                assert not {a.name for a in node.names} & set(names), rel
+            if not (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and isinstance(node.func.value, ast.Name)
+                    and node.func.value.id == "prng"
+                    and node.func.attr in names):
+                continue
+            device = next((k.value for k in node.keywords
+                           if k.arg == "device"), None)
+            out.append((rel, node.lineno, node.func.attr,
+                        device.value if isinstance(device, ast.Constant)
+                        else None))
+    return out
+
+
+def test_plain_draws_run_only_on_the_cpu_outside_prng_and_kernels():
+    """No module outside ``prng`` and ``kernels`` calls prng's plain
+    randint, rademacher, uniform or bernoulli on anything but the CPU: the
+    sketch samplers and the dataset draw through ``kernels.ops``.  The one
+    exception left is ``prng.choice``, whose uniform draw runs plain on p's
+    device, called by the leverage family alone."""
+    calls = _prng_calls(PLAIN_DRAWS)
+    assert calls, "the fleet's coin flips draw on the CPU by name"
+    for rel, line, name, device in calls:
+        assert device == "cpu", f"{rel}:{line}: prng.{name} on {device!r}"
+    assert {rel for rel, *_ in calls} == {"core/straggler.py"}
+    assert {rel for rel, *_ in _prng_calls({"choice"})} == {
+        "sketching/leverage.py"}
+
+
+def test_samplers_draw_through_the_kernel_entry_points(monkeypatch):
+    """On the CPU, every plain draw the samplers and the dataset make is
+    made inside a ``kernels.ops`` draw entry point."""
+    from repro_torch import prng, sketching
+    from repro_torch.core import OverSketchConfig, sample_countsketch
+    from repro_torch.data import make_logistic_dataset
+    from repro_torch.kernels import ops
+    depth, entries, outside = [0], [], []
+    for name in PLAIN_DRAWS:
+        entry, plain = getattr(ops, name), getattr(prng, name)
+
+        def through(*a, _entry=entry, _name=name, **k):
+            entries.append(_name)
+            depth[0] += 1
+            try:
+                return _entry(*a, **k)
+            finally:
+                depth[0] -= 1
+
+        def guarded(*a, _plain=plain, _name=name, **k):
+            if depth[0] == 0:
+                outside.append(_name)
+            return _plain(*a, **k)
+        monkeypatch.setattr(ops, name, through)
+        monkeypatch.setattr(prng, name, guarded)
+    key = prng.PRNGKey(1)
+    cfg = OverSketchConfig(64, 16)
+    samplers = {
+        "countsketch": lambda: sample_countsketch(key, 40, cfg,
+                                                  device="cpu"),
+        "dataset": lambda: make_logistic_dataset(key, 40, 3, 10,
+                                                 device="cpu"),
+        **{fam: (lambda fam=fam: sketching.get(fam, cfg).sample(
+            key, 40, device="cpu")) for fam in ("oversketch", "sjlt",
+                                                "srht", "nystrom")}}
+    for label, sample in samplers.items():
+        entries.clear()
+        sample()
+        assert entries, f"{label} drew through no kernels.ops entry point"
+        assert not outside, f"{label} called prng.{outside} directly"

@@ -72,6 +72,19 @@ def test_randint_bit_exact(span):
         prng.randint(tk, (12, 777), 0, span, device="cpu").numpy())
 
 
+@pytest.mark.parametrize("lo,span", [(0, 65_536), (-3, 65_537),
+                                     (0, 300_000), (-5, 1 << 19),
+                                     (-5, (1 << 31) - 1)])
+def test_randint_bit_exact_past_two_to_the_16(lo, span):
+    """Spans past 2^16, where jax's multiplier (2^16 mod span)^2 wraps in
+    uint32 (nystrom's rows: span n = 300,000), from a negative lower end."""
+    jk, tk = _pair(span % 977)
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.randint(jk, (3, 1001), lo, lo + span,
+                                      dtype=jnp.int32)),
+        prng.randint(tk, (3, 1001), lo, lo + span, device="cpu").numpy())
+
+
 def test_chunked_draws_match_one_shot(monkeypatch):
     """bits[i] depends only on (key, i): a draw made in chunks is the same
     draw, chunk boundaries anywhere."""
@@ -188,3 +201,97 @@ def test_normal_entry_point_is_the_plain_version_on_the_cpu():
                                   want.numpy())
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
         ops.normal(key, (3,), "meta")
+
+
+def test_normal_is_a_function_of_the_top_23_bits_for_every_mantissa():
+    """Every one of the 2^23 normal draws: prng's steps on the mantissa m
+    (the normal kernel's table, by its plain version) equal jax's sqrt(2)
+    erf_inv(u) on the u jax builds from the word m << 9, bit for bit; and
+    jax's own normal draws, and the port's, are the table read at their
+    words' top 23 bits."""
+    from repro_torch.kernels import normal
+    lo = np.float32(prng.NORMAL_LO)
+
+    @jax.jit
+    def jax_normal_of_mantissas(m):
+        f = jax.lax.bitcast_convert_type(
+            m | jnp.uint32(0x3F800000), jnp.float32) - jnp.float32(1.0)
+        u = jnp.maximum(lo, f * (jnp.float32(1.0) - lo) + lo)
+        return u, jnp.float32(np.sqrt(2.0)) * jax.lax.erf_inv(u)
+
+    m = np.arange(normal.TABLE_SIZE, dtype=np.uint32)
+    u_jax, want = jax_normal_of_mantissas(jnp.asarray(m))
+    lo_t, scale = prng._uniform_params(prng.NORMAL_LO, 1.0)
+    u = prng._uniform_of(prng._mantissa_floats(torch.from_numpy(
+        m.view(np.int32))), lo_t, scale)
+    np.testing.assert_array_equal(u.numpy().view(np.uint32),
+                                  np.asarray(u_jax).view(np.uint32))
+    table = normal.table_plain("cpu").numpy()
+    np.testing.assert_array_equal(table.view(np.uint32),
+                                  np.asarray(want).view(np.uint32))
+    jk, tk = _pair(17)
+    words = np.asarray(jax.random.bits(jk, (1 << 16,)))
+    np.testing.assert_array_equal(
+        table[words >> 9].view(np.uint32),
+        np.asarray(jax.random.normal(jk, (1 << 16,))).view(np.uint32))
+    np.testing.assert_array_equal(
+        table[words >> 9].view(np.uint32),
+        prng.normal_plain(tk, (1 << 16,), "cpu").numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("shape", [(0,), (1,), (1000,), (3, 4097)])
+def test_draw_entry_points_are_the_plain_versions_on_the_cpu(shape):
+    """``ops.randint``, ``rademacher``, ``uniform`` and ``bernoulli`` take
+    prng's plain draws on the CPU, which equal jax's."""
+    jk, tk = _pair(23)
+    cases = [
+        (ops.randint(tk, shape, -7, 300_000, device="cpu"),
+         prng.randint(tk, shape, -7, 300_000, device="cpu"),
+         jax.random.randint(jk, shape, -7, 300_000, dtype=jnp.int32)),
+        (ops.rademacher(tk, shape, device="cpu"),
+         prng.rademacher(tk, shape, device="cpu"),
+         jax.random.rademacher(jk, shape, dtype=jnp.float32)),
+        (ops.uniform(tk, shape, -1.0, 1.0, device="cpu"),
+         prng.uniform(tk, shape, -1.0, 1.0, device="cpu"),
+         jax.random.uniform(jk, shape, minval=-1.0, maxval=1.0)),
+        (ops.bernoulli(tk, 0.3, shape, device="cpu"),
+         prng.bernoulli(tk, 0.3, shape, device="cpu"),
+         jax.random.bernoulli(jk, 0.3, shape)),
+    ]
+    for got, plain, want in cases:
+        assert got.device.type == "cpu" and got.dtype == plain.dtype
+        assert torch.equal(got, plain)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_draw_entry_points_refuse_other_devices():
+    from repro_torch.kernels import draw
+    key = prng.PRNGKey(0)
+    for call in (lambda: ops.randint(key, (3,), 0, 4, device="meta"),
+                 lambda: ops.rademacher(key, (3,), device="meta"),
+                 lambda: ops.uniform(key, (3,), device="meta"),
+                 lambda: ops.bernoulli(key, 0.5, (3,), device="meta"),
+                 lambda: draw.bits(key, 0, 3, device="meta")):
+        with pytest.raises(ValueError, match="CPU or a CUDA device"):
+            call()
+
+
+def test_draw_bits_are_prng_words_as_int32():
+    from repro_torch.kernels import draw
+    key = prng.PRNGKey(4)
+    start = (1 << 32) - 5
+    got = draw.bits(key, start, 100, device="cpu")
+    assert got.dtype == torch.int32
+    assert torch.equal(got.long() & prng.M32,
+                       prng._bits(key, start, 100, "cpu"))
+    np.testing.assert_array_equal(
+        draw.bits(key, 0, 1000, device="cpu").numpy().view(np.uint32),
+        np.asarray(jax.random.bits(jax.random.PRNGKey(4), (1000,))))
+
+
+def test_normal_table_lives_on_a_cuda_device():
+    from repro_torch.kernels import normal
+    for call in (lambda: normal.table("cpu"),
+                 lambda: normal.build_table("cpu")):
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
