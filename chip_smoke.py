@@ -33,8 +33,10 @@ with its seconds:
            by bucket, then the gather) are timed apart from a profiler
            trace of three launches, as are the masked Gram's tile and
            reduce kernels and the SRHT call's partial transform and Gram;
-           the SJLT Gram's apply and Gram halves by their own calls.  Each
-           segment-sum kernel, the masked Gram and the SRHT Gram are
+           the SJLT Gram's apply and Gram halves by their own calls, and
+           the two-pass FWHT's local and across passes beside its
+           two-pass HBM floor.  Each segment-sum kernel, the masked Gram,
+           the SRHT Gram, the coded mat-vec and the two-pass FWHT are
            launched twice for the same bits, and the Grams must equal
            their transposes exactly
   newton   oversketched_newton at full width with the kernels, 3
@@ -107,6 +109,8 @@ HASH_INT_OPS = 51
 # The segment-sum apply's two phases, timed apart where a row has them,
 # and the launches of the profiler trace they were read from.
 PHASES = ("sort_ms", "gather_ms", "launches_traced")
+# The two-pass FWHT's passes, timed apart.
+FWHT_PASSES = ("local_pass_ms", "across_pass_ms")
 # Kernels that no ported path launches, and why; every other kernel must
 # be launched by some path's run.
 OFF_PATH = {"fwht": "at full width (n_pad = 2^19) the fwht entry point "
@@ -123,6 +127,14 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def clocks() -> str:
+    """The card's SM and memory clocks, power draw and temperature now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
 
 
 def cuda_ms(fn, reps: int, warm: bool = True) -> float:
@@ -505,6 +517,36 @@ def check_family_kernels(ops, ref, a, sjlt, srht, mask, b) -> dict:
     return out
 
 
+def fwht_pass_ms(x) -> tuple:
+    """Device ms of the two-pass FWHT's local and across passes, each
+    launched alone through csrc/fwht.cu's fwht_two_pass_step_launch, with
+    n = n1 n2 split as fwht_two_pass splits it.  These launches are
+    measurements: they do not count as the kernel's."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import srht
+    step = srht.TWO_PASS_KERNEL.host_function(
+        "fwht_two_pass_step_launch",
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_longlong, ctypes.c_float,
+                                 ctypes.c_void_p])
+    k, n, d = x.shape
+    n1 = 1 << (n.bit_length() - 1) // 2
+    n2 = n // n1
+    out = torch.empty_like(x)
+    st = torch.cuda.current_stream().cuda_stream
+
+    def run(*args):
+        err = step(*args, st)
+        if err:
+            raise RuntimeError(f"fwht_two_pass_step_launch: CUDA error {err}")
+    local = cuda_ms(lambda: run(x.data_ptr(), out.data_ptr(), k * n1, n2,
+                                d, 1.0), 3)
+    across = cuda_ms(lambda: run(out.data_ptr(), out.data_ptr(), k, n1,
+                                 n2 * d, math.sqrt(n)), 3)
+    return local, across
+
+
 def check_fwht(ops, ref, a, sigma_k) -> dict:
     """The FWHT on one signed, padded (2^19, d) block, as the distributed-
     avg SRHT path transforms it: there the fwht entry point takes the two-
@@ -517,13 +559,21 @@ def check_fwht(ops, ref, a, sigma_k) -> dict:
     x = a.new_zeros((1, n_pad, d))
     torch.mul(a, sigma_k[:, None], out=x[0, :n])
     want, plain_ms = timed_once(lambda: ref.fwht(x))
-    row = compare("fwht_two_pass", ops.fwht_two_pass(x), want)
+    got = ops.fwht_two_pass(x)
+    row = compare("fwht_two_pass", got, want)
+    row["same_bits"] = same_bits("fwht_two_pass",
+                                 lambda: ops.fwht_two_pass(x), got)
+    del got
     row["ms"] = cuda_ms(lambda: ops.fwht_two_pass(x), 3, warm=False)
     row["plain_ms"] = plain_ms
     row["library_ms"] = None
     row["library_call"] = "none: PyTorch has no Hadamard transform"
     row["bound_ms"], row["bound_by"] = bound(
         float(n_pad) * math.log2(n_pad) * d, 8.0 * n_pad * d)
+    # Two passes must each read and write the block once.
+    row["floor_ms"] = 16.0 * n_pad * d / HBM_BYTES_PER_S * 1e3
+    row["local_pass_ms"], row["across_pass_ms"] = fwht_pass_ms(x)
+    row["clocks_after"] = clocks()
     row["fwht_entry_max_abs_err"] = compare("fwht at 2^19", ops.fwht(x),
                                             want)["max_abs_err"]
     out = {"fwht_two_pass": row}
@@ -801,6 +851,14 @@ def check_coded(ops, ref, data, b: int, device) -> dict:
                                  "differ")
         row["ms"] = cuda_ms(lambda: ops.coded_block_matvec(enc, x, erased),
                             10, warm=False)
+        # The host's time to enqueue one call: a kernel this short can be
+        # held back by it.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            ops.coded_block_matvec(enc, x, erased)
+        row["host_enqueue_ms"] = (time.perf_counter() - t0) * 1e2
+        torch.cuda.synchronize()
         row["plain_ms"] = plain_ms
         flat = enc.view(-1, s)
 
@@ -809,6 +867,7 @@ def check_coded(ops, ref, data, b: int, device) -> dict:
                                (flat @ x).view(w, code.block_rows))
         row["library_ms"] = cuda_ms(library, 10)
         row["library_call"] = "torch.mv (cuBLAS gemv) over all blocks, then torch.where"
+        row["clocks_after"] = clocks()
         bw = code.block_rows
         row["bound_ms"], row["bound_by"] = bound(
             2.0 * live * bw * s, 4.0 * (live * bw * s + s + w * bw) + w)
@@ -1307,7 +1366,7 @@ def main() -> int:
                                       "bound_ms", "bound_by", "library_ms",
                                       "yardstick_ms", *PHASES) if f in v}
                 for k, v in other[name].items()}
-        entry.update({f: r[f] for f in PHASES if f in r})
+        entry.update({f: r[f] for f in PHASES + FWHT_PASSES if f in r})
         if name in ("normal", "draw"):
             entry.update({f: r[f] for f in ("yardstick_ms", "yardstick",
                                             "bound_rate", "table_build_ms",

@@ -5,14 +5,17 @@
 Draws come from the port's draw entry points (``kernels.ops.uniform`` and
 ``normal``: the draw and normal kernels on the card, ``prng`` on the CPU),
 so a key gives the reference's features and ground-truth weights bit for
-bit, and the column spectrum follows ``jnp.geomspace``'s float32 steps.
+bit, and the column spectrum is ``jnp.geomspace``'s bit for bit.
 The labels compare a sigmoid of a matrix product with a uniform draw, and
 torch sums and rounds that product in another order than XLA, so a label
 whose probability sits on its draw can still flip.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 
+import numpy as np
 import torch
 
 from repro_torch import prng, resolve_device
@@ -21,21 +24,38 @@ from repro_torch.core.objectives import Dataset
 from repro_torch.kernels import ops as kops
 
 
+def _powf():
+    """glibc's float32 ``powf``, the power XLA's CPU backend calls."""
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).powf
+    fn.argtypes = [ctypes.c_float, ctypes.c_float]
+    fn.restype = ctypes.c_float
+    return fn
+
+
+# log10(e) in float32, the factor XLA multiplies a log by for log10.
+_LOG10_E = float(np.float32(0.434294492))
+
+
 def _geomspace(start: float, stop: float, num: int, device) -> torch.Tensor:
-    """``jnp.geomspace`` in float32: 10 ** linspace(log10(start),
-    log10(stop)), the linspace as jax computes it, lo (1 - t) + hi t with
-    t = i * (1 / (num - 1)) (XLA turns the division by the constant into a
-    product with its float32 reciprocal), and the power rounded once from
-    float64."""
+    """``jnp.geomspace`` bit for bit, as XLA's CPU backend fuses it:
+    10 ** lin, with lo = log(start) * log10(e) and, for i < num - 1,
+    lin[i] = lo * (1 - i c) + i * (log(stop) * k), where c = f32(1 / (num -
+    1)) and XLA folds log10(e) * c into one float32 constant k; the last
+    entry is log(stop) * log10(e).  ``log`` is XLA's float32 log
+    (``prng.log_f32``) and the power glibc's ``powf``, both on the host."""
     f32 = torch.float32
-    lo, hi = torch.log10(torch.tensor([start, stop], dtype=f32))
+    ln = prng.log_f32(torch.tensor([start, stop], dtype=f32))
+    lo, hi = ln * _LOG10_E
     if num == 1:
         lin = lo[None]
     else:
-        t = torch.arange(num - 1, dtype=f32) * torch.tensor(1.0 / (num - 1),
-                                                             dtype=f32)
-        lin = torch.cat([lo * (1.0 - t) + hi * t, hi[None]])
-    return torch.pow(10.0, lin.double()).to(dtype=f32, device=device)
+        c = float(np.float32(1.0 / (num - 1)))
+        k = float(np.float32(_LOG10_E) * np.float32(c))
+        i = torch.arange(num - 1, dtype=f32)
+        lin = torch.cat([lo * (1.0 - i * c) + i * (ln[1] * k), hi[None]])
+    powf = _powf()
+    return torch.tensor([powf(10.0, v) for v in lin.tolist()], dtype=f32,
+                        device=device)
 
 
 def make_logistic_dataset(key: torch.Tensor, n: int, d: int,

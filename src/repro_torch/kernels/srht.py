@@ -4,9 +4,11 @@ CUDA kernels: ``csrc/fwht.cu``; replace the Pallas kernels
 ``repro/kernels/srht.py::fwht`` and ``::fwht_two_pass``.  A shared-memory
 butterfly transforms a strip of columns by all n rows in one pass while
 ``n <= FWHT_MAX_ROWS``; past that, ``fwht`` takes the two-pass form (a
-local pass over contiguous chunks, then an across pass), which
-``fwht_two_pass`` forces at any n.  CPU tensors take the plain butterfly
-in ``ref.py``; CUDA tensors launch the kernel or raise.
+local pass over contiguous chunks, then an across pass, each a butterfly
+held in registers with one shared-memory transpose while it has at most
+1,024 rows), which ``fwht_two_pass`` forces at any n.  CPU tensors take
+the plain butterfly in ``ref.py``; CUDA tensors launch the kernel or
+raise.
 """
 from __future__ import annotations
 

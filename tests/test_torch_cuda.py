@@ -395,22 +395,38 @@ def test_fused_grams_walk_masked_chunks(cuda, monkeypatch, family, slices, d):
     assert torch.equal(again, got)
 
 
+# n = 2^11 splits into n1 = 32 != n2 = 64; (2^19, 33) is the full-width
+# length with one partial 32-column strip; d = 1; n = 2^21 has a local
+# pass of 2,048 rows, past the register pass.
 @pytest.mark.parametrize("k,n,d", [(3, 1, 5), (2, 64, 37), (1, 4096, 300),
-                                   (2, 8192, 33), (1, 1 << 17, 20)])
+                                   (2, 8192, 33), (1, 1 << 17, 20),
+                                   (3, 1 << 11, 37), (1, 1 << 19, 33),
+                                   (2, 1 << 15, 1), (1, 1 << 21, 3)])
 def test_fwht_forms_match_the_butterfly(cuda, k, n, d):
     x = torch.randn(k, n, d, generator=torch.Generator().manual_seed(n)).to(cuda)
     want = ref.fwht(x)
     for fn in (ops.fwht, ops.fwht_two_pass):
         got = fn(x)
         assert _rel_err(got, want) < REL_TOL
+    # The two-pass form adds the butterfly's pairs in its order and scales
+    # as the plain version does on the card: the same bits at every n.
+    assert torch.equal(ops.fwht_two_pass(x), want)
     torch.testing.assert_close(ops.fwht(ops.fwht(x)), x, rtol=1e-4,
                                atol=1e-4)
 
 
-# (W, b, s): s % 4 != 0 takes scalar loads; one worker; s below, at and
-# far past one tile of 1,024.
+# (W, b, s): s % 4 != 0 takes scalar loads; one worker; b = 37 and 257 not
+# a multiple of the kernel's 8-row task; s below, at and past one sweep of
+# a CTA's lanes over s (8 warps x 32 lanes x 2 vectors of 4 = 2,048); s at
+# 12,288 (x of 48 KB, the last read through L1) and past it, where x is
+# staged in tiles of 2,048 floats: a partial last tile, whole tiles, and
+# the X^T encode's s.
 @pytest.mark.parametrize("w,b,s", [(9, 16, 700), (1, 256, 3000), (25, 37, 5001),
-                                   (6, 3, 7), (4, 256, 1024), (3, 64, 100003)])
+                                   (6, 3, 7), (4, 256, 1024), (3, 64, 100003),
+                                   (1, 37, 2048), (5, 257, 2048),
+                                   (7, 257, 2052), (30, 37, 1000),
+                                   (5, 8, 12288), (3, 37, 12292),
+                                   (2, 257, 20480), (2, 16, 300000)])
 def test_coded_block_matvec(cuda, w, b, s):
     g = torch.Generator().manual_seed(s)
     enc = torch.randn(w, b, s, generator=g).to(cuda)
@@ -426,6 +442,24 @@ def test_coded_block_matvec(cuda, w, b, s):
     none = torch.zeros(w, dtype=torch.bool, device=cuda)
     assert _rel_err(ops.coded_block_matvec(enc, x, none),
                     ref.coded_block_matvec(enc, x, none)) < REL_TOL
+    every = torch.ones(w, dtype=torch.bool, device=cuda)
+    out = ops.coded_block_matvec(enc, x, every)
+    assert out.shape == (w, b) and not out.any()
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_coded_block_matvec_misaligned_enc(cuda, offset):
+    """enc (and x) off a 16-byte boundary take the scalar loads."""
+    w, b, s = 6, 37, 1024
+    g = torch.Generator().manual_seed(offset)
+    flat = torch.randn(w * b * s + offset, generator=g).to(cuda)
+    enc = flat[offset:].view(w, b, s)
+    xs = torch.randn(s + offset, generator=g).to(cuda)
+    x = xs[offset:]
+    erased = (torch.arange(w) == 4).to(cuda)
+    got = ops.coded_block_matvec(enc, x, erased)
+    assert _rel_err(got, ref.coded_block_matvec(enc, x, erased)) < REL_TOL
+    assert torch.equal(ops.coded_block_matvec(enc, x, erased), got)
 
 
 @pytest.mark.parametrize("shape", [(0,), (1,), (1000,), (3, 4097),

@@ -71,6 +71,16 @@ def test_logistic_objective_matches():
         float(jo.error(jnp.asarray(w), jd.x_test, jd.y_test)))
 
 
+@pytest.mark.parametrize("cond", [1.0, 3.0, 7.5, 10.0, 100.0])
+@pytest.mark.parametrize("d", [1, 2, 9, 50, 150, 1000, 3000, 4097])
+def test_geomspace_bit_exact(d, cond):
+    """The column spectrum is jax's bit for bit at every width, d = 3,000
+    (the full-width profile) included."""
+    np.testing.assert_array_equal(
+        tsynth._geomspace(1.0, 1.0 / cond, d, "cpu").numpy(),
+        np.asarray(jnp.geomspace(1.0, 1.0 / cond, d)))
+
+
 @pytest.mark.parametrize("cond,sorted_layout", [(1.0, False), (10.0, True)])
 def test_synthetic_dataset_matches(cond, sorted_layout):
     np.testing.assert_array_equal(
