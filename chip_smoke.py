@@ -27,7 +27,10 @@ with its seconds:
            (ragged, all masked, a non-power-of-two n, b = 4,096, the
            one-pass FWHT, and skewed codes for the segment-sum kernels:
            one bucket, half the buckets empty, out-of-range buckets, sigma
-           other than +-1); times of
+           other than +-1); the fwht entry and fwht_two_pass at n = 256,
+           1,024, 2,048 and 4,096 (K = 1, d = 3,000) bit for bit, timed
+           from CUDA graphs, with the wide one-pass kernel at 2,048 and
+           4,096; times of
            kernel, plain version and a PyTorch yardstick, and the bound the
            card's peaks give.  The segment-sum apply's two phases (the sort
            by bucket, then the gather) are timed apart from a profiler
@@ -50,10 +53,24 @@ with its seconds:
            each run
   distavg  sketch_mode="distributed-avg" with debias, b = 4,096 > d, for the
            oversketch, sjlt and srht families, 2 iterations each
+  softmax_data, softmax_kernels, softmax
+           softmax regression at the emnist profile's widths (d = 784,
+           K = 10, 40,000 test rows) with n cut from 240,000 to 180,000 to
+           fit the card (the reckoning is printed): hess_sqrt A is
+           (1,800,000, 7,840), 56.4 GB; fig. 9's sketch m = 47,104 in
+           blocks of 256 (K = 230).  The fused Gram against its plain
+           version on 8 of the path's first blocks over all of A, and
+           beside the library call on 64 of them, with eigh and the pinv
+           solve of that 7,840-wide Gram timed apart, and the coded
+           mat-vec at the path's encodes, and one fused Gram over all 230
+           blocks (184 live, as the path's k-of-n leaves them); then 2
+           iterations (pinv direction, the weakly convex line search),
+           launch counts read just before and after
   check    the loop at the verify recipe's size on the card against the
            plain path on the CPU: every family in blocks mode and
-           distributed-avg (b = 64 > d = 20), with the card runs' launch
-           counts (the one-pass FWHT runs there, at n_pad = 1,024)
+           distributed-avg (b = 64 > d = 20), and softmax (n = 600, d =
+           12, K = 4), with the card runs' launch counts (the one-pass
+           FWHT runs there, at n_pad = 1,024)
 
 Every run on the card computes its coded gradient with the coded mat-vec
 kernel: two launches per iteration, as the default fleet's coded_decode
@@ -517,42 +534,84 @@ def check_family_kernels(ops, ref, a, sjlt, srht, mask, b) -> dict:
     return out
 
 
-def fwht_pass_ms(x) -> tuple:
-    """Device ms of the two-pass FWHT's local and across passes, each
-    launched alone through csrc/fwht.cu's fwht_two_pass_step_launch, with
-    n = n1 n2 split as fwht_two_pass splits it.  These launches are
-    measurements: they do not count as the kernel's."""
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds of one call of fn, replayed from a CUDA
+    graph of reps calls after a warm-up: the wrapper's enqueue of a call
+    (tens of microseconds on the host) stays out of the timing, which at
+    the one-pass FWHT's sizes it would exceed."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def fwht_step():
+    """One FWHT pass alone, through csrc/fwht.cu's
+    fwht_two_pass_step_launch: step(x, out, batches, rows, cols, div), on
+    the current stream.  These launches are measurements: they do not count
+    as the kernels'."""
     import ctypes
     import torch
     from repro_torch.kernels import srht
-    step = srht.TWO_PASS_KERNEL.host_function(
+    fn = srht.TWO_PASS_KERNEL.host_function(
         "fwht_two_pass_step_launch",
         [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_longlong, ctypes.c_float,
                                  ctypes.c_void_p])
+
+    def step(x, out, batches, rows, cols, div):
+        err = fn(x.data_ptr(), out.data_ptr(), batches, rows, cols, div,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"fwht_two_pass_step_launch: CUDA error {err}")
+    return step
+
+
+def fwht_pass_ms(x) -> tuple:
+    """Device ms of the two-pass FWHT's local and across passes, each
+    launched alone (fwht_step), with n = n1 n2 split as fwht_two_pass
+    splits it."""
+    import torch
+    step = fwht_step()
     k, n, d = x.shape
     n1 = 1 << (n.bit_length() - 1) // 2
     n2 = n // n1
     out = torch.empty_like(x)
-    st = torch.cuda.current_stream().cuda_stream
-
-    def run(*args):
-        err = step(*args, st)
-        if err:
-            raise RuntimeError(f"fwht_two_pass_step_launch: CUDA error {err}")
-    local = cuda_ms(lambda: run(x.data_ptr(), out.data_ptr(), k * n1, n2,
-                                d, 1.0), 3)
-    across = cuda_ms(lambda: run(out.data_ptr(), out.data_ptr(), k, n1,
-                                 n2 * d, math.sqrt(n)), 3)
+    local = cuda_ms(lambda: step(x, out, k * n1, n2, d, 1.0), 3)
+    across = cuda_ms(lambda: step(out, out, k, n1, n2 * d, math.sqrt(n)), 3)
     return local, across
+
+
+# The one-pass fwht's lengths checked and timed (K = 1, d = 3,000).
+FWHT_NS = (256, 1024, 2048, 4096)
 
 
 def check_fwht(ops, ref, a, sigma_k) -> dict:
     """The FWHT on one signed, padded (2^19, d) block, as the distributed-
     avg SRHT path transforms it: there the fwht entry point takes the two-
     pass kernel (row fwht_two_pass; the fwht entry is checked at that n
-    too).  Row fwht is the one-pass kernel, on the block's first 4,096
-    rows, the most one pass takes."""
+    too).  Row fwht is the entry at n = 4,096 on the block's first rows,
+    the most one pass takes; row fwht_lengths the entry at each length of
+    FWHT_NS.  At each length the entry and fwht_two_pass must give the
+    plain butterfly's bits; the entry is timed from CUDA graphs (graph_ms)
+    beside a copy of x."""
     import torch
     n, d = a.shape
     n_pad = 1 << (n - 1).bit_length()
@@ -578,19 +637,32 @@ def check_fwht(ops, ref, a, sigma_k) -> dict:
                                             want)["max_abs_err"]
     out = {"fwht_two_pass": row}
     del want
-    n1 = 4096
-    x1 = x[:, :n1].contiguous()
-    del x
-    w1, p1 = timed_once(lambda: ref.fwht(x1))
-    one = compare("fwht", ops.fwht(x1), w1)
-    one["ms"] = cuda_ms(lambda: ops.fwht(x1), 5, warm=False)
-    one["plain_ms"] = p1
-    one["library_ms"] = None
-    one["library_call"] = "none: PyTorch has no Hadamard transform"
-    one["bound_ms"], one["bound_by"] = bound(
-        float(n1) * math.log2(n1) * d, 8.0 * n1 * d)
-    one["shape"] = [1, n1, d]
-    out["fwht"] = one
+    lengths = {}
+    for n1 in FWHT_NS:
+        x1 = x[:, :n1].contiguous()
+        w1, p1 = timed_once(lambda: ref.fwht(x1))
+        one = compare(f"fwht n={n1}", ops.fwht(x1), w1)
+        for name, fn in (("fwht", ops.fwht),
+                         ("fwht_two_pass", ops.fwht_two_pass)):
+            if not torch.equal(fn(x1), w1):
+                raise AssertionError(f"{name} at n = {n1} is not the plain "
+                                     "butterfly bit for bit")
+        y1 = torch.empty_like(x1)
+        one["ms"] = graph_ms(lambda: ops.fwht(x1))
+        one["copy_ms"] = graph_ms(lambda: y1.copy_(x1))
+        one["plain_ms"] = p1
+        one["library_ms"] = None
+        one["library_call"] = "none: PyTorch has no Hadamard transform"
+        one["bound_ms"], one["bound_by"] = bound(
+            float(n1) * math.log2(n1) * d, 8.0 * n1 * d)
+        one["form"] = ("one register pass" if n1 <= 1024 else
+                       "one wide pass (a cluster of CTAs a strip)")
+        one["timing"] = "CUDA graph of 20 calls, 5 replays"
+        one["shape"] = [1, n1, d]
+        lengths[f"(1, {n1}, {d})"] = one
+        del x1, w1, y1
+    out["fwht"] = lengths.pop(f"(1, {FWHT_NS[-1]}, {d})")
+    out["fwht_lengths"] = lengths
     return out
 
 
@@ -947,37 +1019,39 @@ def check_normal(ops, prng, key, shape, device) -> dict:
     return row
 
 
-def check_draw(ops, prng, key, n: int, k: int, b: int, device) -> dict:
+def check_draw(ops, prng, key, n: int, k: int, b: int, device,
+               label: str = "", nystrom: bool = True) -> dict:
     """The draw kernel against the plain version on the card, every bit,
-    at the main path's draw of one iteration (the count sketch's h in
-    [0, b) and sigma, (k, n)) and nystrom's rows ((k, b) in [0, n)), with
-    the keys the samplers split; torch.randint of the same shape beside
-    each as a yardstick of another function.  The first case is the row;
-    the others go under other_shapes."""
+    at a path's draw of one iteration (the count sketch's h in [0, b) and
+    sigma, (k, n)) and, with nystrom, nystrom's rows ((k, b) in [0, n)),
+    with the keys the samplers split; torch.randint of the same shape
+    beside each as a yardstick of another function.  Returns a row per
+    case, its name prefixed with label."""
     import torch
     kh, ks = prng.split(key)
     cases = {
-        "randint h (K, n) in [0, b)": (
+        f"{label}randint h (K, n) in [0, b)": (
             lambda: ops.randint(kh, (k, n), 0, b, device=device),
             lambda: prng.randint(kh, (k, n), 0, b, device=device),
             (k, n), b, 2),
-        "rademacher sigma (K, n)": (
+        f"{label}rademacher sigma (K, n)": (
             lambda: ops.rademacher(ks, (k, n), device=device),
             lambda: prng.rademacher(ks, (k, n), device=device),
-            (k, n), 2, 1),
-        "randint nystrom rows (K, b) in [0, n)": (
+            (k, n), 2, 1)}
+    if nystrom:
+        cases[f"{label}randint nystrom rows (K, b) in [0, n)"] = (
             lambda: ops.randint(key, (k, b), 0, n, device=device),
             lambda: prng.randint(key, (k, b), 0, n, device=device),
-            (k, b), n, 2)}
+            (k, b), n, 2)
     rows = {}
-    for label, (kernel, plain, shape, span, hashes) in cases.items():
+    for name, (kernel, plain, shape, span, hashes) in cases.items():
         got = kernel()
         want, plain_ms = timed_once(plain)
         bits = ((got.view(torch.int32) != want.view(torch.int32))
                 if got.dtype == torch.float32 else got != want)
         differing = int(bits.sum())
         if differing or got.dtype != want.dtype:
-            raise AssertionError(f"draw {label}: {differing} draws differ "
+            raise AssertionError(f"draw {name}: {differing} draws differ "
                                  "from the plain version")
         row = {"max_abs_err": float((got.double() - want.double()).abs()
                                     .max()), "entries_differing": 0}
@@ -997,10 +1071,264 @@ def check_draw(ops, prng, key, n: int, k: int, b: int, device) -> dict:
         row["hashes"] = hashes * count
         row["shape"] = list(shape)
         row["span"] = span
-        rows[label] = row
-    first, *rest = rows
-    return {**rows[first], "case": first,
-            "other_shapes": {name: rows[name] for name in rest}}
+        rows[name] = row
+    return rows
+
+
+def check_softmax_draws(ops, prng, data, key, device) -> dict:
+    """make_softmax_dataset's draws on the card, every bit against prng's
+    plain draws on the card, with the keys the dataset splits: the model w
+    (K, d), the features x and x_test (the normal kernel), the labels'
+    Gumbel draws (rows, K) by ops.gumbel, whose uniforms on [tiny, 1) are
+    the draw kernel's, against prng.gumbel, and the labels by
+    ops.categorical against prng.categorical on the same logits and, one
+    hot, against the dataset's y and y_test.  These launches are
+    measurements: the path's counts are set to 0 after them."""
+    import torch
+    kx, kw, ky, kxt, kyt = prng.split(key, 5)
+    k, d = data.y.shape[1], data.x.shape[1]
+    rows = {}
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def hold(name, got, kernel, plain):
+        want, plain_ms = timed_once(plain)
+        if got.dtype != want.dtype or not torch.equal(bits(got), bits(want)):
+            raise AssertionError(f"softmax data: {name} is not the plain "
+                                 "draw bit for bit")
+        rows[name] = {"shape": list(got.shape), "entries_differing": 0,
+                      "ms": cuda_ms(kernel, 3), "plain_ms": plain_ms}
+
+    w = ops.normal(kw, (k, d), device)
+    hold("normal w", w, lambda: ops.normal(kw, (k, d), device),
+         lambda: prng.normal_plain(kw, (k, d), device))
+    for split, kx_, ky_, x, y in (("x", kx, ky, data.x, data.y),
+                                  ("x_test", kxt, kyt, data.x_test,
+                                   data.y_test)):
+        m = x.shape[0]
+        hold(f"normal {split}", x,
+             lambda: ops.normal(kx_, (m, d), device),
+             lambda: prng.normal_plain(kx_, (m, d), device))
+        hold(f"gumbel of {split}'s labels",
+             ops.gumbel(ky_, (m, k), device=device),
+             lambda: ops.gumbel(ky_, (m, k), device=device),
+             lambda: prng.gumbel(ky_, (m, k), device=device))
+        logits = x @ w.T
+        labels = ops.categorical(ky_, logits)
+        hold(f"categorical of {split}'s labels", labels,
+             lambda: ops.categorical(ky_, logits),
+             lambda: prng.categorical(ky_, logits))
+        if not torch.equal(prng.one_hot(labels, k), y):
+            raise AssertionError(f"softmax data: the labels of {split} are "
+                                 "not the categorical draws on its logits")
+    return rows
+
+
+# The softmax path: the emnist profile's widths (d = 784, K = 10, 40,000
+# test rows) with n cut from 240,000 to SOFTMAX_N so that it fits the card
+# (softmax_bytes), fig. 9's sketch rule, and its kernel check on
+# SOFTMAX_CHECK_BLOCKS of the path's first draw of blocks.
+SOFTMAX_N = 180_000
+SOFTMAX_CHECK_BLOCKS = 8
+# Blocks of the library call's sparse sketch: its COO build and coalesce
+# take ~0.1 GB a block beside A's 56.4 GB, so all 230 would not fit.
+SOFTMAX_LIBRARY_BLOCKS = 64
+
+
+def softmax_sketch_dim(dk: int) -> int:
+    """benchmarks/fig9_softmax.py's sketch rule: m = ((6 dK) // b + 1) b."""
+    return ((6 * dk) // BLOCK + 1) * BLOCK
+
+
+def softmax_bytes(n: int, d: int, k: int, n_test: int, blocks: int) -> dict:
+    """What the softmax path holds on the card at once, at n training rows:
+    A = hess_sqrt (n K, d K), the count sketch's codes h and sigma
+    (blocks, n K) each, the sort's (row, sigma) pairs, the features, the
+    product-code encodes of X and X^T (their padding counted), the fused
+    kernel's A_tilde chunk and Gram partials, and the (d K)^2 Gram with
+    eigh's matrix of vectors; in bytes."""
+    from repro_torch.core import coded
+    from repro_torch.kernels import oversketch_matmul, sketch_gram
+    rows, dk = n * k, d * k
+    cx, cxt = coded.make_code(n, BLOCK), coded.make_code(d, BLOCK)
+    chunk = sketch_gram.chunk_blocks(blocks, BLOCK, dk)
+    parts = {
+        "A": 4.0 * rows * dk,
+        "codes": 2 * 4.0 * blocks * rows,
+        "sort": 8.0 * blocks * rows,
+        "x": 4.0 * (n + n_test) * d,
+        "encodes": 4.0 * BLOCK * (cx.num_workers * d + cxt.num_workers * n),
+        "chunk": 4.0 * chunk * BLOCK * dk
+        + 4.0 * 2 * oversketch_matmul.gram_tiles(dk)
+        * oversketch_matmul.GRAM_TILE ** 2,
+        "gram_eigh": 3 * 4.0 * dk * dk}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def check_softmax_kernels(ops, ref, solvers, a, h, sg, device) -> dict:
+    """sketch_gram_count at the softmax path's shape: the first
+    SOFTMAX_CHECK_BLOCKS of the blocks h, sg (one in eight masked) over all
+    of A's n K rows at the full d K width, against the plain version and
+    beside the library call; then all SOFTMAX_LIBRARY_BLOCKS of them, the
+    most whose sparse sketch the card holds beside A with margin, the
+    kernel beside the library call (and within 1e-4 of it); then eigh and
+    the pinv solve of the first Gram, the direction solve's cuSOLVER call
+    at the path's width, timed apart."""
+    import torch
+    n, d = a.shape
+
+    def library_of(h_, sg_, mask_):
+        s_live = sketch_matrix(h_, sg_, mask_.nonzero().squeeze(1), BLOCK, n)
+
+        def library():
+            x = torch.sparse.mm(s_live, a)
+            return torch.mm(x.T, x)
+        return library
+
+    def gram_bound(kb, kl):
+        return bound(float(kl) * (2.0 * n * d + BLOCK * d * (d + 1)),
+                     4.0 * (n * d + 2 * kl * n + d * d) + kb)
+
+    kb = SOFTMAX_CHECK_BLOCKS
+    hc, sc = h[:kb].contiguous(), sg[:kb].contiguous()
+    mask = torch.arange(kb, device=device) % 8 != 4
+    kl = int(mask.sum())
+    got = ops.sketch_gram_count(hc, sc, a, BLOCK, mask)
+    want, plain_ms = timed_once(
+        lambda: ref.sketch_gram_count(hc, sc, a, BLOCK, mask))
+    row = compare("sketch_gram_count softmax", got, want)
+    del want
+    row["bit_identical"] = same_bits(
+        "sketch_gram_count softmax",
+        lambda: ops.sketch_gram_count(hc, sc, a, BLOCK, mask), got)
+    row["symmetric"] = symmetric("sketch_gram_count softmax", got)
+    row["ms"] = cuda_ms(lambda: ops.sketch_gram_count(hc, sc, a, BLOCK,
+                                                      mask), 2, warm=False)
+    row["plain_ms"] = plain_ms
+    row["library_ms"] = cuda_ms(library_of(hc, sc, mask), 2)
+    row["library_call"] = ("torch.sparse.mm(CSR sketch (K_live*b, n), A) "
+                           "then torch.mm")
+    row["bound_ms"], row["bound_by"] = gram_bound(kb, kl)
+    row["shape"] = {"K": kb, "masked": kb - kl, "n": n, "d": d, "b": BLOCK}
+
+    kw = h.shape[0]
+    mask_w = torch.arange(kw, device=device) % 8 != 4
+    library = library_of(h, sg, mask_w)
+    # The library's Gram is the sum over the live blocks; the kernel's is
+    # their mean.
+    wide = compare("sketch_gram_count softmax, library's blocks",
+                   ops.sketch_gram_count(h, sg, a, BLOCK, mask_w),
+                   library() / float(mask_w.sum()))
+    wide["ms"] = cuda_ms(lambda: ops.sketch_gram_count(h, sg, a, BLOCK,
+                                                       mask_w), 2)
+    wide["library_ms"] = cuda_ms(library, 2)
+    wide["bound_ms"], wide["bound_by"] = gram_bound(kw, int(mask_w.sum()))
+    wide["shape"] = {"K": kw, "masked": kw - int(mask_w.sum())}
+    row["library_blocks"] = wide
+    del library
+
+    g = torch.randn(d, generator=torch.Generator().manual_seed(SEED)).to(
+        device)
+    _, row["eigh_ms"] = timed_once(lambda: torch.linalg.eigh(got))
+    _, row["eigh_ms_again"] = timed_once(lambda: torch.linalg.eigh(got))
+    p, row["pinv_solve_ms"] = timed_once(
+        lambda: solvers.psd_pinv_solve(got, g))
+    if not bool(torch.isfinite(p).all()):
+        raise AssertionError("softmax: the pinv solve is not finite")
+    return row
+
+
+def run_softmax(core, ops, ref, solvers, data_mod, prng, sketching,
+                device) -> tuple:
+    """The softmax path: the data at the emnist profile's widths with n
+    cut to SOFTMAX_N, the kernel checks at its shapes (the data's and the
+    sketch's draws bit for bit, the fused Gram on SOFTMAX_CHECK_BLOCKS
+    blocks, eigh, the coded mat-vec at its encodes),
+    then PATH_ITERS iterations of oversketched_newton with the kernels,
+    counted from 0 just before.  Returns (launches, the kernel rows)."""
+    import torch
+    from repro_torch.configs import PROFILES
+    t0 = time.perf_counter()
+    prof = PROFILES["emnist"]
+    d, k, n_test = prof.n_features, prof.n_classes, prof.n_test
+    dk = d * k
+    scfg = core.OverSketchConfig(softmax_sketch_dim(dk), BLOCK, 0.25)
+    k_blocks = scfg.total_blocks
+    card = torch.cuda.get_device_properties(0).total_memory
+    full = softmax_bytes(prof.n_train, d, k, n_test, k_blocks)
+    cut = softmax_bytes(SOFTMAX_N, d, k, n_test, k_blocks)
+    data = data_mod.make_softmax_dataset(prng.PRNGKey(SEED), SOFTMAX_N, d, k,
+                                         n_test, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # The data's draws, and the sketch's draw of the first iteration (key
+    # kh, as the loop splits it), held against the plain versions before A
+    # takes the card's memory.
+    data_draws = check_softmax_draws(ops, prng, data, prng.PRNGKey(SEED),
+                                     device)
+    _, _, kh, _ = prng.split(prng.PRNGKey(SEED), 4)
+    sketch_draws = check_draw(ops, prng, prng.fold_in(kh, 7), SOFTMAX_N * k,
+                              k_blocks, BLOCK, device, label="softmax ",
+                              nystrom=False)
+    emit({"phase": "softmax_data", "profile": "emnist",
+          "published": [prof.n_train, d, n_test, k],
+          "n": data.x.shape[0], "d": d, "k": k, "n_test": n_test,
+          "sketch_dim": scfg.sketch_dim, "block_size": BLOCK,
+          "total_blocks": k_blocks, "card_bytes": card,
+          "bytes_at_published_n": full, "bytes_at_n": cut,
+          "cut": f"n {prof.n_train:,} -> {SOFTMAX_N:,}: at the published n "
+                 f"the path holds {full['total'] / 1e9:.1f} GB (A alone "
+                 f"{full['A'] / 1e9:.1f} GB), past the card's "
+                 f"{card / 1e9:.1f} GB; at {SOFTMAX_N:,} it holds "
+                 f"{cut['total'] / 1e9:.1f} GB.  d, K, the test rows and "
+                 "the sketch are as published.",
+          "class_balance": data.y.mean(0).tolist(), "seconds": seconds,
+          "draws": data_draws, "sketch_draws": sketch_draws,
+          "check_seconds": time.perf_counter() - t0 - seconds})
+
+    t0 = time.perf_counter()
+    objective = core.SoftmaxRegression(k)
+    w0 = torch.zeros(dk, device=device)
+    a = objective.hess_sqrt(w0, data)
+    state = sketching.get("oversketch", scfg).sample(prng.fold_in(kh, 7),
+                                                     a.shape[0],
+                                                     device=device)
+    # One call over all K blocks, N live as the path's k-of-n leaves them:
+    # the fused Gram's share of an iteration.
+    live = torch.arange(k_blocks, device=device) >= k_blocks - scfg.num_blocks
+    _, full_ms = timed_once(lambda: ops.sketch_gram_count(
+        state.h, state.sigma, a, BLOCK, live))
+    h = state.h[:SOFTMAX_LIBRARY_BLOCKS].contiguous()
+    sg = state.sigma[:SOFTMAX_LIBRARY_BLOCKS].contiguous()
+    del state
+    gram = check_softmax_kernels(ops, ref, solvers, a, h, sg, device)
+    gram["all_blocks_ms"] = full_ms
+    gram["all_blocks_live"] = int(live.sum())
+    del a, h, sg
+    torch.cuda.empty_cache()
+    coded_rows = check_coded(ops, ref, data, BLOCK, device)
+    emit({"phase": "softmax_kernels", "sketch_gram_count": gram,
+          "coded_X": coded_rows["X"], "coded_XT": coded_rows["XT"],
+          "tolerance_rel": REL_TOL, "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    # Each iteration: one fused Gram, K coded mat-vecs each way for the
+    # gradient, and the draw kernel twice (h, then sigma).
+    cfg = core.NewtonConfig(iters=PATH_ITERS, sketch=scfg, solver="pinv",
+                            unit_step=False, coded_block_rows=BLOCK,
+                            gradient_policy="coded", use_kernels=True,
+                            track_test_error=True, seed=SEED)
+    launches = run_path(core, ops, objective, data, w0, cfg, "softmax",
+                        {"sketch_gram_count": PATH_ITERS,
+                         "coded_block_matvec": 2 * k * PATH_ITERS,
+                         "draw": 2 * PATH_ITERS})
+    del data
+    torch.cuda.empty_cache()
+    rows = {"sketch_gram_count": gram, "coded_X": coded_rows["X"],
+            "coded_XT": coded_rows["XT"], "draw": sketch_draws}
+    return launches, rows
 
 
 CHECK_CASES = {   # verify recipe: b = 64 > d = 20 for distributed-avg
@@ -1017,9 +1345,34 @@ CHECK_CASES = {   # verify recipe: b = 64 > d = 20 for distributed-avg
 }
 
 
+def card_against_plain(core, ops, objective, data, w0, kw: dict,
+                       label: str) -> dict:
+    """One small run on the card (kernels) and on the CPU (plain): the same
+    steps, fval within rtol 1e-4; with the card run's launch counts."""
+    import numpy as np
+    ops.reset_launch_counts()
+    card = core.oversketched_newton(objective, data, w0,
+                                    core.NewtonConfig(use_kernels=True, **kw),
+                                    device="cuda")
+    launches = {k: c for k, c in ops.launch_counts().items() if c}
+    plain = core.oversketched_newton(objective, data, w0,
+                                     core.NewtonConfig(use_kernels=False,
+                                                       **kw), device="cpu")
+    fc = np.array(card.history["fval"])
+    fp = np.array(plain.history["fval"])
+    if card.history["step"] != plain.history["step"] or not np.allclose(
+            fc, fp, rtol=1e-4, atol=1e-6):
+        raise AssertionError(f"{label}: card {fc} vs plain {fp}")
+    return {"fval_card": fc.tolist(), "fval_plain": fp.tolist(),
+            "max_rel_fval_diff": float(np.max(np.abs(fc - fp)
+                                              / np.abs(fp))),
+            "launches": launches}
+
+
 def run_small_reference(core, ops, data_mod, prng) -> dict:
     """The verify recipe on the card (kernels) and on the CPU (plain), for
-    each case of CHECK_CASES, with the card run's launch counts."""
+    each case of CHECK_CASES, then softmax regression at the size of its
+    CPU parity test (n = 600, d = 12, K = 4, fig. 9's sketch rule, pinv)."""
     import numpy as np
     data = data_mod.make_logistic_dataset(prng.PRNGKey(0), 1000, 20, 200,
                                           device="cpu")
@@ -1027,23 +1380,18 @@ def run_small_reference(core, ops, data_mod, prng) -> dict:
     for label, extra in CHECK_CASES.items():
         kw = dict(iters=4, sketch=core.OverSketchConfig(512, 64, 0.25),
                   coded_block_rows=128, gradient_policy="coded", **extra)
-        ops.reset_launch_counts()
-        card = core.oversketched_newton(
-            core.LogisticRegression(lam=1e-4), data, np.zeros(20, np.float32),
-            core.NewtonConfig(use_kernels=True, **kw), device="cuda")
-        launches = {k: c for k, c in ops.launch_counts().items() if c}
-        plain = core.oversketched_newton(
-            core.LogisticRegression(lam=1e-4), data, np.zeros(20, np.float32),
-            core.NewtonConfig(use_kernels=False, **kw), device="cpu")
-        fc = np.array(card.history["fval"])
-        fp = np.array(plain.history["fval"])
-        if card.history["step"] != plain.history["step"] or not np.allclose(
-                fc, fp, rtol=1e-4, atol=1e-6):
-            raise AssertionError(f"{label}: card {fc} vs plain {fp}")
-        out[label] = {"fval_card": fc.tolist(), "fval_plain": fp.tolist(),
-                      "max_rel_fval_diff": float(np.max(np.abs(fc - fp)
-                                                        / np.abs(fp))),
-                      "launches": launches}
+        out[label] = card_against_plain(
+            core, ops, core.LogisticRegression(lam=1e-4), data,
+            np.zeros(20, np.float32), kw, label)
+    sdata = data_mod.make_softmax_dataset(prng.PRNGKey(3), 600, 12, 4, 100,
+                                          device="cpu")
+    kw = dict(iters=4, sketch=core.OverSketchConfig(softmax_sketch_dim(48),
+                                                    BLOCK, 0.25),
+              solver="pinv", unit_step=False, coded_block_rows=BLOCK,
+              gradient_policy="coded")
+    out["softmax"] = card_against_plain(core, ops, core.SoftmaxRegression(4),
+                                        sdata, np.zeros(48, np.float32), kw,
+                                        "softmax")
     return out
 
 
@@ -1236,7 +1584,9 @@ def main() -> int:
     gauss = sketching.get("gaussian", scfg).sample(draw, n, device=dev)
     rows["normal"] = check_normal(ops, prng, gauss["keys"][0], (n, b), dev)
     del gauss
-    rows["draw"] = check_draw(ops, prng, draw, n, scfg.total_blocks, b, dev)
+    draws = check_draw(ops, prng, draw, n, scfg.total_blocks, b, dev)
+    first = next(iter(draws))
+    rows["draw"] = {**draws.pop(first), "case": first, "other_shapes": draws}
     torch.cuda.empty_cache()
     coded_rows = check_coded(ops, ref, data, b, dev)
     rows["coded_block_matvec"] = coded_rows["XT"]
@@ -1314,6 +1664,11 @@ def main() -> int:
     del data
     torch.cuda.empty_cache()
 
+    # Softmax regression at the emnist profile's widths (n cut to fit).
+    from repro_torch.core import solvers
+    paths["softmax"], softmax_rows = run_softmax(
+        core, ops, ref, solvers, data_mod, prng, sketching, dev)
+
     t0 = time.perf_counter()
     check = run_small_reference(core, ops, data_mod, prng)
     emit({"phase": "check", "cases": check,
@@ -1329,18 +1684,29 @@ def main() -> int:
     # other shapes beside; fwht's one-pass kernel at its largest n, 4,096.
     rows["count_sketch_apply"], cs_b256 = large["count_sketch_apply"], \
         rows["count_sketch_apply"]
+    sm_x, sm_xt = softmax_rows["coded_X"], softmax_rows["coded_XT"]
     other = {"count_sketch_apply": {
         "distavg_sjlt (layered, s = 4)": large["count_sketch_apply_sjlt"],
         "b256_K150 (no path)": cs_b256},
-        "coded_block_matvec": {"X encode (W = 1,296, s = 3,000)":
-                               coded_rows["X"]},
+        "sketch_gram_count": {
+            f"softmax ({SOFTMAX_CHECK_BLOCKS} of its blocks, n K = "
+            f"{softmax_rows['sketch_gram_count']['shape']['n']:,}, d K = "
+            f"{softmax_rows['sketch_gram_count']['shape']['d']:,})":
+                softmax_rows["sketch_gram_count"]},
+        "coded_block_matvec": {
+            "X encode (W = 1,296, s = 3,000)": coded_rows["X"],
+            f"softmax X encode (W = {sm_x['shape']['W']:,}, s = "
+            f"{sm_x['shape']['s']:,})": sm_x,
+            f"softmax X^T encode (W = {sm_xt['shape']['W']:,}, s = "
+            f"{sm_xt['shape']['s']:,})": sm_xt},
+        "fwht": rows["fwht_lengths"],
         "oversketch_gram": {"count-sketch A_tilde (no path)": count_gram},
         "sketch_gram_sjlt": {
             "apply alone (count_sketch_apply, K_live = 120, s = 4, b = 256)":
                 rows["sjlt_apply"],
             "Gram alone (oversketch_gram of that A_tilde)":
                 rows["sjlt_gram"]},
-        "draw": rows["draw"]["other_shapes"]}
+        "draw": {**rows["draw"]["other_shapes"], **softmax_rows["draw"]}}
     summary = []
     for name, kern in ops.KERNELS.items():
         r = rows[name]
@@ -1364,9 +1730,12 @@ def main() -> int:
             entry["other_shapes"] = {
                 k: {f: v[f] for f in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
-                                      "yardstick_ms", *PHASES) if f in v}
+                                      "yardstick_ms", "copy_ms", *PHASES,
+                                      "library_blocks", "eigh_ms")
+                    if f in v}
                 for k, v in other[name].items()}
-        entry.update({f: r[f] for f in PHASES + FWHT_PASSES if f in r})
+        entry.update({f: r[f] for f in PHASES + FWHT_PASSES + ("copy_ms",)
+                      if f in r})
         if name in ("normal", "draw"):
             entry.update({f: r[f] for f in ("yardstick_ms", "yardstick",
                                             "bound_rate", "table_build_ms",

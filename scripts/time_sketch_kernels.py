@@ -28,6 +28,11 @@ and d = 3,000:
   fwht_two_pass       one (1, 2^19, 3,000) block (distavg_srht's), beside
                       a copy of the block (``copy_ms``: what one pass's
                       bytes take when nothing else is done)
+  fwht                the one-pass transform at (1, n, 3,000) for n =
+                      1,024, 2,048 and 4,096 (the smoke's check_fwht
+                      lengths), timed from CUDA graphs as chip_smoke.py
+                      times it (``graph_ms``: 20 calls a graph, 5
+                      replays), beside a copy of x
 
 ``--only`` keeps the named kernels.
 
@@ -38,8 +43,8 @@ full width, then ``core.coded.encode_2d`` of X and X^T, as chip_smoke.py
 builds them), and each is timed twice on the same tensors: as encoded, and
 again after RELEASE_GB of other tensors were allocated, freed and returned
 to CUDA with ``torch.cuda.empty_cache()`` (as chip_smoke.py does between
-its checks).  Each call is timed with CUDA events over ``--reps`` calls
-after one warm-up; the coded rows also time one PyTorch call of the same
+its checks).  Each call but fwht's is timed with CUDA events over
+``--reps`` calls after one warm-up; the coded rows also time one PyTorch call of the same
 function (``torch.mv`` over all blocks, then ``torch.where``) and give
 their bound at the card's published HBM rate.  Prints one JSON line per
 kernel with its time, the sum of its output (to compare versions' results)
@@ -55,7 +60,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import HBM_BYTES_PER_S, clocks, nvidia_smi  # noqa: E402
+from chip_smoke import (HBM_BYTES_PER_S, clocks, graph_ms,  # noqa: E402
+                        nvidia_smi)
 
 ERASED = 0.05
 RELEASE_GB = 42
@@ -211,6 +217,16 @@ def main() -> int:
               "ms": ms(lambda: ops.fwht_two_pass(x)),
               "copy_ms": ms(lambda: buf.copy_(x)),
               "out_sum": float(out.double().sum()), "shape": [1, n_pad, d]})
+        del x, out, buf
+    if wanted("fwht"):
+        for n1 in (1024, 2048, 4096):
+            x = torch.randn(1, n1, d, generator=g, device=dev)
+            out = ops.fwht(x)
+            buf = torch.empty_like(x)
+            emit({"kernel": "fwht", "ms": graph_ms(lambda: ops.fwht(x)),
+                  "copy_ms": graph_ms(lambda: buf.copy_(x)),
+                  "out_sum": float(out.double().sum()), "shape": [1, n1, d],
+                  "timing": "CUDA graph of 20 calls, 5 replays"})
     print(nvidia_smi(), flush=True)
     return 0
 

@@ -1,14 +1,18 @@
-"""Synthetic logistic datasets matching the paper's generative model
-(Sec. 5.1), port of ``repro/data/synthetic.py``: features uniform on
-[-1, 1]^d, labels from a random ground-truth logistic model.
+"""Synthetic datasets matching the paper's generative models (Sec. 5.1),
+port of ``repro/data/synthetic.py``: logistic features uniform on
+[-1, 1]^d with labels from a random ground-truth logistic model; softmax
+features standard normal with labels from a random linear model (the
+EMNIST stand-in).
 
-Draws come from the port's draw entry points (``kernels.ops.uniform`` and
-``normal``: the draw and normal kernels on the card, ``prng`` on the CPU),
-so a key gives the reference's features and ground-truth weights bit for
-bit, and the column spectrum is ``jnp.geomspace``'s bit for bit.
-The labels compare a sigmoid of a matrix product with a uniform draw, and
-torch sums and rounds that product in another order than XLA, so a label
-whose probability sits on its draw can still flip.
+Draws come from the port's draw entry points (``kernels.ops.uniform``,
+``normal`` and ``categorical``: the draw and normal kernels on the card,
+``prng`` on the CPU), so a key gives the reference's features and
+ground-truth weights bit for bit, and the column spectrum is
+``jnp.geomspace``'s bit for bit.  The labels come from a matrix product
+(a sigmoid compared with a uniform draw; an argmax of logits plus Gumbel
+draws), and torch sums and rounds that product in another order than XLA,
+so a label whose probability sits on its draw, or whose two largest
+scores nearly tie, can still flip.
 """
 from __future__ import annotations
 
@@ -89,17 +93,40 @@ def make_logistic_dataset(key: torch.Tensor, n: int, d: int,
     return Dataset(x=x, y=y)
 
 
+def make_softmax_dataset(key: torch.Tensor, n: int, d: int, k: int,
+                         n_test: int = 0, device=None) -> Dataset:
+    """Standard normal features and one-hot labels (n, k) drawn from the
+    categorical distributions softmax(x w^T) of a random (k, d) model.
+    Runs on CUDA unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    kx, kw, ky, kxt, kyt = prng.split(key, 5)
+    w = kops.normal(kw, (k, d), device=device)
+
+    def sample(kx_, ky_, m):
+        x = kops.normal(kx_, (m, d), device=device)
+        y = prng.one_hot(kops.categorical(ky_, x @ w.T), k)
+        return x, y
+
+    x, y = sample(kx, ky, n)
+    if n_test:
+        xt, yt = sample(kxt, kyt, n_test)
+        return Dataset(x=x, y=y, x_test=xt, y_test=yt)
+    return Dataset(x=x, y=y)
+
+
 def profile_dataset(name: str, key: torch.Tensor, *, full_scale: bool = False,
                     device=None) -> Dataset:
-    """Dataset for a logistic paper profile at bench (default) or full
-    scale; the softmax profiles wait for the softmax objective."""
+    """Dataset for a paper profile at bench (default) or full scale: the
+    softmax generator for a profile of more than two classes, else the
+    logistic one."""
     prof: DatasetProfile = PROFILES[name]
-    if prof.n_classes > 2:
-        raise NotImplementedError(
-            f"profile {name!r} is a softmax workload; SoftmaxRegression is "
-            "still to be ported (ROADMAP Queue 1 item 2)")
     n = prof.n_train if full_scale else prof.bench_n
     d = prof.n_features if full_scale else prof.bench_d
     nt = prof.n_test if full_scale else prof.bench_test
+    if prof.n_classes > 2:
+        return make_softmax_dataset(key, n, d, prof.n_classes, nt,
+                                    device=device)
+    # Real-dataset stand-ins use the realistic non-iid storage layout and
+    # mild ill-conditioning.
     return make_logistic_dataset(key, n, d, nt, cond=10.0,
                                  sorted_layout=True, device=device)

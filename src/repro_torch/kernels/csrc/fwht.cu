@@ -27,66 +27,33 @@
 // keeps HBM busy while others compute.  The stages run in the reference's
 // order (h = 1, 2, 4, ...) on its pairs, and the scale is a product with
 // the float reciprocal of sqrt(n), as PyTorch divides by a scalar on the
-// card.  A pass of more rows (n >= 2^21) does not fit a CTA's registers
-// and takes fwht_strip_kernel, scaled the same way.
+// card.
 //
-// fwht, one pass while n <= FW_MAX_ROWS: fwht_strip_kernel, a shared-
-// memory radix-2 butterfly.  It loads a strip of w columns by all rows of
-// one transform (w = 32 down to 4 so the strip stays within
-// FW_SMEM_BYTES), runs the log2(rows) stages in shared memory in the
-// reference's order and writes the strip back.
+// A pass of 2,048 or 4,096 rows (fwht at 4,096, and the passes of
+// fwht_two_pass at n >= 2^21) does not fit a CTA's registers at 32 columns:
+// fwht_wide_kernel narrows the strip to 8 columns (one 32-byte sector a
+// row) and gives each 1,024-row group of it to one CTA of a thread-block
+// cluster.  Each CTA runs its group's stages h < 1,024 as the register
+// pass does (registers, one transpose through shared memory, registers);
+// the last one or two stages, across the groups, read the cluster's
+// distributed shared memory, and the result is written once.  So the one-
+// pass transform reads and writes the panel once, where the two-pass form
+// makes two round trips.
+//
+// fwht while n <= FW_MAX_ROWS: one pass, of fwht_reg_kernel up to 1,024
+// rows and of fwht_wide_kernel at 2,048 and 4,096.  Every form is scaled
+// by the float reciprocal of sqrt(n), as the plain version is on the card,
+// and gives its bits.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int FW_THREADS = 256;
-constexpr int FW_MAX_ROWS = 4096;        // rows of one pass (srht.py: FWHT_MAX_ROWS)
-constexpr int FW_SMEM_BYTES = 64 << 10;  // strip budget: 3 CTAs per SM
-
-// log2 of the strip width for a transform of length rows: the widest
-// power of two in [4, 32] whose strip fits FW_SMEM_BYTES.
-int strip_log_width(int rows) {
-  int wl = 5;
-  while (wl > 2 && ((long long)rows << wl) * 4 > FW_SMEM_BYTES) --wl;
-  return wl;
-}
-
-// grid = (ceil(cols / w), batches).  x and out are (batches, rows, cols);
-// each CTA transforms columns [c0, c0 + w) of one batch along its rows
-// and multiplies by f (mul) or divides by it; w = 1 << wl.  out may
-// equal x.
-__global__ void __launch_bounds__(FW_THREADS)
-fwht_strip_kernel(const float* x, float* out, int rows, long long cols,
-                  int wl, float f, bool mul) {
-  extern __shared__ __align__(16) float s[];   // rows x w
-  const int w = 1 << wl;
-  const long long c0 = (long long)blockIdx.x * w;
-  const size_t base = (size_t)blockIdx.y * rows * cols;
-  const int total = rows << wl;
-  for (int e = threadIdx.x; e < total; e += FW_THREADS) {
-    const int r = e >> wl, c = e & (w - 1);
-    s[e] = c0 + c < cols ? x[base + (size_t)r * cols + c0 + c] : 0.f;
-  }
-  __syncthreads();
-  const int pairs = total / 2;
-  for (int h = 1; h < rows; h <<= 1) {
-    for (int p = threadIdx.x; p < pairs; p += FW_THREADS) {
-      const int c = p & (w - 1), pair = p >> wl;
-      const int i = ((pair & ~(h - 1)) << 1) | (pair & (h - 1));
-      const float u = s[(i << wl) + c], v = s[((i + h) << wl) + c];
-      s[(i << wl) + c] = u + v;
-      s[((i + h) << wl) + c] = u - v;
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < total; e += FW_THREADS) {
-    const int r = e >> wl, c = e & (w - 1);
-    if (c0 + c < cols)
-      out[base + (size_t)r * cols + c0 + c] = mul ? s[e] * f : s[e] / f;
-  }
-}
+constexpr int FW_MAX_ROWS = 4096;  // rows of one pass (srht.py: FWHT_MAX_ROWS)
 
 constexpr int REG_MAX_ROWS = 1024;  // rows a register pass takes
 constexpr int REG_ROWS = 32;        // rows a thread holds (R)
@@ -189,38 +156,134 @@ cudaError_t reg_pass(const float* x, float* out, long long batches,
   return cudaGetLastError();
 }
 
-// One pass over (batches, rows, cols), in slabs of at most 65,535 batches
-// (the grid's y limit), its outputs multiplied by f (mul) or divided by it.
-cudaError_t strip_pass(const float* x, float* out, long long batches,
-                       int rows, long long cols, float f, bool mul,
-                       cudaStream_t stream) {
-  if (rows < 1 || rows > FW_MAX_ROWS || (rows & (rows - 1)) || cols < 1)
-    return cudaErrorInvalidValue;
-  const int wl = strip_log_width(rows), w = 1 << wl;
-  const int smem = rows * w * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwht_strip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long strips = (cols + w - 1) / w;
-  for (long long b0 = 0; b0 < batches; b0 += 65535) {
-    const long long nb = batches - b0 < 65535 ? batches - b0 : 65535;
-    const size_t off = (size_t)b0 * rows * cols;
-    fwht_strip_kernel<<<dim3((unsigned)strips, (unsigned)nb), FW_THREADS,
-                        smem, stream>>>(x + off, out + off, rows, cols, wl,
-                                        f, mul);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+// A pass of ROWS = 2^LOG_ROWS (2,048 or 4,096) rows along (batches, ROWS,
+// cols): a unit is one batch's WIDE_COLS-column strip, and a cluster of
+// G = ROWS / 1,024 CTAs of 256 threads takes it, CTA g (its rank) rows
+// [g 1,024, (g + 1) 1,024).  Thread t of a CTA holds column c = t % 8 and
+// first rows g 1,024 + a 32 + j (a = t / 8, j < 32: the stages h < 32),
+// then rows g 1,024 + j 32 + a (the stages 32 <= h < 1,024), each set in
+// registers, the CTA's 1,024 x 8 strip in its shared memory between them;
+// then, read from the cluster's shared memory, rows g2 1,024 + g 32 Q +
+// q 32 + a (g2 < G, q < Q = 32 / G: the stages h >= 1,024) in v[q G + g2],
+// which it writes out.  A thread writes the second set back to the slots
+// it read it from, so a CTA barrier after the first set and a cluster
+// barrier after the second do; a second cluster barrier keeps every CTA's
+// shared memory alive until the others have read it.  Row r of a CTA lies
+// in slot wide_slot(r): its two low bits XORed with bits 5 and 6, so the
+// four rows a warp touches at once (four consecutive a, or four
+// consecutive rows) lie in four distinct groups of 8 banks.  A CTA of 256
+// threads and 32 KB lets several units share an SM, so one unit's
+// butterflies overlap another's loads.  out may equal x: a unit reads all
+// its elements before it writes one.  Each output is multiplied by scale.
+constexpr int WIDE_COLS = 8;
+constexpr int WIDE_THREADS = 256;
+
+template <int LOG_ROWS>
+struct WidePass {
+  static constexpr int ROWS = 1 << LOG_ROWS;
+  static constexpr int G = ROWS / REG_MAX_ROWS;
+  static_assert(G == 2 || G == 4, "a wide pass has 2,048 or 4,096 rows");
+};
+
+__device__ __forceinline__ int wide_slot(int r) {
+  return (r ^ ((r >> 5) & 3)) * WIDE_COLS;
 }
 
-// One pass of a two-pass transform, its outputs divided by div as a
-// product with 1 / div (as PyTorch divides by a scalar on the card): the
-// register kernel up to REG_MAX_ROWS rows, the strip kernel past that.
-cudaError_t two_pass_step(const float* x, float* out, long long batches,
-                          int rows, long long cols, float div,
-                          cudaStream_t stream) {
-  const float scale = 1.f / div;
+template <int LOG_ROWS>
+__global__ void __launch_bounds__(WIDE_THREADS, 4)
+fwht_wide_kernel(const float* x, float* out, long long strips,
+                 long long cols, float scale) {
+  using T = WidePass<LOG_ROWS>;
+  constexpr int G = T::G, Q = 32 / G;
+  __shared__ float sw[REG_MAX_ROWS * WIDE_COLS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int g = (int)cluster.block_rank();
+  const int t = threadIdx.x;
+  const int c = t % WIDE_COLS, a = t / WIDE_COLS;
+  const long long unit = blockIdx.x / G;
+  const long long batch = unit / strips;
+  const long long col = (unit % strips) * WIDE_COLS + c;
+  // A lane past the last column loads zeros and stores nothing, but keeps
+  // to the barriers.
+  const bool live = col < cols;
+  const size_t base = (size_t)batch * T::ROWS * cols + col;
+
+  float v[32];
+  const size_t r0 = (size_t)g * REG_MAX_ROWS + a * 32;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    v[j] = live ? x[base + (r0 + j) * cols] : 0.f;
+#pragma unroll
+  for (int h = 1; h < 32; h <<= 1)
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (!(j & h)) butterfly(v[j], v[j + h]);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) sw[wide_slot(a * 32 + j) + c] = v[j];
+  __syncthreads();
+
+#pragma unroll
+  for (int j = 0; j < 32; ++j) v[j] = sw[wide_slot(j * 32 + a) + c];
+#pragma unroll
+  for (int e = 1; e < 32; e <<= 1)
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (!(j & e)) butterfly(v[j], v[j + e]);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) sw[wide_slot(j * 32 + a) + c] = v[j];
+  cluster.sync();
+
+  const int lo = g * 32 * Q + a;
+#pragma unroll
+  for (int g2 = 0; g2 < G; ++g2) {
+    const float* rs = cluster.map_shared_rank(sw, g2);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) v[q * G + g2] = rs[wide_slot(lo + q * 32) + c];
+  }
+  cluster.sync();
+#pragma unroll
+  for (int e = 1; e < G; e <<= 1)
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+      if (!(k & e)) butterfly(v[k], v[k + e]);
+  if (!live) return;
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int g2 = 0; g2 < G; ++g2)
+      out[base + ((size_t)g2 * REG_MAX_ROWS + lo + q * 32) * cols] =
+          v[q * G + g2] * scale;
+}
+
+template <int LOG_ROWS>
+cudaError_t wide_pass(const float* x, float* out, long long batches,
+                      long long cols, float scale, cudaStream_t stream) {
+  constexpr int G = WidePass<LOG_ROWS>::G;
+  const long long strips = (cols + WIDE_COLS - 1) / WIDE_COLS;
+  const long long ctas = batches * strips * G;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = G;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)ctas);
+  cfg.blockDim = dim3(WIDE_THREADS);
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, fwht_wide_kernel<LOG_ROWS>, x,
+                                       out, strips, cols, scale);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// One pass of the butterfly over (batches, rows, cols), its outputs
+// multiplied by scale: the register kernel up to REG_MAX_ROWS rows, the
+// wide kernel at 2,048 and 4,096.
+cudaError_t one_pass(const float* x, float* out, long long batches, int rows,
+                     long long cols, float scale, cudaStream_t stream) {
   switch (rows) {
     case 1: return reg_pass<0>(x, out, batches, cols, scale, stream);
     case 2: return reg_pass<1>(x, out, batches, cols, scale, stream);
@@ -233,22 +296,43 @@ cudaError_t two_pass_step(const float* x, float* out, long long batches,
     case 256: return reg_pass<8>(x, out, batches, cols, scale, stream);
     case 512: return reg_pass<9>(x, out, batches, cols, scale, stream);
     case 1024: return reg_pass<10>(x, out, batches, cols, scale, stream);
-    default: return strip_pass(x, out, batches, rows, cols, scale, true,
-                               stream);
+    case 2048: return wide_pass<11>(x, out, batches, cols, scale, stream);
+    case 4096: return wide_pass<12>(x, out, batches, cols, scale, stream);
+    default: return cudaErrorInvalidValue;
   }
+}
+
+// fwht_two_pass's form: n = n1 n2, a local pass over the k n1 chunks of n2
+// rows, then an across pass, in place, of n1 rows along (k, n1, n2 d),
+// scaled by 1 / sqrt(n) as a product with the reciprocal.
+cudaError_t two_pass(const float* x, float* out, int k, int n, int d,
+                     cudaStream_t stream) {
+  int log = 0;
+  while ((1 << log) < n) ++log;
+  const int n1 = 1 << (log / 2), n2 = n / n1;
+  cudaError_t err = one_pass(x, out, (long long)k * n1, n2, d, 1.f, stream);
+  if (err != cudaSuccess) return err;
+  return one_pass(out, out, k, n1, (long long)n2 * d, 1.f / sqrtf((float)n),
+                  stream);
 }
 
 }  // namespace
 
+// The transform while n <= FW_MAX_ROWS, scaled by 1 / sqrt(n) as a product
+// with the reciprocal (as PyTorch divides by a scalar on the card), in
+// one pass.
 extern "C" int fwht_launch(const float* x, float* out, int k, int n, int d,
                            void* stream) {
-  return (int)strip_pass(x, out, k, n, d, sqrtf((float)n), false,
-                         (cudaStream_t)stream);
+  if (n < 1 || (n & (n - 1)) || n > FW_MAX_ROWS)
+    return (int)cudaErrorInvalidValue;
+  if (k < 1 || d < 1) return 0;
+  return (int)one_pass(x, out, k, n, d, 1.f / sqrtf((float)n),
+                       (cudaStream_t)stream);
 }
 
-// One pass of fwht_two_pass alone, over (batches, rows, cols), its outputs
-// divided by div: what fwht_two_pass_launch runs twice.  Lets a caller time
-// the local and across passes apart.
+// One pass alone over (batches, rows, cols), its outputs divided by div as
+// a product with 1 / div: what fwht_two_pass_launch runs twice, and the
+// one-pass transform at any rows.  Lets a caller time the passes apart.
 extern "C" int fwht_two_pass_step_launch(const float* x, float* out,
                                          long long batches, int rows,
                                          long long cols, float div,
@@ -256,8 +340,8 @@ extern "C" int fwht_two_pass_step_launch(const float* x, float* out,
   if (rows < 1 || (rows & (rows - 1)) || rows > FW_MAX_ROWS)
     return (int)cudaErrorInvalidValue;
   if (batches < 1 || cols < 1) return 0;
-  return (int)two_pass_step(x, out, batches, rows, cols, div,
-                            (cudaStream_t)stream);
+  return (int)one_pass(x, out, batches, rows, cols, 1.f / div,
+                       (cudaStream_t)stream);
 }
 
 extern "C" int fwht_two_pass_launch(const float* x, float* out, int k, int n,
@@ -265,12 +349,5 @@ extern "C" int fwht_two_pass_launch(const float* x, float* out, int k, int n,
   if (n < 1 || (n & (n - 1)) || n > FW_MAX_ROWS * FW_MAX_ROWS)
     return (int)cudaErrorInvalidValue;
   if (k < 1 || d < 1) return 0;
-  int log = 0;
-  while ((1 << log) < n) ++log;
-  const int n1 = 1 << (log / 2), n2 = n / n1;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = two_pass_step(x, out, (long long)k * n1, n2, d, 1.f, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)two_pass_step(out, out, k, n1, (long long)n2 * d,
-                            sqrtf((float)n), s);
+  return (int)two_pass(x, out, k, n, d, (cudaStream_t)stream);
 }

@@ -7,7 +7,9 @@ draws with XLA).  These are the port's entry points for those draws: on a
 CUDA device each launches the kernel once for the whole output, where the
 plain version's threefry on int64 tensors takes ~130 elementwise launches
 per 2^24 draws; on the CPU each takes the plain version; any other device
-raises.  ``bits`` draws the raw 32-bit words from any first counter, so
+raises.  ``gumbel`` and ``categorical`` (the softmax dataset's labels)
+draw their uniform the same way and transform it with ``prng``'s float32
+steps.  ``bits`` draws the raw 32-bit words from any first counter, so
 that the kernel's counters past 2^32 can be held against ``prng._bits``.
 """
 from __future__ import annotations
@@ -117,3 +119,27 @@ def bernoulli(key: torch.Tensor, p: float = 0.5, shape: prng.Shape = (), *,
     return _launch(BERNOULLI, prng._shape(shape), torch.bool, device, (key,),
                    flo=np.float32(p))
 
+
+def gumbel(key: torch.Tensor, shape: prng.Shape = (), *,
+           device=None) -> torch.Tensor:
+    """float32 Gumbel draws (``jax.random.gumbel``, its default mode): the
+    kernel's uniform on [tiny, 1) through ``prng.gumbel_of_uniform`` on a
+    CUDA device, ``prng.gumbel`` on the CPU."""
+    device = _device("gumbel", device)
+    if device.type == "cpu":
+        return prng.gumbel(key, shape, device=device)
+    return prng.gumbel_of_uniform(uniform(key, shape, prng.GUMBEL_MINVAL,
+                                          1.0, device=device))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1,
+                shape=None) -> torch.Tensor:
+    """int32 categorical draws (``jax.random.categorical``, replace=True)
+    on the logits' device: ``gumbel``'s draws plus the logits, argmax
+    along ``axis``; ``prng.categorical`` on the CPU."""
+    if logits.device.type == "cpu":
+        return prng.categorical(key, logits, axis, shape)
+    draw, axis, lead = prng.categorical_shapes(tuple(logits.shape), axis,
+                                               shape)
+    return prng.categorical_of_gumbel(gumbel(key, draw, device=logits.device),
+                                      logits, axis, lead)

@@ -31,6 +31,8 @@ randint = _draw.randint
 rademacher = _draw.rademacher
 uniform = _draw.uniform
 bernoulli = _draw.bernoulli
+gumbel = _draw.gumbel
+categorical = _draw.categorical
 
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (_sg.KERNEL, _cs.KERNEL, _og.KERNEL, _cm.KERNEL,

@@ -9,14 +9,25 @@ from __future__ import annotations
 import torch
 
 
+# Elements of A's signed rows made at once by the plain apply: a run of
+# rows at a time, so that its scratch stays at 1 GiB where A itself fills
+# most of the card (the softmax Hessian factor at full width).
+APPLY_CHUNK_ELEMENTS = 1 << 28
+
+
 def count_sketch_apply(h: torch.Tensor, sigma: torch.Tensor, a: torch.Tensor,
                        block_size: int) -> torch.Tensor:
     """S^T A for all sketch blocks: (K, n) int32 buckets in [0, block_size),
-    (K, n) signs, (n, d) -> (K, block_size, d), one index_add_ per block."""
-    k = h.shape[0]
+    (K, n) signs, (n, d) -> (K, block_size, d), index_add_ per block over
+    runs of rows in order (on the CPU the same sums as one index_add_)."""
+    k, n = h.shape
     out = a.new_zeros((k, block_size, a.shape[1]))
+    step = max(1, APPLY_CHUNK_ELEMENTS // max(a.shape[1], 1))
     for i in range(k):
-        out[i].index_add_(0, h[i].long(), a * sigma[i, :, None].to(a.dtype))
+        for r0 in range(0, n, step):
+            rows = slice(r0, r0 + step)
+            out[i].index_add_(0, h[i, rows].long(),
+                              a[rows] * sigma[i, rows, None].to(a.dtype))
     return out
 
 

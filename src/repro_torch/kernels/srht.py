@@ -1,14 +1,15 @@
 """Orthonormal Walsh-Hadamard transform along axis 1 of ``(K, n, d)``.
 
 CUDA kernels: ``csrc/fwht.cu``; replace the Pallas kernels
-``repro/kernels/srht.py::fwht`` and ``::fwht_two_pass``.  A shared-memory
-butterfly transforms a strip of columns by all n rows in one pass while
-``n <= FWHT_MAX_ROWS``; past that, ``fwht`` takes the two-pass form (a
-local pass over contiguous chunks, then an across pass, each a butterfly
-held in registers with one shared-memory transpose while it has at most
-1,024 rows), which ``fwht_two_pass`` forces at any n.  CPU tensors take
-the plain butterfly in ``ref.py``; CUDA tensors launch the kernel or
-raise.
+``repro/kernels/srht.py::fwht`` and ``::fwht_two_pass``.  While
+``n <= FWHT_MAX_ROWS`` one pass transforms a strip of columns by all n
+rows: a butterfly held in registers with one shared-memory transpose up to
+1,024 rows, and at 2,048 and 4,096 rows the same on each 1,024-row group
+of an 8-column strip, then the stages across the groups through shared
+memory.  Past that, ``fwht`` takes the two-pass form (a local pass over
+contiguous chunks, then an across pass, each one such pass), which
+``fwht_two_pass`` forces at any n.  CPU tensors take the plain butterfly
+in ``ref.py``; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ TWO_PASS_KERNEL = CudaKernel("fwht_two_pass", "fwht.cu",
                              "fwht_two_pass_launch", _ARGS,
                              replaces="src/repro/kernels/srht.py:121")
 
-# Largest n one shared-memory pass transforms (csrc/fwht.cu, FW_MAX_ROWS).
+# Largest n one pass transforms (csrc/fwht.cu, FW_MAX_ROWS).
 FWHT_MAX_ROWS = 4096
 
 

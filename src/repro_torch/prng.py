@@ -6,7 +6,8 @@ same seed gives the same draws in both packages:
 
   PRNGKey, split, fold_in, key_data          key algebra
   uniform, bernoulli, rademacher, randint,   draws
-  normal_plain, choice
+  normal_plain, choice, gumbel, categorical
+  one_hot                                    jax.nn.one_hot
 
 The generator is threefry2x32 (20 rounds) in the layout jax uses when
 ``jax_threefry_partitionable`` is on (the default since jax 0.5): element
@@ -23,8 +24,9 @@ counter-based: ``bits[i]`` depends only on ``(key, i)``, so large
 draws are made in chunks of ``CHUNK`` elements and never hold int64
 temporaries for the whole shape.  These are the plain versions: the
 port's draws on the card go through ``kernels.ops`` (``randint``,
-``rademacher``, ``uniform``, ``bernoulli``, ``normal``), whose CUDA
-kernels compute the same bits and which take these on the CPU.
+``rademacher``, ``uniform``, ``bernoulli``, ``normal``, and ``gumbel``
+and ``categorical`` on the uniform draw), whose CUDA kernels compute the
+same bits and which take these on the CPU.
 
 Every draw is bit-exact against jax on the CPU.  ``normal_plain`` is
 ``sqrt(2) * erfinv(u)`` with XLA's float32 erfinv polynomial, its Horner
@@ -421,3 +423,68 @@ def choice(key: torch.Tensor, n: int, shape: Shape,
     r = p_cuml[-1] * (1.0 - uniform(key, shape, device=p.device))
     ind = torch.searchsorted(p_cuml, r.reshape(-1), side="left")
     return ind.to(torch.int32).reshape(shape)
+
+
+# gumbel's uniform draw is on [tiny, 1): tiny is float32's smallest normal.
+GUMBEL_MINVAL = _MIN_NORMAL
+
+
+def gumbel_of_uniform(u: torch.Tensor) -> torch.Tensor:
+    """-log(-log(u)) in XLA's float32 log: the Gumbel draw of gumbel's
+    uniform draw u (jax's default mode, "low")."""
+    return -log_f32(-log_f32(u))
+
+
+def gumbel(key: torch.Tensor, shape: Shape = (), *,
+           device=None) -> torch.Tensor:
+    """float32 standard Gumbel draws (``jax.random.gumbel`` in its default
+    mode): the uniform on [GUMBEL_MINVAL, 1) through two float32 logs.  The
+    entry point is ``kernels.ops.gumbel``, which takes this on the CPU and
+    the draw kernel's uniform on a CUDA device."""
+    return gumbel_of_uniform(uniform(key, shape, GUMBEL_MINVAL, 1.0,
+                                     device=device))
+
+
+def categorical_shapes(logits_shape: Tuple[int, ...], axis: int,
+                       shape) -> Tuple[Tuple[int, ...], int, int]:
+    """``jax.random.categorical``'s shapes (replace=True): the Gumbel
+    draw's shape, the axis counted from the end, and how many leading
+    dimensions ``shape`` adds to the logits'."""
+    ndim = len(logits_shape)
+    axis = axis - ndim if axis >= 0 else axis
+    batch = logits_shape[:ndim + axis] + logits_shape[ndim + axis + 1:]
+    shape = batch if shape is None else _shape(shape)
+    if len(shape) < len(batch):
+        raise ValueError(f"categorical: shape {shape} is shorter than the "
+                         f"logits' batch shape {batch}")
+    lead = len(shape) - len(batch)
+    draw = list(shape[lead:])
+    draw.insert(axis % ndim, logits_shape[axis])
+    return (*shape[:lead], *draw), axis, lead
+
+
+def categorical_of_gumbel(g: torch.Tensor, logits: torch.Tensor, axis: int,
+                          lead: int) -> torch.Tensor:
+    """The index of the largest g + logits along ``axis`` (the first at a
+    tie, as ``jnp.argmax``), int32; ``lead`` leading dimensions of g that
+    logits lacks."""
+    z = g + logits.reshape((1,) * lead + tuple(logits.shape))
+    return torch.argmax(z, dim=axis).to(torch.int32)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1,
+                shape=None) -> torch.Tensor:
+    """int32 draws from the categorical distributions softmax(logits,
+    axis) (``jax.random.categorical``, replace=True, the default Gumbel
+    mode), on the logits' device: the argmax of Gumbel draws plus the
+    logits.  The entry point is ``kernels.ops.categorical``."""
+    draw, axis, lead = categorical_shapes(tuple(logits.shape), axis, shape)
+    g = gumbel(key, draw, device=logits.device)
+    return categorical_of_gumbel(g, logits, axis, lead)
+
+
+def one_hot(x: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """float32 one-hot rows of integer labels (``jax.nn.one_hot``): a label
+    outside [0, num_classes) gives a row of zeros."""
+    classes = torch.arange(num_classes, device=x.device)
+    return (x[..., None] == classes).to(torch.float32)

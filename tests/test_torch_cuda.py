@@ -8,6 +8,8 @@ without them.  On the card:
 The file imports neither jax nor the JAX package, so it runs where only
 the port is installed.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -395,22 +397,71 @@ def test_fused_grams_walk_masked_chunks(cuda, monkeypatch, family, slices, d):
     assert torch.equal(again, got)
 
 
+# The softmax path's width: d K = 7,840 is no multiple of the Gram's
+# 128-column tiles (a ragged last tile row and column).
+@pytest.mark.parametrize("mask", ["all", "some"])
+def test_fused_gram_at_the_softmax_width(cuda, mask):
+    h, sigma, a = _inputs(cuda, 3, 2000, 7840, 256)
+    m = torch.ones(3, dtype=torch.bool, device=cuda)
+    if mask == "some":
+        m[1] = False
+    got = ops.sketch_gram_count(h, sigma, a, 256, m)
+    want = ref.sketch_gram_count(h, sigma, a, 256, m)
+    assert _rel_err(got, want) < REL_TOL
+    torch.testing.assert_close(got, got.T, rtol=0, atol=0)
+
+
+def test_gather_past_two_to_the_31_elements(cuda):
+    """A of 300,000 x 7,840 (2.35e9 elements, 9.4 GB): only the rows past
+    element 2^31 carry a bucket (the others' codes are out of range and
+    dropped), so the apply and the fused Gram read A there alone."""
+    n, d, b, k = 300_000, 7840, 256, 2
+    r0 = (1 << 31) // d + 1
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(n, d, generator=gen, device=cuda)
+    h = torch.randint(0, b, (k, n), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    h[:, :r0] = b
+    sigma = torch.randint(0, 2, (k, n), generator=gen,
+                          device=cuda).float() * 2 - 1
+    want = ref.count_sketch_apply(h[:, r0:].contiguous(),
+                                  sigma[:, r0:].contiguous(), a[r0:], b)
+    assert _rel_err(ops.count_sketch_apply(h, sigma, a, b), want) < REL_TOL
+    m = torch.ones(k, dtype=torch.bool, device=cuda)
+    assert _rel_err(ops.sketch_gram_count(h, sigma, a, b, m),
+                    ref.oversketch_gram(want, m)) < REL_TOL
+
+
 # n = 2^11 splits into n1 = 32 != n2 = 64; (2^19, 33) is the full-width
 # length with one partial 32-column strip; d = 1; n = 2^21 has a local
-# pass of 2,048 rows, past the register pass.
-@pytest.mark.parametrize("k,n,d", [(3, 1, 5), (2, 64, 37), (1, 4096, 300),
-                                   (2, 8192, 33), (1, 1 << 17, 20),
-                                   (3, 1 << 11, 37), (1, 1 << 19, 33),
-                                   (2, 1 << 15, 1), (1, 1 << 21, 3)])
+# pass of 2,048 rows, n = 2^23 passes of 2,048 and 4,096 rows, n = 2^24
+# two of 4,096: the wide kernel's, past the register pass.  Then every
+# length one pass takes (the register pass up to 1,024 rows, the wide
+# kernel at 2,048 and 4,096), at odd widths: one column, a partial last
+# strip of 8 and of 32 columns.
+FWHT_CASES = [(3, 1, 5), (2, 64, 37), (1, 4096, 300), (2, 8192, 33),
+              (1, 1 << 17, 20), (3, 1 << 11, 37), (1, 1 << 19, 33),
+              (2, 1 << 15, 1), (1, 1 << 21, 3), (1, 1 << 23, 2),
+              (1, 1 << 24, 1)]
+FWHT_CASES += [(2, 1 << log_n, d) for log_n in range(13)
+               for d in (1, 37, 3001) if (2, 1 << log_n, d) not in FWHT_CASES]
+
+
+@pytest.mark.parametrize("k,n,d", FWHT_CASES)
 def test_fwht_forms_match_the_butterfly(cuda, k, n, d):
     x = torch.randn(k, n, d, generator=torch.Generator().manual_seed(n)).to(cuda)
     want = ref.fwht(x)
     for fn in (ops.fwht, ops.fwht_two_pass):
         got = fn(x)
         assert _rel_err(got, want) < REL_TOL
-    # The two-pass form adds the butterfly's pairs in its order and scales
-    # as the plain version does on the card: the same bits at every n.
+    # Both forms add the butterfly's pairs in its order and scale as the
+    # plain version does on the card: the same bits at every n.  The entry
+    # takes one launch of the one-pass kernel while n <= 4,096.
     assert torch.equal(ops.fwht_two_pass(x), want)
+    kernel = "fwht" if n <= 4096 else "fwht_two_pass"
+    launches = ops.launch_counts()[kernel]
+    assert torch.equal(ops.fwht(x), want)
+    assert ops.launch_counts()[kernel] == launches + 1
     torch.testing.assert_close(ops.fwht(ops.fwht(x)), x, rtol=1e-4,
                                atol=1e-4)
 
@@ -513,6 +564,7 @@ def test_draw_kernel_is_the_plain_version_bit_for_bit(cuda, shape):
             (ops.uniform, prng.uniform, ()),
             (ops.uniform, prng.uniform, (-1.0, 1.0)),
             (ops.uniform, prng.uniform, (prng.NORMAL_LO, 1.0)),
+            (ops.uniform, prng.uniform, (prng.GUMBEL_MINVAL, 1.0)),
             (ops.bernoulli, prng.bernoulli, ())):
         if entry is ops.bernoulli:
             got = entry(key, 0.3, shape, device=cuda)
@@ -523,6 +575,39 @@ def test_draw_kernel_is_the_plain_version_bit_for_bit(cuda, shape):
         assert got.is_cuda
         for want in wants:
             _same(got, want)
+
+
+@pytest.mark.parametrize("shape", DRAW_SHAPES)
+def test_gumbel_is_the_plain_draw_bit_for_bit(cuda, shape):
+    """ops.gumbel on the card (the draw kernel's uniform on [tiny, 1),
+    then two float32 logs) against prng.gumbel on the card and the CPU."""
+    key = prng.fold_in(prng.PRNGKey(8), 3)
+    launches = ops.launch_counts()["draw"]
+    got = ops.gumbel(key, shape, device=cuda)
+    assert got.is_cuda
+    assert ops.launch_counts()["draw"] == launches + (math.prod(shape) > 0)
+    for device in (cuda, "cpu"):
+        _same(got, prng.gumbel(key, shape, device=device))
+
+
+# (logits' shape, axis, shape): the dataset's labels (rows, K) along the
+# last axis, K = 1, another axis, and leading dimensions of draws.
+@pytest.mark.parametrize("logits_shape,axis,shape", [
+    ((1000, 10), -1, None), ((180_001, 10), -1, None), ((7, 1), -1, None),
+    ((10, 301), 0, None), ((3, 5, 4), 1, (2, 3, 4)), ((6,), -1, (4, 5))])
+def test_categorical_is_the_plain_draw_bit_for_bit(cuda, logits_shape, axis,
+                                                   shape):
+    """ops.categorical on the card against prng.categorical on the same
+    logits, on the card and on the CPU: the Gumbel draws are the same bits,
+    so the argmax is too."""
+    key = prng.fold_in(prng.PRNGKey(9), logits_shape[-1])
+    logits = torch.from_numpy(np.random.default_rng(len(logits_shape)).normal(
+        size=logits_shape).astype(np.float32) * 3)
+    got = ops.categorical(key, logits.to(cuda), axis, shape)
+    assert got.is_cuda and got.dtype == torch.int32
+    for device in (cuda, "cpu"):
+        want = prng.categorical(key, logits.to(device), axis, shape)
+        _same(got, want)
 
 
 def test_draw_counters_past_two_to_the_32(cuda):
@@ -618,5 +703,32 @@ def test_newton_on_the_card_matches_the_plain_path(cuda, overrides):
                                rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(card.w.cpu().numpy(), plain.w.numpy(),
                                rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(card.history["time"], plain.history["time"],
+                               rtol=1e-12)
+
+
+def test_softmax_newton_on_the_card_matches_the_plain_path(cuda):
+    """Softmax regression at its CPU parity test's size (fig. 9's sketch
+    rule, pinv, the weakly convex line search): the card's run with the
+    kernels against the plain path on the CPU."""
+    from repro_torch.core import (NewtonConfig, OverSketchConfig,
+                                  SoftmaxRegression, oversketched_newton)
+    from repro_torch.data import make_softmax_dataset
+    data = make_softmax_dataset(prng.PRNGKey(3), 600, 12, 4, 100,
+                                device="cpu")
+    cfg = dict(iters=4, sketch=OverSketchConfig(512, 256, 0.25),
+               solver="pinv", unit_step=False, coded_block_rows=256,
+               track_test_error=True)
+    card = oversketched_newton(SoftmaxRegression(4), data,
+                               np.zeros(48, np.float32),
+                               NewtonConfig(use_kernels=True, **cfg))
+    plain = oversketched_newton(SoftmaxRegression(4), data,
+                                np.zeros(48, np.float32),
+                                NewtonConfig(use_kernels=False, **cfg),
+                                device="cpu")
+    assert card.w.is_cuda
+    assert card.history["step"] == plain.history["step"]
+    np.testing.assert_allclose(card.history["fval"], plain.history["fval"],
+                               rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(card.history["time"], plain.history["time"],
                                rtol=1e-12)

@@ -24,7 +24,8 @@ def _modules():
 
 def test_port_imports_neither_jax_nor_repro():
     names = _modules()
-    for name in ("core.newton", "kernels.sketch_gram", "kernels.srht",
+    for name in ("core.newton", "core.objectives", "data.synthetic",
+                 "kernels.sketch_gram", "kernels.srht",
                  "kernels.coded_matvec", "kernels.normal", "kernels.draw",
                  "sketching.sjlt",
                  "sketching.srht", "sketching.debias", "sketching.gaussian",
@@ -51,7 +52,8 @@ def test_entry_points_raise_without_a_device():
     from repro_torch.core import (Dataset, LogisticRegression, NewtonConfig,
                                   OverSketchConfig, oversketched_newton,
                                   sample_countsketch)
-    from repro_torch.data import make_logistic_dataset, profile_dataset
+    from repro_torch.data import (make_logistic_dataset, make_softmax_dataset,
+                                  profile_dataset)
     from repro_torch.kernels import ops
     key = prng.PRNGKey(0)
     cfg = OverSketchConfig(64, 32)
@@ -62,6 +64,8 @@ def test_entry_points_raise_without_a_device():
                                     NewtonConfig(iters=1)),
         lambda: make_logistic_dataset(key, 8, 2),
         lambda: profile_dataset("a9a", key),
+        lambda: make_softmax_dataset(key, 8, 2, 3),
+        lambda: profile_dataset("emnist", key),
         lambda: sample_countsketch(key, 8, cfg),
         lambda: sketching.get("oversketch", cfg).sample(key, 8),
         lambda: sketching.get("sjlt", cfg).sample(key, 8),
@@ -73,6 +77,8 @@ def test_entry_points_raise_without_a_device():
         lambda: prng.bernoulli(key, 0.5, (3,)),
         lambda: prng.rademacher(key, (3,)),
         lambda: prng.randint(key, (3,), 0, 4),
+        lambda: prng.gumbel(key, (3,)),
+        lambda: ops.gumbel(key, (3,)),
         lambda: ops.normal(key, (3,)),
         lambda: convert.vector(np.zeros(2)),
         lambda: convert.dataset(np.zeros((8, 2)), np.ones(8)),
@@ -98,7 +104,8 @@ def test_kernel_build_needs_nvcc():
         _build.build(missing[:1])
 
 
-PLAIN_DRAWS = {"randint", "rademacher", "uniform", "bernoulli"}
+PLAIN_DRAWS = {"randint", "rademacher", "uniform", "bernoulli", "gumbel",
+               "categorical"}
 
 
 def _prng_calls(names):
@@ -131,8 +138,9 @@ def _prng_calls(names):
 
 def test_plain_draws_run_only_on_the_cpu_outside_prng_and_kernels():
     """No module outside ``prng`` and ``kernels`` calls prng's plain
-    randint, rademacher, uniform or bernoulli on anything but the CPU: the
-    sketch samplers and the dataset draw through ``kernels.ops``.  The one
+    randint, rademacher, uniform, bernoulli, gumbel or categorical on
+    anything but the CPU: the sketch samplers and the datasets draw through
+    ``kernels.ops``.  The one
     exception left is ``prng.choice``, whose uniform draw runs plain on p's
     device, called by the leverage family alone."""
     calls = _prng_calls(PLAIN_DRAWS)
@@ -145,11 +153,12 @@ def test_plain_draws_run_only_on_the_cpu_outside_prng_and_kernels():
 
 
 def test_samplers_draw_through_the_kernel_entry_points(monkeypatch):
-    """On the CPU, every plain draw the samplers and the dataset make is
-    made inside a ``kernels.ops`` draw entry point."""
+    """On the CPU, every plain draw the samplers and the datasets make is
+    made inside a ``kernels.ops`` draw entry point (the softmax labels'
+    Gumbel draws and their uniform included)."""
     from repro_torch import prng, sketching
     from repro_torch.core import OverSketchConfig, sample_countsketch
-    from repro_torch.data import make_logistic_dataset
+    from repro_torch.data import make_logistic_dataset, make_softmax_dataset
     from repro_torch.kernels import ops
     depth, entries, outside = [0], [], []
     for name in PLAIN_DRAWS:
@@ -176,6 +185,8 @@ def test_samplers_draw_through_the_kernel_entry_points(monkeypatch):
                                                   device="cpu"),
         "dataset": lambda: make_logistic_dataset(key, 40, 3, 10,
                                                  device="cpu"),
+        "softmax_dataset": lambda: make_softmax_dataset(key, 40, 3, 4, 10,
+                                                        device="cpu"),
         **{fam: (lambda fam=fam: sketching.get(fam, cfg).sample(
             key, 40, device="cpu")) for fam in ("oversketch", "sjlt",
                                                 "srht", "nystrom")}}

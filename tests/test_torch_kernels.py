@@ -328,3 +328,20 @@ def test_gram_slices_fill_whole_waves(rows, d, sms, slices):
     if fill(slices) < om.GRAM_WAVE_FILL:
         assert all(fill(s) <= fill(slices) for s in range(1, most + 1))
     assert slices == 1 or rows // slices >= om.GRAM_MIN_SLICE_ROWS
+
+
+@pytest.mark.parametrize("rows_per_run", [1, 37, 300])
+def test_plain_apply_in_runs_of_rows_is_one_index_add(monkeypatch,
+                                                      rows_per_run):
+    """The plain apply adds A's signed rows a run at a time (its scratch
+    bounded where A fills the card): on the CPU the same sums, in the same
+    order, as one index_add_ over all rows, and the Pallas kernel's."""
+    h, sigma, a = _inputs(3, 4, 301, 37, 32)
+    th, ts, ta = (torch.from_numpy(v) for v in (h, sigma, a))
+    whole = ref.count_sketch_apply(th, ts, ta, 32)
+    monkeypatch.setattr(ref, "APPLY_CHUNK_ELEMENTS", rows_per_run * 37)
+    assert torch.equal(ref.count_sketch_apply(th, ts, ta, 32), whole)
+    np.testing.assert_allclose(
+        whole.numpy(), np.asarray(jops.count_sketch_apply(
+            jnp.asarray(h), jnp.asarray(sigma), jnp.asarray(a), 32)),
+        rtol=RTOL, atol=ATOL)

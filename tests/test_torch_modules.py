@@ -102,6 +102,32 @@ def test_synthetic_dataset_matches(cond, sorted_layout):
     np.testing.assert_array_equal(td.y_test.numpy(), np.asarray(jd.y_test))
 
 
+@pytest.mark.parametrize("n,d,k,n_test", [(600, 12, 4, 100),
+                                           (2000, 98, 10, 500),
+                                           (20_000, 784, 10, 100)])
+def test_softmax_dataset_matches(n, d, k, n_test):
+    """Normal features and one-hot categorical labels, bit for bit, up to
+    20,000 rows at the emnist profile's widths.  (A label could flip where
+    its two largest scores tie within the rounding of x @ w^T, which torch
+    sums in another order; none does here.)"""
+    jk, tk = _key(7)
+    jd = jsynth.make_softmax_dataset(jk, n, d, k, n_test)
+    td = tsynth.make_softmax_dataset(tk, n, d, k, n_test, device="cpu")
+    for got, want in zip(td, jd):
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert td.y.shape == (n, k) and bool((td.y.sum(1) == 1).all())
+
+
+def test_profile_dataset_builds_the_softmax_profiles():
+    jk, tk = _key(1)
+    jd = jsynth.profile_dataset("emnist", jk)
+    td = tsynth.profile_dataset("emnist", tk, device="cpu")
+    assert td.x.shape == (2400, 98) and td.y.shape == (2400, 10)
+    for got, want in zip(td, jd):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # ------------------------------------------------------------------- sketch
 @pytest.mark.parametrize("n,b", [(500, 64), (257, 32)])
 def test_sample_countsketch_bit_exact_and_gram(n, b):

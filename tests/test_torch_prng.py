@@ -271,6 +271,9 @@ def test_draw_entry_points_refuse_other_devices():
                  lambda: ops.rademacher(key, (3,), device="meta"),
                  lambda: ops.uniform(key, (3,), device="meta"),
                  lambda: ops.bernoulli(key, 0.5, (3,), device="meta"),
+                 lambda: ops.gumbel(key, (3,), device="meta"),
+                 lambda: ops.categorical(key, torch.zeros(3, 2,
+                                                          device="meta")),
                  lambda: draw.bits(key, 0, 3, device="meta")):
         with pytest.raises(ValueError, match="CPU or a CUDA device"):
             call()
@@ -295,3 +298,61 @@ def test_normal_table_lives_on_a_cuda_device():
                  lambda: normal.build_table("cpu")):
         with pytest.raises(ValueError, match="CUDA device"):
             call()
+
+
+GUMBEL_SHAPES = [(), (1,), (1000,), (37, 11), (5, 3, 7), (3, 4097)]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", GUMBEL_SHAPES)
+def test_gumbel_bit_exact(seed, shape):
+    """jax.random.gumbel in its default mode: the uniform on [tiny, 1)
+    through two of XLA's float32 logs; the entry point takes the plain
+    version on the CPU."""
+    jk, tk = _pair(seed)
+    want = np.asarray(jax.random.gumbel(jk, shape))
+    got = prng.gumbel(tk, shape, device="cpu").numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert torch.equal(ops.gumbel(tk, shape, device="cpu"),
+                       torch.from_numpy(got))
+
+
+def test_gumbel_of_every_uniform_draw():
+    """All 2^23 uniform draws gumbel can make (one per 23-bit mantissa,
+    the smallest being tiny): the transform equals XLA's, bit for bit."""
+    lo, scale = prng._uniform_params(prng.GUMBEL_MINVAL, 1.0)
+    m = torch.arange(1 << 23, dtype=torch.int32)
+    u = prng._uniform_of(prng._mantissa_floats(m), lo, scale)
+    assert float(u[0]) == np.finfo(np.float32).tiny
+    want = jax.jit(lambda v: -jnp.log(-jnp.log(v)))(jnp.asarray(u.numpy()))
+    got = prng.gumbel_of_uniform(u).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  np.asarray(want).view(np.uint32))
+
+
+CATEGORICAL_CASES = [((500, 10), -1, None), ((500, 10), 1, None),
+                     ((7, 3, 5), 1, None), ((10, 4), 0, (2, 6, 4)),
+                     ((6,), -1, (3, 2)), ((64, 2), -1, None)]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("logits_shape,axis,shape", CATEGORICAL_CASES)
+def test_categorical_bit_exact(seed, logits_shape, axis, shape):
+    """jax.random.categorical (replace=True): the argmax of Gumbel draws
+    plus the logits, with jax's shapes for any axis and a leading shape."""
+    jk, tk = _pair(seed)
+    logits = np.random.default_rng(seed & 0xFFFF).standard_normal(
+        logits_shape).astype(np.float32) * 3
+    want = np.asarray(jax.random.categorical(jk, jnp.asarray(logits), axis,
+                                             shape))
+    for fn in (prng.categorical, ops.categorical):
+        got = fn(tk, torch.from_numpy(logits), axis, shape)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_one_hot_matches_jax():
+    x = np.array([[0, 3, 9], [2, 11, -1]], np.int32)
+    np.testing.assert_array_equal(
+        prng.one_hot(torch.from_numpy(x), 10).numpy(),
+        np.asarray(jax.nn.one_hot(jnp.asarray(x), 10)))
