@@ -23,7 +23,9 @@ with its seconds:
            bit for bit, with its table's one-off build, and the draw
            kernel at the main path's and nystrom's draws, bit for bit:
            randint (150, 300,000) in [0, 256), rademacher of that shape,
-           randint (150, 256) in [0, 300,000)), plus small cases
+           randint (150, 256) in [0, 300,000), and its raw bits at sgd's
+           300,000 sort keys, with sgd's batch permutation against the
+           CPU's), plus small cases
            (ragged, all masked, a non-power-of-two n, b = 4,096, the
            one-pass FWHT, and skewed codes for the segment-sum kernels:
            one bucket, half the buckets empty, out-of-range buckets, sigma
@@ -53,6 +55,16 @@ with its seconds:
            each run
   distavg  sketch_mode="distributed-avg" with debias, b = 4,096 > d, for the
            oversketch, sjlt and srht families, 2 iterations each
+  giant_memory, exact_newton, giant_{wait_all,gcode,ignore},
+  first_order_{gd,nag,sgd}
+           the baseline optimizers at full width (GIANT's memory reckoned
+           and printed first): exact Newton (coded gradients, the exact
+           Hessian with speculative workers) and GIANT (60 workers) with
+           fig. 6's line search, 2 iterations each; gd, nag and sgd under
+           the ignore policy with backtracking (fig. 11's setup), 3 each;
+           launch counts read around each run: exact Newton the coded
+           mat-vec twice an iteration, GIANT none, sgd the draw kernel's
+           bits once a sort round (2 at n = 300,000)
   softmax_data, softmax_kernels, softmax
            softmax regression at the emnist profile's widths (d = 784,
            K = 10, 40,000 test rows) with n cut from 240,000 to 180,000 to
@@ -69,12 +81,16 @@ with its seconds:
   check    the loop at the verify recipe's size on the card against the
            plain path on the CPU: every family in blocks mode and
            distributed-avg (b = 64 > d = 20), and softmax (n = 600, d =
-           12, K = 4), with the card runs' launch counts (the one-pass
-           FWHT runs there, at n_pad = 1,024)
+           12, K = 4), then each baseline optimizer at its CPU parity
+           test's size (n = 1,200, d = 20: GIANT under each policy, gd,
+           nag, sgd, exact Newton; time, cost and steps equal), with the
+           card runs' launch counts (the one-pass FWHT runs there, at
+           n_pad = 1,024)
 
-Every run on the card computes its coded gradient with the coded mat-vec
-kernel: two launches per iteration, as the default fleet's coded_decode
-policy waits for a peelable set and no decode falls back.
+Every Newton run on the card (exact Newton's included) computes its coded
+gradient with the coded mat-vec kernel: two launches per iteration, as
+the default fleet's coded_decode policy waits for a peelable set and no
+decode falls back.
 
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises: the script then
@@ -111,6 +127,8 @@ SEED = 0
 BLOCK = 256             # b of the blocks paths
 DISTAVG_BLOCK = 4096    # b > d = 3,000, as distributed-avg requires
 CODED_ERASED = 0.05     # share of coded workers erased in the kernel check
+GIANT_WORKERS = 60      # the paper's GIANT workers for the synthetic profile
+FIRST_ORDER_ITERS = 3   # iterations of each first-order run
 # One 32-bit integer instruction a lane a clock on the INT32 lanes: 64 of
 # the SM's 128 a clock, half of FP32_ADDS.
 INT32_OPS = 16.7e12
@@ -1075,6 +1093,102 @@ def check_draw(ops, prng, key, n: int, k: int, b: int, device,
     return rows
 
 
+def sort_rounds(n: int) -> int:
+    """Sort rounds of jax's shuffle (prng.permutation) of n elements:
+    ceil(3 ln n / ln(2^32 - 1)), each one launch of the bits mode."""
+    return math.ceil(3 * math.log(max(1, n)) / math.log(2 ** 32 - 1))
+
+
+def check_bits(ops, prng, n: int, device) -> dict:
+    """The draw kernel's raw-bits mode against prng's plain bits on the
+    card, every bit, at sgd's sort keys: the n words of the first sort
+    round of first_order's first batch (seed SEED); then that batch's
+    permutation on the card (sort keys by the kernel) against the CPU's.
+    torch.randint of the same shape beside it as a yardstick of another
+    function.  These launches are measurements, not the path's."""
+    import torch
+    _, _, kb = prng.split(prng.PRNGKey(SEED), 3)
+    _, sub = prng.split(kb)
+    got = ops.bits(sub, 0, n, device=device)
+    want, plain_ms = timed_once(lambda: prng._bits(sub, 0, n, device))
+    differing = int(((got.long() & prng.M32) != want).sum())
+    if differing or got.dtype != torch.int32:
+        raise AssertionError(f"draw bits: {differing} of {n} words differ "
+                             "from the plain bits")
+    perm = prng.permutation(kb, n, device=device)
+    if not torch.equal(perm.cpu(), prng.permutation(kb, n, device="cpu")):
+        raise AssertionError("sgd's batch permutation on the card is not "
+                             "the CPU's")
+    row = {"max_abs_err": float(((got.long() & prng.M32) - want).abs()
+                                .max()),
+           "entries_differing": 0, "permutation_equal": True,
+           "ms": cuda_ms(lambda: ops.bits(sub, 0, n, device=device), 20),
+           "plain_ms": plain_ms, "library_ms": None,
+           "library_call": "none: no PyTorch call draws jax's bits",
+           "yardstick_ms": cuda_ms(lambda: torch.randint(
+               -(1 << 31), (1 << 31) - 1, (n,), device=device,
+               dtype=torch.int32), 20),
+           "yardstick": "torch.randint, same shape (not the same function)",
+           "permutation_ms": cuda_ms(
+               lambda: prng.permutation(kb, n, device=device), 5),
+           "sort_rounds": sort_rounds(n)}
+    row["bound_ms"], row["bound_by"] = bound(float(HASH_INT_OPS) * n,
+                                             4.0 * n, INT32_OPS)
+    row["bound_rate"] = "INT32_OPS"
+    row["hashes"] = n
+    row["shape"] = [n]
+    return row
+
+
+def giant_bytes(n: int, d: int, workers: int) -> dict:
+    """GIANT's device memory at full width, reckoned before the run: the
+    padded shard stack, the shards' hess_sqrt (the same size), and the
+    (workers, d, d) local Hessians and their Cholesky factors, float32."""
+    per = -(-n // workers)
+    stack = 4.0 * workers * per * d
+    hess = 4.0 * workers * d * d
+    return {"workers": workers, "rows_per_shard": per,
+            "shard_stack_gb": stack / 1e9, "hess_sqrt_gb": stack / 1e9,
+            "hessians_gb": hess / 1e9, "factors_gb": hess / 1e9}
+
+
+def run_optimizer(ops, label: str, run, expect: dict, f0: float,
+                  decreasing: bool = True) -> dict:
+    """One full-width run of a baseline optimizer through its entry point,
+    launch counts set to 0 just before and read just after: every kernel's
+    count must be expect's (0 where it names none).  Checks that f ends
+    below f0 (every step where ``decreasing``) and that every value is
+    finite; prints the iterations' wall ms and the peak device memory."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    hist = run()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    seconds = time.perf_counter() - t0
+    f = [f0] + hist["fval"]
+    emit({"phase": label, "iters": len(hist["fval"]), "launches": launches,
+          "f": f, "gnorm": hist["gnorm"], "step": hist["step"],
+          "sim_seconds": hist["time"], "sim_dollars": hist["cost"],
+          "wall_ms": [t * 1e3 for t in hist["wall_s"]],
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "seconds": seconds})
+    for name, count in launches.items():
+        if count != expect.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {count} times, "
+                                 f"expected {expect.get(name, 0)}")
+    if not f[-1] < f[0] or (decreasing and not all(
+            b_ < a_ for a_, b_ in zip(f, f[1:]))):
+        raise AssertionError(f"{label}: fval does not decrease: {f}")
+    finite = all(math.isfinite(v) for k in ("fval", "gnorm", "step", "time",
+                                            "cost") for v in hist[k])
+    if not finite or not bool(torch.isfinite(hist["w"]).all()):
+        raise AssertionError(f"{label}: non-finite values in the history")
+    return launches
+
+
 def check_softmax_draws(ops, prng, data, key, device) -> dict:
     """make_softmax_dataset's draws on the card, every bit against prng's
     plain draws on the card, with the keys the dataset splits: the model w
@@ -1369,10 +1483,60 @@ def card_against_plain(core, ops, objective, data, w0, kw: dict,
             "launches": launches}
 
 
-def run_small_reference(core, ops, data_mod, prng) -> dict:
+# The baseline optimizers at their CPU parity tests' size (n = 1,200,
+# d = 20): (entry point, its keyword arguments).
+OPTIMIZER_CASES = {
+    "giant_wait_all": ("giant", dict(policy="wait_all")),
+    "giant_gcode": ("giant", dict(policy="gcode", schedule="sequential")),
+    "giant_ignore": ("giant", dict(policy="ignore", unit_step=False)),
+    "first_order_gd": ("first_order", dict(method="gd")),
+    "first_order_nag": ("first_order", dict(method="nag")),
+    "first_order_sgd": ("first_order", dict(method="sgd")),
+    "exact_newton": ("exact_newton", dict()),
+}
+
+
+def optimizer_card_against_cpu(ops, optim, objective, data, w0, name: str,
+                               kw: dict, label: str) -> dict:
+    """One small run of a baseline optimizer on the card and one on the
+    CPU: iter, step, simulated time and cost equal, fval and gnorm within
+    rtol 1e-4; with the card run's launch counts."""
+    import numpy as np
+
+    def run(device):
+        if name == "giant":
+            return optim.giant(objective, data, w0, optim.GiantConfig(
+                iters=4, num_workers=24, **kw), device=device)
+        if name == "first_order":
+            return optim.first_order(objective, data, w0,
+                                     optim.FirstOrderConfig(iters=6, **kw),
+                                     device=device)
+        return optim.exact_newton(objective, data, w0, iters=4, **kw,
+                                  device=device)
+    ops.reset_launch_counts()
+    card = run("cuda")
+    launches = {k: c for k, c in ops.launch_counts().items() if c}
+    cpu = run("cpu")
+    for k in ("iter", "step", "time", "cost"):
+        if card[k] != cpu[k]:
+            raise AssertionError(f"{label}: {k} on the card {card[k]} vs "
+                                 f"the CPU {cpu[k]}")
+    for k in ("fval", "gnorm"):
+        if not np.allclose(card[k], cpu[k], rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"{label}: {k} on the card {card[k]} vs "
+                                 f"the CPU {cpu[k]}")
+    fc, fp = np.array(card["fval"]), np.array(cpu["fval"])
+    return {"fval_card": fc.tolist(), "fval_cpu": fp.tolist(),
+            "max_rel_fval_diff": float(np.max(np.abs(fc - fp)
+                                              / np.abs(fp))),
+            "launches": launches}
+
+
+def run_small_reference(core, ops, optim, data_mod, prng) -> dict:
     """The verify recipe on the card (kernels) and on the CPU (plain), for
     each case of CHECK_CASES, then softmax regression at the size of its
-    CPU parity test (n = 600, d = 12, K = 4, fig. 9's sketch rule, pinv)."""
+    CPU parity test (n = 600, d = 12, K = 4, fig. 9's sketch rule, pinv),
+    then each case of OPTIMIZER_CASES."""
     import numpy as np
     data = data_mod.make_logistic_dataset(prng.PRNGKey(0), 1000, 20, 200,
                                           device="cpu")
@@ -1392,6 +1556,12 @@ def run_small_reference(core, ops, data_mod, prng) -> dict:
     out["softmax"] = card_against_plain(core, ops, core.SoftmaxRegression(4),
                                         sdata, np.zeros(48, np.float32), kw,
                                         "softmax")
+    odata = data_mod.make_logistic_dataset(prng.PRNGKey(0), 1200, 20, 200,
+                                           device="cpu")
+    for label, (name, kw) in OPTIMIZER_CASES.items():
+        out[label] = optimizer_card_against_cpu(
+            ops, optim, core.LogisticRegression(lam=1e-4), odata,
+            np.zeros(20, np.float32), name, kw, label)
     return out
 
 
@@ -1507,7 +1677,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     import numpy as np
-    from repro_torch import core, prng, sketching
+    from repro_torch import core, optim, prng, sketching
     from repro_torch import data as data_mod
     from repro_torch.configs import PROFILES, WORKER_SETUP
     from repro_torch.kernels import _build, ops, ref
@@ -1585,6 +1755,8 @@ def main() -> int:
     rows["normal"] = check_normal(ops, prng, gauss["keys"][0], (n, b), dev)
     del gauss
     draws = check_draw(ops, prng, draw, n, scfg.total_blocks, b, dev)
+    draws["bits, sgd's sort keys (n) (first_order sgd)"] = check_bits(
+        ops, prng, n, dev)
     first = next(iter(draws))
     rows["draw"] = {**draws.pop(first), "case": first, "other_shapes": draws}
     torch.cuda.empty_cache()
@@ -1661,6 +1833,39 @@ def main() -> int:
             core, ops, objective, data, w0,
             path_config(core, label, scfg, dcfg, **base), label,
             {**expect, **coded_launches})
+
+    # The baseline optimizers at full width, each driven and counted on its
+    # own: exact Newton and GIANT with fig. 6's line search (GIANT's unit
+    # step diverges on the profile's sorted, non-iid shards), the
+    # first-order methods in fig. 11's setup (ignore, backtracking).  Exact
+    # Newton launches the coded mat-vec twice an iteration and nothing else,
+    # GIANT no kernel, sgd the draw kernel's bits once a sort round.
+    f0 = objective.value(w0, data).item()
+    emit({"phase": "giant_memory", **giant_bytes(n, d, GIANT_WORKERS)})
+    paths["exact_newton"] = run_optimizer(
+        ops, "exact_newton", lambda: optim.exact_newton(
+            objective, data, w0, iters=PATH_ITERS, unit_step=False,
+            seed=SEED, device=dev),
+        {"coded_block_matvec": 2 * PATH_ITERS}, f0)
+    for policy in ("wait_all", "gcode", "ignore"):
+        label = f"giant_{policy}"
+        paths[label] = run_optimizer(
+            ops, label, lambda: optim.giant(
+                objective, data, w0, optim.GiantConfig(
+                    iters=PATH_ITERS, num_workers=GIANT_WORKERS,
+                    policy=policy, unit_step=False, seed=SEED),
+                device=dev), {}, f0)
+        torch.cuda.empty_cache()
+    for method in ("gd", "nag", "sgd"):
+        label = f"first_order_{method}"
+        paths[label] = run_optimizer(
+            ops, label, lambda: optim.first_order(
+                objective, data, w0, optim.FirstOrderConfig(
+                    iters=FIRST_ORDER_ITERS, method=method, policy="ignore",
+                    num_workers=GIANT_WORKERS, backtracking=True,
+                    seed=SEED), device=dev),
+            {"draw": sort_rounds(n) * FIRST_ORDER_ITERS}
+            if method == "sgd" else {}, f0, decreasing=method != "nag")
     del data
     torch.cuda.empty_cache()
 
@@ -1670,7 +1875,7 @@ def main() -> int:
         core, ops, ref, solvers, data_mod, prng, sketching, dev)
 
     t0 = time.perf_counter()
-    check = run_small_reference(core, ops, data_mod, prng)
+    check = run_small_reference(core, ops, optim, data_mod, prng)
     emit({"phase": "check", "cases": check,
           "seconds": time.perf_counter() - t0})
     # n_pad = 1,024 there: the fwht entry takes its one-pass kernel.

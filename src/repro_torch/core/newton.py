@@ -23,7 +23,10 @@ The tensors live on the entry point's device: CUDA unless the caller
 passes ``device="cpu"``.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``adaptive_sketch`` (ROADMAP Queue 1 item 7).
+ignored: ``adaptive_sketch`` (ROADMAP Queue 1 item 7), and a fleet that
+corrupts coded products, through a fault plan's ``CorruptionSpec`` or a
+replayed trace whose rows carry corruption (item 4: the parity-check
+detection that decodes around it).
 """
 from __future__ import annotations
 
@@ -495,6 +498,25 @@ def _check_config(cfg: NewtonConfig, d: int) -> None:
     sketching.get(cfg.sketch_family, cfg.sketch)   # fail fast on bad family
 
 
+def _refuse_corruption(clock: Optional[straggler.SimClock]) -> None:
+    """The reference corrupts the coded products that a fault plan's
+    ``CorruptionSpec`` (or a replayed trace) flags and decodes around them
+    with parity checks; the port has no such path yet, so it refuses the
+    fleet rather than compute something else."""
+    if clock is None:
+        return
+    engine = clock.engine
+    planned = engine.faults is not None and engine.faults.corruption is not None
+    replayed = engine.replay is not None and any(
+        (row.get("faults") or {}).get("corrupted")
+        for row in engine.replay.rows)
+    if planned or replayed:
+        raise NotImplementedError(
+            "a fleet that corrupts coded products (a CorruptionSpec, or a "
+            "replayed trace with corrupted rows) needs corruption detection, "
+            "which is not ported yet (ROADMAP Queue 1 item 4)")
+
+
 def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
                         model=straggler.StragglerModel(),
                         device=None) -> NewtonResult:
@@ -515,6 +537,7 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
         clock, model = model, model.model
     else:
         clock = straggler.SimClock(model) if model is not None else None
+    _refuse_corruption(clock)
     coded_gradient = cfg.gradient_policy != "exact" and model is not None
     engine = (CodedMatvecEngine(data, cfg.coded_block_rows, model,
                                 overlap_encode=cfg.overlap_encode,

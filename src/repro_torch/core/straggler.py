@@ -4,13 +4,17 @@ Calibrated to the paper's Fig. 1 (3600 AWS Lambda workers): per-worker job
 time ``t_w = base * lognormal(0, body_sigma) * (1 + straggler * tail)``
 with P[straggler] = p_tail and tail ~ U[tail_lo, tail_hi].  ``SimClock``
 is a facade over the ``runtime`` fleet engine that turns each phase into
-simulated seconds and dollars.  Both stay on the host.
+simulated seconds and dollars.  Both stay on the host.  The
+order-statistic helpers (``wait_all_time``, ``k_of_n_time``,
+``k_of_n_mask``, ``speculative_time``) work on a sampled time tensor
+directly.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -49,6 +53,47 @@ class StragglerModel:
                 + self.base_time * work_per_worker * body * slow)
 
 
+# The production termination policies live in the ``runtime.policies``
+# registry (what SimClock.phase dispatches through); these helpers are the
+# order-statistic forms for a sampled time tensor.  ``speculative_time``
+# delegates to the registry, so there is one implementation.
+
+def wait_all_time(times: torch.Tensor) -> torch.Tensor:
+    """Policy: wait for every worker (uncoded baseline)."""
+    return times.max()
+
+
+def k_of_n_time(times: torch.Tensor, k: int) -> torch.Tensor:
+    """Policy: proceed when any k of n workers finish (coded / sketched)."""
+    return torch.sort(times).values[k - 1]
+
+
+def k_of_n_mask(times: torch.Tensor, k: int) -> torch.Tensor:
+    """Which workers finished by the k-of-n deadline (ties kept, >= k)."""
+    return times <= k_of_n_time(times, k)
+
+
+def speculative_time(times: torch.Tensor, key: torch.Tensor,
+                     model: StragglerModel, watch_fraction: float = 0.9,
+                     work_per_worker: float = 1.0,
+                     flops_per_worker: Optional[float] = None
+                     ) -> torch.Tensor:
+    """Policy: speculative execution (paper Sec. 5.3).  Wait for
+    ``watch_fraction`` of the workers, relaunch the stragglers (redoing the
+    phase's actual work) and take min(original finish, deadline + relaunch
+    finish) per straggler.  A float32 scalar, as the reference returns."""
+    from repro_torch.runtime import policies   # runtime imports us
+    n = times.shape[0]
+    ctx = policies.PhaseContext(
+        watch_fraction=watch_fraction,
+        sample_relaunch=lambda: model.sample_times(
+            key, n, work_per_worker,
+            flops_per_worker).numpy().astype(np.float64))
+    out = policies.get_policy("speculative")(
+        times.cpu().numpy().astype(np.float64), ctx)
+    return torch.tensor(out.elapsed, dtype=torch.float32)
+
+
 class SimClock:
     """Simulated wall time and dollars across distributed phases: a thin
     facade over ``runtime.FleetEngine`` with the reference's
@@ -76,6 +121,27 @@ class SimClock:
     @property
     def dollars(self) -> float:
         return self.engine.dollars
+
+    @property
+    def ledger(self):
+        return self.engine.ledger
+
+    @property
+    def telemetry(self):
+        """The no-op ``obs.NULL``: live telemetry waits for ROADMAP Queue 1
+        item 10."""
+        return self.engine.telemetry
+
+    @property
+    def last_corruption(self):
+        """Per-worker corruption flags of the most recent phase (None
+        unless a fault plan with a ``CorruptionSpec`` is attached or a
+        replayed row carries them)."""
+        return self.engine.last_corruption
+
+    def charge(self, elapsed: float, phase_name=None) -> None:
+        """Add externally computed phase time (no workers billed)."""
+        self.engine.charge(elapsed, phase_name=phase_name)
 
     def phase(self, key: torch.Tensor, num_workers: int, *,
               work_per_worker: float = 1.0,

@@ -1,6 +1,7 @@
-// draw on Hopper: jax.random's integer, sign, uniform and coin draws, bit
-// for bit the plain versions (repro_torch/prng.py: randint, rademacher,
-// uniform, bernoulli), in one grid-stride launch per call.
+// draw on Hopper: jax.random's raw bits and its integer, sign, uniform and
+// coin draws, bit for bit the plain versions (repro_torch/prng.py: _bits,
+// randint, rademacher, uniform, bernoulli), in one grid-stride launch per
+// call.  The raw bits are prng.permutation's sort keys (jax's shuffle).
 //
 // A kernel of the port alone: it replaces no Pallas kernel.  The reference
 // draws with XLA (jax.random); the plain version hashes as ~130 elementwise

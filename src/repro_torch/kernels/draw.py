@@ -9,8 +9,9 @@ plain version's threefry on int64 tensors takes ~130 elementwise launches
 per 2^24 draws; on the CPU each takes the plain version; any other device
 raises.  ``gumbel`` and ``categorical`` (the softmax dataset's labels)
 draw their uniform the same way and transform it with ``prng``'s float32
-steps.  ``bits`` draws the raw 32-bit words from any first counter, so
-that the kernel's counters past 2^32 can be held against ``prng._bits``.
+steps.  ``bits`` draws the raw 32-bit words from any first counter:
+``prng.permutation``'s sort keys (sgd's batch in ``optim.first_order``),
+and counters past 2^32 held against ``prng._bits``.
 """
 from __future__ import annotations
 
@@ -64,7 +65,8 @@ def _launch(mode: int, shape, dtype, device, keys=(), *, span: int = 1,
 def bits(key: torch.Tensor, start: int, count: int,
          device=None) -> torch.Tensor:
     """The 32-bit words of counters [start, start + count) as int32 (two's
-    complement): ``prng._bits``' words."""
+    complement), ``jax.random.bits``' words: the kernel on a CUDA device,
+    ``prng._bits`` on the CPU."""
     device = _device("bits", device)
     if device.type == "cpu":
         w = prng._bits(key, start, count, device)

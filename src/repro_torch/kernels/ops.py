@@ -27,6 +27,7 @@ sketch_gram_sjlt = _sg.sketch_gram_sjlt
 sketch_gram_srht = _sg.sketch_gram_srht
 fwht = _srht.fwht
 fwht_two_pass = _srht.fwht_two_pass
+bits = _draw.bits
 randint = _draw.randint
 rademacher = _draw.rademacher
 uniform = _draw.uniform

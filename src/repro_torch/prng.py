@@ -6,7 +6,8 @@ same seed gives the same draws in both packages:
 
   PRNGKey, split, fold_in, key_data          key algebra
   uniform, bernoulli, rademacher, randint,   draws
-  normal_plain, choice, gumbel, categorical
+  normal_plain, choice, gumbel, categorical,
+  permutation
   one_hot                                    jax.nn.one_hot
 
 The generator is threefry2x32 (20 rounds) in the layout jax uses when
@@ -481,6 +482,27 @@ def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1,
     draw, axis, lead = categorical_shapes(tuple(logits.shape), axis, shape)
     g = gumbel(key, draw, device=logits.device)
     return categorical_of_gumbel(g, logits, axis, lead)
+
+
+def permutation(key: torch.Tensor, n: int, *, device=None) -> torch.Tensor:
+    """int32 random permutation of range(n) (``jax.random.permutation(key,
+    n)``; ``[:k]`` of it is ``jax.random.choice(key, n, (k,),
+    replace=False)``).  jax's ``_shuffle``: ceil(3 ln n / ln(2^32 - 1))
+    rounds, each splitting the key, drawing n 32-bit sort keys under the
+    second half and sorting the running permutation by them, stably.  The
+    sort keys come from ``kernels.ops.bits``: the draw kernel on a CUDA
+    device, the plain bits on the CPU."""
+    from repro_torch.kernels import ops   # kernels import prng
+    device = resolve_device(device)
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int32, device=device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        sort_keys = ops.bits(sub, 0, n, device=device).to(torch.int64) & M32
+        x = x[torch.sort(sort_keys, stable=True).indices]
+    return x
 
 
 def one_hot(x: torch.Tensor, num_classes: int) -> torch.Tensor:

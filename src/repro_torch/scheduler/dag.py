@@ -1,5 +1,6 @@
 """Phase-DAG dispatch on top of ``FleetEngine.run_phase(not_before=...)``;
-port of ``repro/scheduler/dag.py`` (``DagRun``).
+port of ``repro/scheduler/dag.py`` (``DagRun``, ``DagResult``,
+``run_dag``).
 
 An optimizer dispatches one iteration's phases with dependency edges; each
 phase launches at
@@ -10,16 +11,21 @@ so phases with no path between them (the gradient round and the Hessian
 sketch) overlap on the simulated timeline.  A phase whose launch time
 equals the current clock takes the engine's sequential path, so a DAG that
 serializes every phase reproduces the sequential schedule bit for bit.
+``run_dag`` validates a declared DAG and dispatches it in the canonical
+order (``spec.canonical_order``).
+
+The reference's ``critical_path`` methods (``DagRun`` and ``DagResult``)
+read its ``obs`` package and wait for ROADMAP Queue 1 item 10.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch import prng
-from repro_torch.scheduler.spec import PhaseSpec
+from repro_torch.scheduler.spec import PhaseSpec, canonical_order
 
 
 @dataclasses.dataclass
@@ -31,6 +37,19 @@ class PhaseResult:
     elapsed: float
     finish: float
     mask: torch.Tensor
+
+
+@dataclasses.dataclass
+class DagResult:
+    """What ``run_dag`` hands back."""
+
+    order: List[str]                      # canonical dispatch order
+    results: Dict[str, PhaseResult]
+    start: float
+    makespan: float                       # max finish - start
+
+    def finish(self, name: str) -> float:
+        return self.results[name].finish
 
 
 class DagRun:
@@ -92,3 +111,18 @@ class DagRun:
         if not self.results:
             return 0.0
         return max(r.finish for r in self.results.values()) - self.start
+
+
+def run_dag(clock, key: torch.Tensor, specs: Sequence[PhaseSpec], *,
+            sequential: bool = False,
+            start: Optional[float] = None) -> DagResult:
+    """Validate, canonicalize and dispatch a whole phase DAG: the dispatch
+    order, hence every draw, pool interaction and ledger addition, is a
+    function of the DAG alone.  ``sequential`` dispatches the same order
+    with every edge a barrier at the current clock."""
+    order = canonical_order(specs)
+    run = DagRun(clock, key=key, start=start)
+    for s in order:
+        run.dispatch(s, sequential=sequential)
+    return DagResult(order=[s.name for s in order], results=run.results,
+                     start=run.start, makespan=run.makespan)

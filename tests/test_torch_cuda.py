@@ -732,3 +732,70 @@ def test_softmax_newton_on_the_card_matches_the_plain_path(cuda):
                                rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(card.history["time"], plain.history["time"],
                                rtol=1e-12)
+
+
+@pytest.mark.parametrize("count", [1, 1200, 60_000, (1 << 20) + 3])
+def test_bits_mode_is_the_plain_bits(cuda, count):
+    """ops.bits, the draw kernel's raw-bits mode (prng.permutation's sort
+    keys), against prng._bits' words on the card and on the CPU."""
+    key = prng.fold_in(prng.PRNGKey(13), count)
+    ops.reset_launch_counts()
+    got = ops.bits(key, 0, count, device=cuda)
+    assert ops.launch_counts()["draw"] == 1
+    assert got.is_cuda and got.dtype == torch.int32
+    for device in (cuda, "cpu"):
+        want = prng._bits(key, 0, count, device)
+        assert torch.equal((got.long() & prng.M32).cpu(), want.cpu())
+        _same(got, ops.bits(key, 0, count, device="cpu"))
+
+
+@pytest.mark.parametrize("n,rounds", [(1, 0), (2, 1), (1200, 1),
+                                      (65_537, 2), (300_000, 2)])
+def test_permutation_on_the_card_is_the_plain_permutation(cuda, n, rounds):
+    """jax's shuffle with its sort keys from the draw kernel: the CPU's
+    permutation, one bits launch a sort round."""
+    key = prng.PRNGKey(n % 97)
+    ops.reset_launch_counts()
+    got = prng.permutation(key, n, device=cuda)
+    assert ops.launch_counts()["draw"] == rounds
+    assert got.is_cuda
+    _same(got, prng.permutation(key, n, device="cpu"))
+
+
+OPTIMIZERS = [("giant", dict(policy="wait_all")),
+              ("giant", dict(policy="gcode", schedule="sequential")),
+              ("giant", dict(policy="ignore", unit_step=False)),
+              ("first_order", dict(method="gd")),
+              ("first_order", dict(method="nag", policy="wait_all")),
+              ("first_order", dict(method="sgd", policy="gcode")),
+              ("exact_newton", dict())]
+
+
+@pytest.mark.parametrize("name,overrides", OPTIMIZERS)
+def test_optimizer_on_the_card_matches_its_cpu_history(cuda, name,
+                                                       overrides):
+    """Each baseline optimizer at its CPU parity test's size (n = 1,200,
+    d = 20): simulated time and cost and the steps equal, fval and gnorm
+    within rtol 1e-4 of the CPU run's."""
+    from repro_torch import optim
+    from repro_torch.core import LogisticRegression
+    from repro_torch.data import make_logistic_dataset
+    data = make_logistic_dataset(prng.PRNGKey(0), 1200, 20, 200,
+                                 device="cpu")
+    w0 = np.zeros(20, np.float32)
+
+    def run(device):
+        obj = LogisticRegression(lam=1e-4)
+        if name == "giant":
+            return optim.giant(obj, data, w0, optim.GiantConfig(
+                iters=4, num_workers=24, **overrides), device=device)
+        if name == "first_order":
+            return optim.first_order(obj, data, w0, optim.FirstOrderConfig(
+                iters=6, **overrides), device=device)
+        return optim.exact_newton(obj, data, w0, iters=4, device=device)
+    card, cpu = run(cuda), run("cpu")
+    assert card["w"].is_cuda
+    for k in ("iter", "step", "time", "cost"):
+        assert card[k] == cpu[k], k
+    for k in ("fval", "gnorm"):
+        np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4, atol=1e-6)

@@ -29,7 +29,11 @@ def test_port_imports_neither_jax_nor_repro():
                  "kernels.coded_matvec", "kernels.normal", "kernels.draw",
                  "sketching.sjlt",
                  "sketching.srht", "sketching.debias", "sketching.gaussian",
-                 "sketching.nystrom", "sketching.leverage"):
+                 "sketching.nystrom", "sketching.leverage",
+                 "optim.gradient_coding", "optim.exact_newton",
+                 "optim.first_order", "optim.giant", "runtime.faults",
+                 "runtime.trace", "runtime.engine", "scheduler.pool",
+                 "scheduler.dag", "scheduler.spec"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
@@ -55,6 +59,8 @@ def test_entry_points_raise_without_a_device():
     from repro_torch.data import (make_logistic_dataset, make_softmax_dataset,
                                   profile_dataset)
     from repro_torch.kernels import ops
+    from repro_torch.optim import (FirstOrderConfig, GiantConfig,
+                                   exact_newton, first_order, giant)
     key = prng.PRNGKey(0)
     cfg = OverSketchConfig(64, 32)
     data = Dataset(x=torch.zeros(8, 2), y=torch.ones(8))
@@ -62,6 +68,14 @@ def test_entry_points_raise_without_a_device():
         resolve_device,
         lambda: oversketched_newton(LogisticRegression(), data, np.zeros(2),
                                     NewtonConfig(iters=1)),
+        lambda: giant(LogisticRegression(), data, np.zeros(2),
+                      GiantConfig(iters=1, num_workers=2)),
+        lambda: first_order(LogisticRegression(), data, np.zeros(2),
+                            FirstOrderConfig(iters=1, num_workers=2)),
+        lambda: exact_newton(LogisticRegression(), data, np.zeros(2),
+                             iters=1),
+        lambda: prng.permutation(key, 8),
+        lambda: ops.bits(key, 0, 8),
         lambda: make_logistic_dataset(key, 8, 2),
         lambda: profile_dataset("a9a", key),
         lambda: make_softmax_dataset(key, 8, 2, 3),

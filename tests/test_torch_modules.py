@@ -476,11 +476,18 @@ def test_exhausted_phase_raises_like_the_reference():
 
 
 def test_unported_fleet_options_raise():
-    for kw in ({"recorder": object()}, {"replay": object()},
-               {"pool": object()}, {"faults": object()},
-               {"telemetry": object()}):
-        with pytest.raises(NotImplementedError):
-            tstraggler.SimClock(tstraggler.StragglerModel(), **kw)
+    """Live telemetry is the one fleet option left unported (ROADMAP Queue
+    1 item 10); record, replay, the warm pool and fault plans are ported
+    (``tests/test_torch_fleet.py``) and accepted."""
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tstraggler.SimClock(tstraggler.StragglerModel(), telemetry=object())
+    from repro_torch.runtime import FaultPlan, TraceRecorder, TraceReplayer
+    from repro_torch.scheduler import WarmPool
+    for kw in ({"recorder": TraceRecorder()}, {"replay": TraceReplayer([])},
+               {"pool": WarmPool()}, {"faults": FaultPlan()}):
+        clock = tstraggler.SimClock(tstraggler.StragglerModel(), **kw)
+        (name, value), = kw.items()
+        assert getattr(clock.engine, name) is value
 
 
 def test_dag_with_overlapping_phases_ends_at_the_same_clock():
