@@ -65,6 +65,26 @@ with its seconds:
            launch counts read around each run: exact Newton the coded
            mat-vec twice an iteration, GIANT none, sgd the draw kernel's
            bits once a sort round (2 at n = 300,000)
+  corruption_parts, corruption, corruption_blind, corruption_gnorm
+           before the runs, the clean lines' parity margin (largest
+           residual over magnitude) at both encodes and the corruption
+           noise's draw at (36, 36, 256) and (5, 5, 256), bit for bit; then
+           the main path under the registry's corruption plan (prob 0.1)
+           with detection on, 3 iterations: the latch flips, each corrupted
+           mat-vec's rebuild launches the coded mat-vec once more and the
+           normal kernel once, each relaunch the coded mat-vec once more
+           (the counts the run's own telemetry implies); then detection
+           off, 2 iterations (values finite); both gnorm histories
+  adaptive_mp, adaptive_stall
+           growth by the MP factor from OverSketchConfig(6,144, 256, 0.25)
+           (K = 30 -> 60), and by the stall ratio on the main path's sketch
+           (4 iterations), each K printed
+  telemetry_off, telemetry, profiler_hook
+           the main path without and with obs.Telemetry(monitors=True):
+           simulated time and cost bit for bit (and the newton phase's),
+           the Perfetto export validated, spans and alerts counted, wall ms
+           beside each other; then one iteration under the kernel profiler
+           (kernels.ops.set_profiler), each kernel.<op>.us
   softmax_data, softmax_kernels, softmax
            softmax regression at the emnist profile's widths (d = 784,
            K = 10, 40,000 test rows) with n cut from 240,000 to 180,000 to
@@ -83,14 +103,17 @@ with its seconds:
            distributed-avg (b = 64 > d = 20), and softmax (n = 600, d =
            12, K = 4), then each baseline optimizer at its CPU parity
            test's size (n = 1,200, d = 20: GIANT under each policy, gd,
-           nag, sgd, exact Newton; time, cost and steps equal), with the
-           card runs' launch counts (the one-pass FWHT runs there, at
-           n_pad = 1,024)
+           nag, sgd, exact Newton; time, cost and steps equal), then the
+           loop under a corruption plan (detection on) and with MP growth
+           (m = 64 -> 128), time, cost and sketch_dim equal; with the card
+           runs' launch counts (the one-pass FWHT runs there, at n_pad =
+           1,024)
 
 Every Newton run on the card (exact Newton's included) computes its coded
 gradient with the coded mat-vec kernel: two launches per iteration, as
 the default fleet's coded_decode policy waits for a peelable set and no
-decode falls back.
+decode falls back; under corruption, one more per rebuild and per
+relaunch.
 
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises: the script then
@@ -1460,26 +1483,38 @@ CHECK_CASES = {   # verify recipe: b = 64 > d = 20 for distributed-avg
 
 
 def card_against_plain(core, ops, objective, data, w0, kw: dict,
-                       label: str) -> dict:
+                       label: str, clock=None) -> dict:
     """One small run on the card (kernels) and on the CPU (plain): the same
-    steps, fval within rtol 1e-4; with the card run's launch counts."""
+    steps, fval within rtol 1e-4; with the card run's launch counts.  With
+    ``clock`` (a SimClock factory) both runs take a fresh one, and the
+    simulated time, cost and sketch_dim must be equal too."""
     import numpy as np
+    extra = {} if clock is None else {"model": clock()}
     ops.reset_launch_counts()
     card = core.oversketched_newton(objective, data, w0,
                                     core.NewtonConfig(use_kernels=True, **kw),
-                                    device="cuda")
+                                    device="cuda", **extra)
     launches = {k: c for k, c in ops.launch_counts().items() if c}
+    extra = {} if clock is None else {"model": clock()}
     plain = core.oversketched_newton(objective, data, w0,
                                      core.NewtonConfig(use_kernels=False,
-                                                       **kw), device="cpu")
+                                                       **kw), device="cpu",
+                                     **extra)
     fc = np.array(card.history["fval"])
     fp = np.array(plain.history["fval"])
     if card.history["step"] != plain.history["step"] or not np.allclose(
             fc, fp, rtol=1e-4, atol=1e-6):
         raise AssertionError(f"{label}: card {fc} vs plain {fp}")
+    if clock is not None:
+        for k in ("time", "cost", "sketch_dim"):
+            if card.history[k] != plain.history[k]:
+                raise AssertionError(f"{label}: {k} on the card "
+                                     f"{card.history[k]} vs the CPU "
+                                     f"{plain.history[k]}")
     return {"fval_card": fc.tolist(), "fval_plain": fp.tolist(),
             "max_rel_fval_diff": float(np.max(np.abs(fc - fp)
                                               / np.abs(fp))),
+            "sketch_dim": card.history["sketch_dim"],
             "launches": launches}
 
 
@@ -1556,6 +1591,27 @@ def run_small_reference(core, ops, optim, data_mod, prng) -> dict:
     out["softmax"] = card_against_plain(core, ops, core.SoftmaxRegression(4),
                                         sdata, np.zeros(48, np.float32), kw,
                                         "softmax")
+    # Corruption (the registry's plan, detection on) and MP growth (m = 64
+    # gives 1 - 20/64 < 0.75, so the sketch doubles once): the fleet's
+    # policy follows the detector's verdicts, so time and cost agree only
+    # if the card's flags and decodes are the CPU's.
+    from repro_torch.runtime import get_scenario
+    for label, extra, plan in (
+            ("corruption", dict(sketch=core.OverSketchConfig(512, 64, 0.25)),
+             get_scenario("corruption", prob=0.3)),
+            ("adaptive_mp", dict(sketch=core.OverSketchConfig(64, 16, 0.25),
+                                 adaptive_sketch=True, adaptive_metric="mp"),
+             None)):
+        kw = dict(iters=4, coded_block_rows=64, gradient_policy="coded",
+                  **extra)
+        out[label] = card_against_plain(
+            core, ops, core.LogisticRegression(lam=1e-4), data,
+            np.zeros(20, np.float32), kw, label,
+            clock=lambda plan=plan: core.SimClock(core.StragglerModel(),
+                                                  faults=plan))
+    if out["adaptive_mp"]["sketch_dim"][-1] <= 64:
+        raise AssertionError("adaptive_mp: the check run's sketch did not "
+                             "grow")
     odata = data_mod.make_logistic_dataset(prng.PRNGKey(0), 1200, 20, 200,
                                            device="cpu")
     for label, (name, kw) in OPTIMIZER_CASES.items():
@@ -1590,18 +1646,27 @@ def path_config(core, path: str, scfg, dcfg, **kw):
     raise ValueError(f"unknown path {path!r}")
 
 
+# Each run_path history by its label, for phases that compare two runs.
+HISTORIES = {}
+
+
 def run_path(core, ops, objective, data, w0, cfg, label: str,
-             expect: dict) -> dict:
+             expect: dict, *, clock=None, after=None,
+             decreasing: bool = True) -> dict:
     """One full-width run of a path through the entry point, launch counts
     set to 0 just before and read just after; checks each expected count,
-    that f decreases and that every value is finite."""
+    that f decreases (unless not ``decreasing``) and that every value is
+    finite.  ``clock`` is the fleet to run on (a fresh default one when
+    None); ``after(history)`` returns more fields for the printed row and
+    more expected counts, read from the run itself."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ops.reset_launch_counts()
-    res = core.oversketched_newton(objective, data, w0, cfg,
-                                   device=w0.device)
+    res = core.oversketched_newton(
+        objective, data, w0, cfg, device=w0.device,
+        **({} if clock is None else {"model": clock}))
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     seconds = time.perf_counter() - t0
@@ -1617,12 +1682,19 @@ def run_path(core, ops, objective, data, w0, cfg, label: str,
     if cfg.track_test_error:
         row["test_error"] = hist["test_error"]
         keys.append("test_error")
+    if cfg.adaptive_sketch:
+        row["sketch_dim"] = hist["sketch_dim"]
+    HISTORIES[label] = hist
+    if after is not None:
+        fields, more = after(hist)
+        row.update(fields)
+        expect = {**expect, **more}
     emit(row)
     for name, count in expect.items():
         if launches[name] != count:
             raise AssertionError(f"{label}: {name} launched "
                                  f"{launches[name]} times, expected {count}")
-    if not all(b_ < a_ for a_, b_ in zip(f, f[1:])):
+    if decreasing and not all(b_ < a_ for a_, b_ in zip(f, f[1:])):
         raise AssertionError(f"{label}: fval does not decrease: {f}")
     finite = all(math.isfinite(v) for k in keys for v in hist[k])
     if not finite or not bool(torch.isfinite(res.w).all()):
@@ -1663,6 +1735,180 @@ def profile_iterations(core, objective, data, w0, cfg, device,
             "draw_kernel_launches": sum(e.count for e in draws),
             "top": [{"op": e.key[:90], "device_ms": dev_us(e) / 1e3,
                      "calls": e.count} for e in events[:top]]}
+
+
+def check_corruption_parts(ops, prng, data, b: int, device) -> dict:
+    """Before the corruption paths: the clean lines' parity margin at both
+    product-code encodes (the largest residual over magnitude, against the
+    detector's 1e-3; no cell may be flagged), and the corruption noise's
+    draw at each grid, (g+1, g+1, b), bit for bit against the plain
+    normal."""
+    import torch
+    from repro_torch.core import coded
+    from repro_torch.kernels.coded_matvec import parity_residuals
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for tag, mat in (("X", data.x), ("XT", data.x.T)):
+        code = coded.make_code(mat.shape[0], b)
+        enc = coded.encode_2d(mat, code)
+        v = torch.randn(mat.shape[1], device=device, generator=gen)
+        prods = coded.coded_block_products(enc, v)
+        del enc
+        known = torch.ones(prods.shape[:2], dtype=torch.bool, device=device)
+        row_res, row_mag, col_res, col_mag = parity_residuals(prods, known)
+        res, mag = torch.cat([row_res, col_res]), torch.cat([row_mag, col_mag])
+        # Lines of the zero padding blocks have nothing to check.
+        live = mag > 0
+        flagged = int(coded.detect_corrupted(prods, known, code).sum())
+        if flagged:
+            raise AssertionError(f"corruption: {flagged} clean cells flagged "
+                                 f"at the {tag} encode")
+        g1 = code.grid + 1
+        key = prng.fold_in(prng.PRNGKey(SEED), 777)
+        got = ops.normal(key, (g1, g1, b), device)
+        want = prng.normal_plain(key, (g1, g1, b), device)
+        differing = int((got.view(torch.int32)
+                         != want.view(torch.int32)).sum())
+        if differing:
+            raise AssertionError(f"normal: {differing} draws of the "
+                                 f"({g1}, {g1}, {b}) noise differ")
+        out[tag] = {"grid": g1, "workers": g1 * g1,
+                    "max_clean_res_over_mag": float(
+                        (res[live] / mag[live]).max()),
+                    "lines": int(mag.numel()),
+                    "zero_lines": int((~live).sum()),
+                    "detector_rtol": 1e-3,
+                    "noise_shape": [g1, g1, b], "noise_bits_differing": 0}
+    return out
+
+
+def corruption_counts(tel, iters: int, detection: bool):
+    """``run_path``'s ``after`` for a corruption run: the counters its
+    telemetry holds, and the launches they imply.  Every coded mat-vec is
+    one launch (the rebuild where cells were corrupted, else the decode's
+    products) plus one per relaunch; the normal kernel draws the noise of
+    each corrupted mat-vec once."""
+    def after(hist):
+        counters = tel.metrics.snapshot()["counters"]
+        rates = tel.metrics.gauges["coded.block_error_rate"].series
+        fields = {k.partition(".")[2]: counters.get(k, 0.0) for k in (
+            "coded.corruption_injected", "coded.corruption_detected",
+            "coded.decode_fallbacks", "coded.paranoid_mode")}
+        fields.update(block_error_rate=rates,
+                      corrupted_matvecs=sum(r > 0 for r in rates),
+                      detection=detection)
+        fallbacks = int(fields["decode_fallbacks"])
+        return fields, {"coded_block_matvec": 2 * iters + fallbacks,
+                        "normal": fields["corrupted_matvecs"]}
+    return after
+
+
+def run_modes(core, ops, obs, prng, objective, data, w0, scfg, b: int,
+              dev) -> dict:
+    """The Newton loop's modes at full width, each driven and counted on
+    its own: corruption (the registry's plan, detection on, 3 iterations;
+    then off, 2), MP-driven growth from OverSketchConfig(6,144, 256, 0.25)
+    (K = 30, 1 - 3,000/6,144 < 0.75), stall-driven growth on the main
+    path's sketch, and the main path under live telemetry against the same
+    run without it, then one iteration under the kernel profiler."""
+    import dataclasses
+    from repro_torch.runtime import get_scenario
+    paths = {}
+    t0 = time.perf_counter()
+    emit({"phase": "corruption_parts",
+          **check_corruption_parts(ops, prng, data, b, dev),
+          "seconds": time.perf_counter() - t0})
+    base = path_config(core, "newton", scfg, None, iters=ITERS,
+                       gradient_policy="coded", use_kernels=True, seed=SEED)
+    expect = {"sketch_gram_count": ITERS, "coded_block_matvec": 2 * ITERS,
+              "draw": 2 * ITERS}
+    for label, iters, detection in (("corruption", ITERS, True),
+                                    ("corruption_blind", PATH_ITERS, False)):
+        tel = obs.Telemetry()
+        clock = core.SimClock(core.StragglerModel(),
+                              faults=get_scenario("corruption"),
+                              telemetry=tel)
+        paths[label] = run_path(
+            core, ops, objective, data, w0,
+            dataclasses.replace(base, iters=iters,
+                                corruption_detection=detection), label,
+            {"sketch_gram_count": iters, "draw": 2 * iters}, clock=clock,
+            after=corruption_counts(tel, iters, detection),
+            decreasing=detection)
+        counters = tel.metrics.snapshot()["counters"]
+        if not counters.get("coded.corruption_injected"):
+            raise AssertionError(f"{label}: no corruption was injected")
+        if detection and counters.get("coded.paranoid_mode") != 1.0:
+            raise AssertionError(f"{label}: the paranoid latch did not flip")
+    emit({"phase": "corruption_gnorm",
+          "detected": HISTORIES["corruption"]["gnorm"],
+          "blind": HISTORIES["corruption_blind"]["gnorm"]})
+
+    mp_sketch = core.OverSketchConfig(6144, b, 0.25)
+    cfg = dataclasses.replace(base, sketch=mp_sketch, adaptive_sketch=True,
+                              adaptive_metric="mp")
+
+    def blocks(hist):
+        return {"total_blocks": [
+            core.OverSketchConfig(m, b, 0.25).total_blocks
+            for m in hist["sketch_dim"]]}, {}
+    paths["adaptive_mp"] = run_path(core, ops, objective, data, w0, cfg,
+                                    "adaptive_mp", expect, after=blocks)
+    dims = HISTORIES["adaptive_mp"]["sketch_dim"]
+    if not dims[-1] > dims[0] or max(dims) > 4 * mp_sketch.sketch_dim:
+        raise AssertionError(f"adaptive_mp: sketch_dim {dims}")
+    stall_iters = ITERS + 1     # growth after iteration 2 shows in the 4th
+    paths["adaptive_stall"] = run_path(
+        core, ops, objective, data, w0,
+        dataclasses.replace(base, iters=stall_iters, adaptive_sketch=True),
+        "adaptive_stall", {"sketch_gram_count": stall_iters,
+                           "coded_block_matvec": 2 * stall_iters,
+                           "draw": 2 * stall_iters}, after=blocks)
+
+    # Live telemetry: the same run without it, then with it (monitors on).
+    paths["telemetry_off"] = run_path(core, ops, objective, data, w0, base,
+                                      "telemetry_off", expect)
+    tel = obs.Telemetry(monitors=True)
+
+    def spans(hist):
+        kinds = {}
+        for sp in tel.trace.spans:
+            kinds[sp.kind] = kinds.get(sp.kind, 0) + 1
+        return {"spans": len(tel.trace.spans), "spans_by_kind": kinds,
+                "alerts": len(tel.health.alerts),
+                "alerts_by_metric": tel.health.summary()["by_metric"],
+                "wall_ms_without": [t * 1e3 for t in
+                                    HISTORIES["telemetry_off"]["wall_s"]]}, {}
+    paths["telemetry"] = run_path(
+        core, ops, objective, data, w0, base, "telemetry", expect,
+        clock=core.SimClock(core.StragglerModel(), telemetry=tel),
+        after=spans)
+    on, off = HISTORIES["telemetry"], HISTORIES["telemetry_off"]
+    for k in ("time", "cost"):
+        if on[k] != off[k] or on[k] != HISTORIES["newton"][k]:
+            raise AssertionError(f"telemetry: simulated {k} moved: {on[k]} "
+                                 f"vs {off[k]}")
+    obs.validate_trace(obs.to_perfetto(tel.trace.spans),
+                       require_phases=("hessian", "linesearch"))
+    reg = obs.MetricsRegistry()
+    ops.set_profiler(reg)
+    try:
+        t0 = time.perf_counter()
+        core.oversketched_newton(objective, data, w0,
+                                 dataclasses.replace(base, iters=1),
+                                 device=dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        ops.set_profiler(None)
+    snap = reg.snapshot()
+    emit({"phase": "profiler_hook", "iters": 1,
+          "calls": snap["counters"],
+          "us": {k: v for k, v in snap["histograms"].items()},
+          "seconds": seconds})
+    if set(snap["counters"]) != {"kernel.sketch_gram_count.calls",
+                                 "kernel.coded_block_matvec.calls"}:
+        raise AssertionError(f"profiler_hook: {snap['counters']}")
+    return paths
 
 
 def main() -> int:
@@ -1866,6 +2112,10 @@ def main() -> int:
                     seed=SEED), device=dev),
             {"draw": sort_rounds(n) * FIRST_ORDER_ITERS}
             if method == "sgd" else {}, f0, decreasing=method != "nag")
+    # Corruption, adaptive growth and live telemetry on the main path.
+    from repro_torch import obs
+    paths.update(run_modes(core, ops, obs, prng, objective, data, w0, scfg,
+                           b, dev))
     del data
     torch.cuda.empty_cache()
 

@@ -9,7 +9,10 @@ pattern that leaves some line with exactly one missing cell per round.
 Encoding happens once; decoding runs ``grid + 1`` vectorized peel rounds.
 The worker products go through the coded block mat-vec kernel
 (``kernels/coded_matvec.py``) on a CUDA device, and through its plain
-version, the reference's einsum, on the CPU.
+version, the reference's einsum, on the CPU.  The same parity constraints
+double as integrity checks: ``detect_corrupted`` flags corrupted (not
+merely missing) products, and ``verified_decode`` demotes them to erasures,
+peels, and rejects a decode that disagrees with the arrived cells.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import coded_matvec as kcm
 from repro_torch.kernels import ops as kops
 
 
@@ -114,6 +118,60 @@ def decode_matvec(products: torch.Tensor, known: torch.Tensor,
     """Full decode back to y = A @ x of length out_rows."""
     sys_blocks, ok = peel_decode(products, known, code)
     return sys_blocks.reshape(code.padded_blocks * code.block_rows)[:out_rows], ok
+
+
+def detect_corrupted(products: torch.Tensor, known: torch.Tensor,
+                     code: ProductCode, rtol: float = 1e-3) -> torch.Tensor:
+    """Parity-check detection of corrupted products: a corrupted known cell
+    violates its row and its column constraint, while an erased cell only
+    makes its two lines uncheckable.  A known cell is flagged when one of
+    its checks fires and the other fires or cannot be checked: exact for
+    one corrupted cell in a full grid, conservative where corruption
+    shares lines with erasures (an innocent demoted to an erasure; an
+    undecodable pattern then falls through to the master's billed
+    relaunch, never to a wrong result).  Returns the ((g+1), (g+1)) bool
+    grid of cells to demote."""
+    del code   # the grid's shape carries the geometry
+    row_res, row_mag, col_res, col_mag = kcm.parity_residuals(products,
+                                                              known)
+    full_rows = known.all(dim=1)
+    full_cols = known.all(dim=0)
+    tiny = torch.finfo(torch.float32).tiny
+    rows_bad = full_rows & (row_res > rtol * (row_mag + tiny))
+    cols_bad = full_cols & (col_res > rtol * (col_mag + tiny))
+    flagged = ((rows_bad[:, None] & cols_bad[None, :])
+               | (rows_bad[:, None] & ~full_cols[None, :])
+               | (cols_bad[None, :] & ~full_rows[:, None]))
+    return known & flagged
+
+
+def verified_decode(products: torch.Tensor, arrived: torch.Tensor,
+                    code: ProductCode, out_rows: int, rtol: float = 1e-3
+                    ) -> Tuple[Optional[torch.Tensor], bool, int]:
+    """Corruption-tolerant decode: detect, erase, peel, then verify that
+    every surviving arrived cell agrees with the unique codeword the
+    decoded systematic blocks extend to.  Returns ``(y, ok, flagged)``: y
+    is None when the decode is undecodable or rejected.  The blind spot is
+    fundamental: a corrupted systematic cell whose row parity, column
+    parity and corner are all erased is consistent with a valid codeword.
+    Callers relaunch on ``ok=False``."""
+    flagged = detect_corrupted(products, arrived, code, rtol)
+    n_flagged = int(flagged.sum())
+    known = arrived & ~flagged
+    sys_blocks, ok = peel_decode(products, known, code)
+    if not bool(ok):
+        return None, False, n_flagged
+    row_par = sys_blocks.sum(dim=1, keepdim=True)
+    top = torch.cat([sys_blocks, row_par], dim=1)
+    full = torch.cat([top, top.sum(dim=0, keepdim=True)], dim=0)
+    resid = torch.linalg.vector_norm(full - products, dim=-1)
+    mag = (torch.linalg.vector_norm(full, dim=-1)
+           + torch.finfo(torch.float32).tiny)
+    mismatch = known & (resid > rtol * mag)
+    if bool(mismatch.any()):
+        return None, False, n_flagged
+    y = sys_blocks.reshape(code.padded_blocks * code.block_rows)
+    return y[:out_rows], True, n_flagged
 
 
 def coded_matvec(enc: torch.Tensor, x: torch.Tensor, code: ProductCode,

@@ -22,11 +22,14 @@ the loop degrades as the reference does unless ``fault_fallback="raise"``.
 The tensors live on the entry point's device: CUDA unless the caller
 passes ``device="cpu"``.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``adaptive_sketch`` (ROADMAP Queue 1 item 7), and a fleet that
-corrupts coded products, through a fault plan's ``CorruptionSpec`` or a
-replayed trace whose rows carry corruption (item 4: the parity-check
-detection that decodes around it).
+A fleet that corrupts coded products (a fault plan's ``CorruptionSpec``, or
+a replayed trace whose rows carry corruption) is decoded around by parity
+checks (``corruption_detection``, on by default; off trusts the arrived
+bytes).  ``adaptive_sketch`` doubles the sketch dimension when progress
+stalls or the surviving rows' Marchenko-Pastur factor falls below
+``adaptive_mp_target``.  A clock with an ``obs.Telemetry`` attached gets
+the run and iteration spans, the loop's gauges and counters and each
+iteration's critical path, as the reference emits them.
 """
 from __future__ import annotations
 
@@ -42,7 +45,13 @@ from repro_torch import obs, prng, resolve_device, scheduler, sketching
 from repro_torch.core import coded, linesearch, solvers, straggler
 from repro_torch.core.objectives import Dataset
 from repro_torch.core.sketch import OverSketchConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.runtime.faults import PhaseExhaustedError
+
+
+def _telemetry(clock) -> "obs.Telemetry":
+    """The clock's attached telemetry, or the no-op."""
+    return clock.telemetry if clock is not None else obs.NULL
 
 
 def _decodable(erased_grid: np.ndarray) -> bool:
@@ -70,7 +79,7 @@ def _decodable(erased_grid: np.ndarray) -> bool:
 class NewtonConfig:
     """The reference's configuration, field for field, so one config means
     the same in both packages (see the module docstring for what the port
-    refuses)."""
+    checks)."""
 
     iters: int = 20
     sketch: OverSketchConfig = dataclasses.field(
@@ -124,14 +133,22 @@ class CodedMatvecEngine:
     straggler-resilient matvecs.  Each operand's encode is billed as a
     fleet phase on first use; with ``overlap_encode`` both encodes launch
     when the engine comes up and the later one hides behind the compute
-    dispatched since (Sec. 4.1)."""
+    dispatched since (Sec. 4.1).
+
+    ``paranoid`` latches on the first observed corruption (a parity flag
+    or a rejected decode): from then on a coded phase waits for every
+    worker, where the row x column intersection localizes corruption and
+    verification catches what cancels, so each later matvec is exact or a
+    billed relaunch."""
 
     def __init__(self, data: Dataset, block_rows: int,
                  model: Optional[straggler.StragglerModel],
-                 overlap_encode: bool = True, phase_memory: bool = False):
+                 overlap_encode: bool = True, phase_memory: bool = False,
+                 corruption_detection: bool = True):
         self.model = model
         self.overlap_encode = overlap_encode
         self.phase_memory = phase_memory
+        self.corruption_detection = corruption_detection
         self._encode_pending = {"X", "XT"}
         self._encode_t0: Optional[float] = None
         n, d = data.x.shape
@@ -141,6 +158,7 @@ class CodedMatvecEngine:
         self.enc_xt = coded.encode_2d(data.x.T, self.code_xt)
         self.out_rows = {"X": n, "XT": d}
         self.fallbacks = 0
+        self.paranoid = False
 
     def code_for(self, tag: str) -> coded.ProductCode:
         return self.code_x if tag == "X" else self.code_xt
@@ -190,6 +208,8 @@ class CodedMatvecEngine:
                 # The retry budget ran out mid-phase (attempts billed,
                 # clock advanced): degrade to whatever arrived; the coded
                 # path treats the dead workers as erasures.
+                _telemetry(clock).metrics.counter(
+                    "coded.exhausted_phases").inc()
                 return torch.from_numpy(e.mask)
 
         if self.model is not None and tag in self._encode_pending:
@@ -211,28 +231,50 @@ class CodedMatvecEngine:
             except PhaseExhaustedError:
                 # Attempts billed, budget gone: the master re-runs the
                 # cheap parity sums locally; only the round is lost.
-                pass
+                _telemetry(clock).metrics.counter(
+                    "coded.exhausted_phases").inc()
             enc_floor = clock.time
         erased = None
+        corrupt = None
+        g1 = code.grid + 1
         if self.model is not None and policy == "coded":
-            # Decode starts as soon as the arrived set is peelable (Alg. 1
-            # step 8): the coded_decode policy with the peeling predicate.
-            g1 = code.grid + 1
-            k_min = max(1, w - (2 * code.grid + 1))
-            mask = phase(key, "coded_decode", kk=k_min,
-                         decodable=lambda m: _decodable(~m.reshape(g1, g1)))
+            if self.paranoid and self.corruption_detection:
+                mask = phase(key, "wait_all")
+            else:
+                # Decode starts as soon as the arrived set is peelable
+                # (Alg. 1 step 8): the coded_decode policy with the
+                # peeling predicate.
+                k_min = max(1, w - (2 * code.grid + 1))
+                mask = phase(key, "coded_decode", kk=k_min,
+                             decodable=lambda m: _decodable(
+                                 ~m.reshape(g1, g1)))
+            arrived = mask.numpy()
             erased = (~mask).reshape(g1, g1).to(v.device)
+            lc = clock.last_corruption
+            if lc is not None:
+                # Arrived results the fault plane flagged as corrupted;
+                # the rate is set even when 0, the monitors' baseline.
+                corrupt = np.asarray(lc) & arrived
+                tel = _telemetry(clock)
+                if tel.enabled:
+                    tel.metrics.gauge("coded.block_error_rate").set(
+                        float(corrupt.sum()) / float(w))
         elif self.model is not None and policy in ("wait_all", "speculative"):
             phase(key, policy)
         elif self.model is not None and policy == "ignore":
             # mini-batch style: pay the k-of-n time, use the exact product.
             phase(key, "k_of_n", kk=max(1, int(0.95 * w)))
-        y, ok = self._mv(tag, v, erased)
+        if corrupt is not None and corrupt.any():
+            y, ok = self._corrupted_decode(tag, v, key, clock, corrupt,
+                                           arrived)
+        else:
+            y, ok = self._mv(tag, v, erased)
         if erased is not None and not bool(ok):
-            # Erasure pattern beyond the code: the master re-launches the
-            # stragglers; charge a full re-execution round.
+            # Erasure pattern beyond the code, or a rejected decode: the
+            # master re-launches the stragglers; charge a full round.
             self.fallbacks += 1
             y, _ = self._mv(tag, v, None)
+            _telemetry(clock).metrics.counter("coded.decode_fallbacks").inc()
             kf = prng.fold_in(key, 1)
             try:
                 if dag is not None and (name or tag) in dag.results:
@@ -247,8 +289,48 @@ class CodedMatvecEngine:
             except PhaseExhaustedError:
                 # The relaunch round exhausted too: its attempts are
                 # billed, and the master already recomputed y above.
-                pass
+                _telemetry(clock).metrics.counter(
+                    "coded.exhausted_phases").inc()
         return y
+
+    def _corrupted_decode(self, tag: str, v: torch.Tensor, key: torch.Tensor,
+                          clock: straggler.SimClock, corrupt: np.ndarray,
+                          arrived: np.ndarray
+                          ) -> Tuple[torch.Tensor, object]:
+        """Decode what the master received: every worker's clean product
+        plus seeded noise at the corrupted cells.  The noise scale is the
+        RMS over the whole grid, erased cells included (so the products are
+        rebuilt with none erased).  Returns (y, ok); with detection a
+        rejected decode gives zeros and ok False (the caller relaunches)."""
+        code = self.code_for(tag)
+        g1 = code.grid + 1
+        enc = self.enc_x if tag == "X" else self.enc_xt
+        prods = coded.coded_block_products(enc, v)
+        noise = (torch.sqrt(torch.mean(prods ** 2)) + 1e-30) * kops.normal(
+            prng.fold_in(key, 777), tuple(prods.shape), device=prods.device)
+        cgrid = torch.from_numpy(corrupt.reshape(g1, g1)).to(prods.device)
+        prods = torch.where(cgrid[..., None], prods + noise, prods)
+        known = torch.from_numpy(arrived.reshape(g1, g1)).to(prods.device)
+        tel = _telemetry(clock)
+        if tel.enabled:
+            tel.metrics.counter("coded.corruption_injected").inc(
+                int(corrupt.sum()))
+        if not self.corruption_detection:
+            return coded.decode_matvec(prods, known, code, self.out_rows[tag])
+        # Parity checks demote localizable corruption to erasures; the
+        # codeword verification rejects what slipped through.
+        y, ok, n_flagged = coded.verified_decode(prods, known, code,
+                                                 self.out_rows[tag])
+        if tel.enabled and n_flagged:
+            tel.metrics.counter("coded.corruption_detected").inc(n_flagged)
+        if (n_flagged or not ok) and not self.paranoid:
+            self.paranoid = True
+            if tel.enabled:
+                tel.metrics.counter("coded.paranoid_mode").inc()
+        if y is None:
+            y = torch.zeros((self.out_rows[tag],), dtype=prods.dtype,
+                            device=prods.device)
+        return y, ok
 
 
 def _solve_direction(objective, h_hat: torch.Tensor, g: torch.Tensor,
@@ -323,6 +405,8 @@ def _hessian_phase(objective, data: Dataset, w: torch.Tensor,
             except PhaseExhaustedError as e:
                 if cfg.fault_fallback == "raise":
                     raise
+                _telemetry(clock).metrics.counter(
+                    "newton.fault_fallbacks").inc()
                 # Every block is unbiased on its own, so any survivor
                 # subset is a thinner unbiased sketch: accept it when at
                 # least survivor_floor of num_blocks landed.  Below the
@@ -343,9 +427,21 @@ def _hessian_phase(objective, data: Dataset, w: torch.Tensor,
                             return None, None
                         survivors = torch.from_numpy(e2.mask)
         state = fam.sample(prng.fold_in(key, 7), n_rows, device=a.device)
+        tel = _telemetry(clock)
+        if tel.enabled:
+            # The path the sketch -> Gram dispatch takes for this family
+            # and d; the port's labels are "fused" and "unfused" only.
+            path = fam.fused_path(d) if cfg.use_kernels else "unfused"
+            tel.metrics.counter(f"kernel.path.{path}").inc()
         h_hat = fam.gram(state, a, survivors.to(a.device),
                          use_kernels=cfg.use_kernels)
         m_eff = float(survivors.sum()) * scfg.block_size
+        if tel.enabled:
+            tel.metrics.gauge("sketch.m_eff").set(m_eff)
+            tel.metrics.gauge("sketch.mp_debias").set(
+                max(0.0, 1.0 - d / m_eff) if m_eff > 0 else 0.0)
+            tel.metrics.histogram("sketch.survivors").observe(
+                float(survivors.sum()))
         return h_hat + objective.hess_reg * eye, m_eff
     # exact Hessian (the paper's "exact Newton" baseline)
     if clock is not None:
@@ -363,6 +459,7 @@ def _hessian_phase(objective, data: Dataset, w: torch.Tensor,
                 raise
             # The exact product is deterministic: the master's local
             # recompute stands in for the lost round.
+            _telemetry(clock).metrics.counter("newton.fault_fallbacks").inc()
     return a.T @ a + objective.hess_reg * eye, None
 
 
@@ -459,6 +556,7 @@ def _distavg_direction_phase(objective, data: Dataset, w: torch.Tensor,
             # The finite finishers stand in for the k-of-n survivors (each
             # block's direction is unbiased on its own); the caller's
             # descent guard backstops a round with no survivor.
+            _telemetry(clock).metrics.counter("newton.fault_fallbacks").inc()
             if e.mask.shape == (scfg.total_blocks,):
                 survivors = torch.from_numpy(e.mask)
     state = fam.sample(prng.fold_in(key, 7), n_rows, device=a.device)
@@ -482,9 +580,13 @@ def _check_config(cfg: NewtonConfig, d: int) -> None:
     if not 0.0 < cfg.survivor_floor <= 1.0:
         raise ValueError(
             f"survivor_floor must be in (0, 1], got {cfg.survivor_floor}")
-    if cfg.adaptive_sketch:
-        raise NotImplementedError(
-            "adaptive_sketch=True is not ported yet (ROADMAP Queue 1 item 7)")
+    if (cfg.adaptive_sketch and cfg.adaptive_metric == "mp"
+            and (cfg.sketch_mode != "blocks"
+                 or cfg.hessian_policy != "oversketch")):
+        raise ValueError(
+            "adaptive_metric='mp' needs the surviving sketch-row count, "
+            "which only the sketch_mode='blocks' + "
+            "hessian_policy='oversketch' path reports")
     if cfg.sketch_mode == "distributed-avg":
         if cfg.hessian_policy != "oversketch":
             raise ValueError(
@@ -496,25 +598,6 @@ def _check_config(cfg: NewtonConfig, d: int) -> None:
                 f"per-worker solves to be well-posed: block_size="
                 f"{cfg.sketch.block_size} <= d={d}")
     sketching.get(cfg.sketch_family, cfg.sketch)   # fail fast on bad family
-
-
-def _refuse_corruption(clock: Optional[straggler.SimClock]) -> None:
-    """The reference corrupts the coded products that a fault plan's
-    ``CorruptionSpec`` (or a replayed trace) flags and decodes around them
-    with parity checks; the port has no such path yet, so it refuses the
-    fleet rather than compute something else."""
-    if clock is None:
-        return
-    engine = clock.engine
-    planned = engine.faults is not None and engine.faults.corruption is not None
-    replayed = engine.replay is not None and any(
-        (row.get("faults") or {}).get("corrupted")
-        for row in engine.replay.rows)
-    if planned or replayed:
-        raise NotImplementedError(
-            "a fleet that corrupts coded products (a CorruptionSpec, or a "
-            "replayed trace with corrupted rows) needs corruption detection, "
-            "which is not ported yet (ROADMAP Queue 1 item 4)")
 
 
 def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
@@ -537,22 +620,37 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
         clock, model = model, model.model
     else:
         clock = straggler.SimClock(model) if model is not None else None
-    _refuse_corruption(clock)
     coded_gradient = cfg.gradient_policy != "exact" and model is not None
     engine = (CodedMatvecEngine(data, cfg.coded_block_rows, model,
                                 overlap_encode=cfg.overlap_encode,
-                                phase_memory=cfg.phase_memory)
+                                phase_memory=cfg.phase_memory,
+                                corruption_detection=cfg.corruption_detection)
               if coded_gradient else None)
 
     w = torch.as_tensor(w0, dtype=torch.float32).to(device)
     hist: Dict[str, List[float]] = {k: [] for k in (
         "iter", "fval", "gnorm", "step", "time", "cost", "test_error",
         "sketch_dim", "wall_s")}
-    tel = obs.NULL    # live telemetry is not ported yet
+    live_cfg = cfg
+    init_sketch_dim = cfg.sketch.sketch_dim   # the growth cap's baseline
+    prev_f = None
+    prev_decrease = None
+
+    tel = _telemetry(clock)
+    run_span = tel.trace.begin(
+        "newton", "run", clock.time if clock is not None else 0.0,
+        sketch_family=cfg.sketch_family, schedule=cfg.schedule,
+        sketch_mode=cfg.sketch_mode)
+    if tel.enabled and cfg.solver in ("cg", "minres"):
+        tel.metrics.gauge("newton.cg_iters").set(cfg.cg_iters)
 
     for t in range(cfg.iters):
+        cfg = live_cfg
         t_wall = time.perf_counter()
         key, kg, kh, kl = prng.split(key, 4)
+        it_span = tel.trace.begin(
+            f"iter{t}", "iteration",
+            clock.time if clock is not None else float(t))
         # One iteration = one phase DAG: gradient matvecs chain through
         # edges, the Hessian sketch is a root node, the line search joins
         # both.  The phase keys, hence masks and iterates, do not depend on
@@ -584,6 +682,7 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
                 grad_tail = dag.last
 
         # --- 2+3. sketched Hessian (Alg. 2) and direction -----------------
+        m_eff = None
         if cfg.sketch_mode == "distributed-avg":
             p, hg = _distavg_direction_phase(objective, data, w, g, cfg, kh,
                                              clock, dag=dag,
@@ -649,17 +748,69 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
                     raise
                 # Billed and lost: the trial values are the master's own
                 # arithmetic, so the chosen step stands.
+                tel.metrics.counter("newton.fault_fallbacks").inc()
 
         w = w + step * p
 
         hist["iter"].append(t)
-        hist["fval"].append(float(objective.value(w, data)))
+        f_now = float(objective.value(w, data))
+        hist["fval"].append(f_now)
         hist["gnorm"].append(float(torch.linalg.norm(
             objective.gradient(w, data))))
         hist["step"].append(float(step))
         hist["time"].append(clock.time if clock is not None else float(t + 1))
         hist["cost"].append(clock.dollars if clock is not None else 0.0)
-        hist["sketch_dim"].append(cfg.sketch.sketch_dim)
+        hist["sketch_dim"].append(live_cfg.sketch.sketch_dim)
+
+        if tel.enabled:
+            tel.metrics.gauge("newton.sketch_dim").set(
+                live_cfg.sketch.sketch_dim)
+            # Per-iteration seconds and dollars: the streams the health
+            # monitors watch for blowups.
+            many = len(hist["time"]) > 1
+            tel.metrics.gauge("newton.iter_seconds").set(
+                hist["time"][-1] - (hist["time"][-2] if many else 0.0))
+            tel.metrics.gauge("newton.iter_dollars").set(
+                hist["cost"][-1] - (hist["cost"][-2] if many else 0.0))
+            if cfg.solver in ("cg", "minres"):
+                tel.metrics.gauge("newton.cg_iters").set(cfg.cg_iters)
+            if dag is not None and dag.results:
+                rep = dag.critical_path()
+                tel.trace.set_attrs(
+                    it_span,
+                    critical_path=list(rep.critical_path),
+                    dag_makespan=rep.makespan,
+                    slack={n: ph.slack for n, ph in rep.phases.items()})
+        tel.trace.end(it_span,
+                      clock.time if clock is not None else float(t + 1))
+
+        # --- adaptive sketch growth (paper Thm 3.2 remark) ----------------
+        if cfg.adaptive_sketch:
+            if cfg.adaptive_metric == "mp":
+                # The measured MP factor of the surviving rows says the
+                # sketch is too biased to trust: a leading indicator,
+                # available from iteration 0.
+                stalled = m_eff is not None and sketching.mp_stalled(
+                    int(p.shape[0]), m_eff, cfg.adaptive_mp_target)
+            elif prev_f is not None:
+                decrease = prev_f - f_now
+                # An increase in f is always a stall; otherwise progress
+                # fell off against the last iteration's.
+                stalled = decrease < 0 or (
+                    prev_decrease is not None and prev_decrease > 0
+                    and decrease < cfg.adaptive_stall_ratio * prev_decrease)
+            else:
+                stalled = False
+            grown = live_cfg.sketch.sketch_dim // init_sketch_dim
+            if stalled and grown < cfg.adaptive_max_growth:
+                live_cfg = dataclasses.replace(
+                    live_cfg, sketch=dataclasses.replace(
+                        live_cfg.sketch,
+                        sketch_dim=live_cfg.sketch.sketch_dim * 2))
+                tel.metrics.counter("newton.adaptive_growth").inc()
+        if prev_f is not None:
+            prev_decrease = prev_f - f_now
+        prev_f = f_now
         if cfg.track_test_error and data.x_test is not None:
             hist["test_error"].append(
                 float(objective.error(w, data.x_test, data.y_test)))
@@ -668,4 +819,6 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
         # Host seconds of the iteration; the float() reads above wait for
         # the device, so this includes its work.
         hist["wall_s"].append(time.perf_counter() - t_wall)
+    tel.trace.end(run_span,
+                  clock.time if clock is not None else float(cfg.iters))
     return NewtonResult(w=w, history=hist)

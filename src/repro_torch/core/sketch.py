@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -86,6 +86,27 @@ def apply_sketch(cs: CountSketch, a: torch.Tensor) -> torch.Tensor:
     """All blocks: A (n, d) -> A_tilde (total_blocks, b, d), unscaled (the
     1/sqrt(N) of Eq. (4) is the survivor-count division of the Gram)."""
     return kref.count_sketch_apply(cs.h, cs.sigma, a, cs.block_size)
+
+
+def apply_sketch_chunked(cs: CountSketch,
+                         a_fn: Callable[[int], torch.Tensor],
+                         num_chunks: int, chunk_rows: int,
+                         d: int) -> torch.Tensor:
+    """Streaming S^T A for a tall A that should not be materialized:
+    ``a_fn(c)`` returns chunk c of A (``chunk_rows`` rows, global rows
+    ``c * chunk_rows`` on).  Plain, as ``apply_sketch`` is; the chunk's
+    columns of ``h`` and ``sigma`` are copied contiguous, and a start past
+    the end is clamped back as ``lax.dynamic_slice`` clamps it."""
+    n = cs.h.shape[1]
+    acc = torch.zeros((cs.total_blocks, cs.block_size, d),
+                      dtype=torch.float32, device=cs.h.device)
+    for c in range(num_chunks):
+        rows = a_fn(c)
+        start = min(max(c * chunk_rows, 0), n - chunk_rows)
+        h_c = cs.h[:, start:start + chunk_rows].contiguous()
+        s_c = cs.sigma[:, start:start + chunk_rows].contiguous()
+        acc = acc + kref.count_sketch_apply(h_c, s_c, rows, cs.block_size)
+    return acc
 
 
 def sketched_gram(a_tilde: torch.Tensor,

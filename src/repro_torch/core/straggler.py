@@ -128,8 +128,7 @@ class SimClock:
 
     @property
     def telemetry(self):
-        """The no-op ``obs.NULL``: live telemetry waits for ROADMAP Queue 1
-        item 10."""
+        """The attached ``obs.Telemetry`` (or the no-op ``obs.NULL``)."""
         return self.engine.telemetry
 
     @property

@@ -122,6 +122,11 @@ def giant(objective, data: Dataset, w0, cfg: GiantConfig,
         "wall_s")}
     w = torch.as_tensor(w0, dtype=torch.float32).to(device)
     tel = clock.telemetry if clock is not None else obs.NULL
+    run_span = tel.trace.begin(
+        "giant", "run", clock.time if clock is not None else 0.0,
+        policy=cfg.policy, workers=cfg.num_workers, schedule=cfg.schedule)
+    if tel.enabled:
+        tel.metrics.gauge("giant.cg_iters").set(cfg.cg_iters)
 
     grad_flops = 2.0 * per * d                    # local gradient pass
     # GIANT's local solves are CG / Hessian-free (Wang et al.): cg_iters
@@ -138,6 +143,9 @@ def giant(objective, data: Dataset, w0, cfg: GiantConfig,
     for t in range(cfg.iters):
         t_wall = time.perf_counter()
         key, k1, k2, k3 = prng.split(key, 4)
+        it_span = tel.trace.begin(
+            f"iter{t}", "iteration",
+            clock.time if clock is not None else float(t))
         dag = (scheduler.DagRun(clock)
                if cfg.schedule == "dag" and clock is not None else None)
 
@@ -224,6 +232,13 @@ def giant(objective, data: Dataset, w0, cfg: GiantConfig,
         hist["step"].append(float(step))
         hist["time"].append(clock.time if clock is not None else float(t + 1))
         hist["cost"].append(clock.dollars if clock is not None else 0.0)
+        if tel.enabled and dag is not None and dag.results:
+            rep = dag.critical_path()
+            tel.trace.set_attrs(it_span,
+                                critical_path=list(rep.critical_path),
+                                dag_makespan=rep.makespan)
+        tel.trace.end(it_span,
+                      clock.time if clock is not None else float(t + 1))
         if cfg.track_test_error and data.x_test is not None:
             hist["test_error"].append(
                 float(objective.error(w, data.x_test, data.y_test)))
@@ -233,4 +248,6 @@ def giant(objective, data: Dataset, w0, cfg: GiantConfig,
         # the device, so this includes its work.
         hist["wall_s"].append(time.perf_counter() - t_wall)
     hist["w"] = w
+    tel.trace.end(run_span,
+                  clock.time if clock is not None else float(cfg.iters))
     return hist

@@ -25,8 +25,11 @@ The fleet is host-side numpy, as in the reference: run durations come from
 coin flips from a numpy ``Generator`` seeded with the key's two uint32
 words, and injected faults from a second generator folded from the key and
 the plan's seed, so identical keys give identical ``(seconds, dollars)``
-and trace rows in both packages.  Live telemetry waits for ROADMAP Queue 1
-item 10 (``telemetry=`` raises); ``telemetry`` is the no-op ``obs.NULL``.
+and trace rows in both packages.  An attached ``obs.Telemetry`` receives
+one span per phase and per worker attempt and the fleet's metrics, as the
+reference emits them; it is pure observation (no draw, no clock read), so
+attaching it never changes ``(seconds, dollars)``.  The default is the
+no-op ``obs.NULL``.
 """
 from __future__ import annotations
 
@@ -76,9 +79,6 @@ class FleetEngine:
                  cost: Optional[CostModel] = None,
                  recorder=None, replay=None, pool=None, telemetry=None,
                  faults: Optional[FaultPlan] = None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "live telemetry is not ported yet (ROADMAP Queue 1 item 10)")
         self.model = model
         self.fleet = fleet if fleet is not None else FleetConfig()
         self.cost_model = cost if cost is not None else CostModel()
@@ -87,7 +87,8 @@ class FleetEngine:
         self.recorder = recorder     # runtime.TraceRecorder
         self.replay = replay         # runtime.TraceReplayer
         self.pool = pool             # scheduler.WarmPool (None: i.i.d. colds)
-        self.telemetry = obs.NULL
+        # obs.Telemetry or the no-op obs.NULL; observation only.
+        self.telemetry = telemetry if telemetry is not None else obs.NULL
         # Deterministic chaos injected into every phase; its draws come
         # from a generator of its own, never from the lifecycle stream.
         self.faults = faults
@@ -103,14 +104,20 @@ class FleetEngine:
 
     def charge(self, elapsed: float, phase_name: Optional[str] = None
                ) -> None:
-        """Add externally computed phase time (no workers billed).
-        ``phase_name`` labels the reference's telemetry span, unused here."""
+        """Add externally computed phase time (no workers billed);
+        ``phase_name`` labels its telemetry span."""
         if self.replay is not None:
             elapsed = self.replay.next_charge()
         elapsed = float(elapsed)
+        t0 = self.seconds
         self.seconds += elapsed
         if self.recorder is not None:
             self.recorder.record_charge(self._phase_idx, elapsed)
+        tel = self.telemetry
+        if tel.enabled:
+            tel.trace.emit(phase_name or f"charge{self._phase_idx}",
+                           "charge", t0, t0 + elapsed)
+            tel.metrics.counter("fleet.charges").inc()
         self._phase_idx += 1
 
     def _lifecycle(self, key: torch.Tensor, rng: np.random.Generator,
@@ -133,6 +140,11 @@ class FleetEngine:
         round_times: dict = {}
         stats = {"retries": 0, "warm": 0, "cold": 0,
                  "cold_delays": [], "exhausted": 0}   # type: dict
+        # Per-attempt records for the span tracer, kept only while
+        # telemetry is live (the trace recorder never reads this key).
+        events_out = [] if self.telemetry.enabled else None
+        if events_out is not None:
+            stats["events"] = events_out
         fstats = None
         if fp is not None:
             fstats = {"burst_kills": 0, "burst_exposed": 0, "throttled": 0,
@@ -245,6 +257,8 @@ class FleetEngine:
                     fstats["burst_kills"] += 1
                 else:
                     fstats["oom_kills"] += 1
+                if events_out is not None:
+                    events_out.append((w, attempt, t, t_cold, t_die, False))
                 if self.pool is not None:
                     # A function error does not tear the container down.
                     self.pool.release(t0 + t_die)
@@ -282,6 +296,8 @@ class FleetEngine:
                     else (t, end, float(mem_scale[w])))
                 successes += 1
                 done[w] = end
+                if events_out is not None:
+                    events_out.append((w, attempt, t, t_cold, end, True))
                 if self.pool is not None:
                     self.pool.release(t0 + end)
                 if th is not None:
@@ -289,6 +305,122 @@ class FleetEngine:
                     fstats["peak_concurrency"] = max(
                         fstats["peak_concurrency"], len(running))
         return done, attempts, successes, stats
+
+    def _phase_telemetry(self, name: str, deps: Tuple[str, ...], start: float,
+                         elapsed: float, policy: str, num_workers: int,
+                         k: Optional[int], entry: CostLedger,
+                         stats: Optional[dict],
+                         extra_attempts: Optional[list], *,
+                         cost_model: Optional[CostModel] = None,
+                         replayed: bool = False,
+                         corrupted=None) -> None:
+        """Emit one phase's span tree + metrics.  Pure observation of
+        already-computed values — no RNG, no clock movement."""
+        tel = self.telemetry
+        dollars = entry.dollars(cost_model if cost_model is not None
+                                else self.cost_model)
+        attrs = {"policy": policy, "workers": int(num_workers),
+                 "deps": list(deps), "gb_seconds": entry.gb_seconds,
+                 "dollars": dollars}
+        if k is not None:
+            attrs["k"] = int(k)
+        if replayed:
+            attrs["replayed"] = True
+        # Per-phase injected-fault signature: the nonzero fault counters
+        # of THIS phase, attached to its span so the incident engine
+        # (obs.incident) can correlate an alert window with what
+        # the chaos plane actually did there.  Plan-less runs never have
+        # a "faults" stats dict, so healthy spans (and the committed
+        # golden Perfetto fixture) are unchanged.
+        injected = {kk: int(v)
+                    for kk, v in sorted(((stats or {}).get("faults")
+                                         or {}).items())
+                    if kk not in ("throttle_waits", "burst_exposed",
+                                  "peak_concurrency") and v}
+        if corrupted is not None and bool(corrupted.any()):
+            injected["corrupted_workers"] = int(corrupted.sum())
+        if injected:
+            attrs["faults"] = injected
+        if stats is not None and stats.get("exhausted"):
+            attrs["exhausted"] = int(stats["exhausted"])
+        pid = tel.trace.emit(name, "phase", start, start + elapsed, **attrs)
+
+        m = tel.metrics
+        m.counter("fleet.phases").inc()
+        m.histogram("phase.elapsed_s").observe(elapsed)
+        m.histogram("phase.gb_seconds").observe(entry.gb_seconds)
+        m.histogram("phase.dollars").observe(dollars)
+        if stats is None:
+            return
+
+        # Per-phase straggler-tail quantile: the p95 of this round's
+        # successful completion offsets, one sample per phase — the
+        # health monitors' spike stream (per-worker samples feed the
+        # drift CUSUM below; both are derived from already-computed
+        # lifecycle events, so this stays observation-only).
+        completions = sorted(t_end for (_, _, _, _, t_end, ok)
+                             in stats.get("events", ()) if ok)
+        if completions:
+            rank = min(len(completions) - 1,
+                       int(round(0.95 * (len(completions) - 1))))
+            m.histogram("phase.tail_p95_s").observe(completions[rank])
+
+        # Per-worker lifecycle slices: cold start, then the running slice
+        # ("run" | "retry" on later attempts | "failed" when it died).
+        for (w, attempt, t, t_cold, t_end, ok) in stats.get("events", ()):
+            track = f"{name}/w{w}"
+            if t_cold > 0.0:
+                tel.trace.emit("cold", "attempt", start + t,
+                               start + t + t_cold, parent=pid, track=track)
+            slice_name = ("failed" if not ok
+                          else "run" if attempt == 0 else "retry")
+            tel.trace.emit(slice_name, "attempt", start + t + t_cold,
+                           start + t_end, parent=pid, track=track,
+                           attempt=attempt)
+            if ok:
+                # Completion time relative to phase launch: the Fig. 1
+                # straggler-tail distribution, as percentiles.
+                m.histogram("worker.completion_s").observe(t_end)
+        # Policy relaunches (speculative / hedged duplicates).
+        for i, (t_l, t_e) in enumerate(extra_attempts or ()):
+            if math.isfinite(t_e):
+                tel.trace.emit("relaunch", "attempt", start + t_l,
+                               start + t_e, parent=pid,
+                               track=f"{name}/spec{i}")
+        m.counter("fleet.attempts").inc(len(stats.get("events", ()))
+                                        or num_workers)
+        m.counter("fleet.relaunches").inc(len(extra_attempts or ()))
+        m.counter("fleet.retries").inc(stats["retries"])
+        m.counter("fleet.cold_starts").inc(stats["cold"])
+        m.counter("fleet.warm_hits").inc(stats["warm"])
+        for kind, v in (stats.get("faults") or {}).items():
+            # One counter per injected-event kind; healthy (plan-less)
+            # runs emit nothing here, so existing metric streams and the
+            # default health rules are untouched.
+            if kind == "peak_concurrency" and v:
+                m.gauge("fault.peak_concurrency").set(int(v))
+            elif kind != "throttle_waits" and v:
+                m.counter(f"fault.{kind}").inc(int(v))
+        if stats.get("exhausted"):
+            m.counter("fault.exhausted_workers").inc(stats["exhausted"])
+        for d in stats["cold_delays"]:
+            m.histogram("worker.cold_delay_s").observe(d)
+        if self.pool is not None:
+            m.gauge("pool.free").set(self.pool.free_at(self.seconds))
+            m.gauge("pool.warm_hits_total").set(self.pool.warm_hits)
+            m.gauge("pool.cold_starts_total").set(self.pool.cold_starts)
+            m.gauge("pool.killed_total").set(self.pool.killed)
+            served = stats["warm"] + stats["cold"]
+            if served:
+                # Per-phase hit rate — the spiky stream the health
+                # monitors' pool-collapse detector watches.
+                m.gauge("pool.phase_hit_rate").set(stats["warm"] / served)
+            total = self.pool.warm_hits + self.pool.cold_starts
+            if total:
+                # True cumulative rate from the pool's own counters —
+                # under a shared pool a tenant's phase ratio conflates
+                # its neighbours' churn; this one does not.
+                m.gauge("pool.hit_rate").set(self.pool.warm_hits / total)
 
     def run_phase(self, key: torch.Tensor, num_workers: int, *,
                   work_per_worker: float = 1.0,
@@ -311,21 +443,33 @@ class FleetEngine:
         elapsed)``.  ``memory_gb`` bills this phase at its own Lambda size.
         ``working_set_gb`` is the phase's true per-worker working set: an
         attached ``OomSpec`` kills attempts sized below it.  ``phase_name``
-        names the phase in a ``PhaseExhaustedError``; ``phase_deps`` feeds
-        the reference's telemetry and is accepted unused."""
+        names the phase's span and a ``PhaseExhaustedError``;
+        ``phase_deps`` records the span's dependency edges.  Neither reaches
+        the trace recorder or any number."""
+        tel = self.telemetry
         if self.replay is not None:
             elapsed, mask, entry, advance, row = self.replay.next_phase(
                 policy=policy, num_workers=num_workers)
-            self.seconds += advance
+            t_end = self.seconds + advance
+            self.seconds = t_end
             self.ledger.add(entry)
             corrupted_hex = (row.get("faults") or {}).get("corrupted")
             self.last_corruption = (
                 None if corrupted_hex is None
                 else _trace._mask_from_hex(corrupted_hex, num_workers))
+            if tel.enabled:
+                # An overlapped recorded phase (advance < elapsed) started
+                # before the pre-phase clock; recover its true interval.
+                self._phase_telemetry(
+                    phase_name or f"phase{self._phase_idx}", phase_deps,
+                    t_end - elapsed, elapsed, policy, num_workers, k,
+                    entry, None, None, replayed=True)
             self._phase_idx += 1
             if row.get("raised"):
                 # The recording exhausted here; re-raise so the replayed
                 # algorithm takes the same degradation path.
+                if tel.enabled:
+                    tel.metrics.counter("fleet.exhausted_phases").inc()
                 raise PhaseExhaustedError(
                     phase_name or self._phase_idx - 1, num_workers,
                     mask, elapsed)
@@ -454,6 +598,14 @@ class FleetEngine:
             corrupted = (np.isfinite(done) & (abs_done >= c.t_start)
                          & (abs_done < c.t_end) & (u < c.prob))
         self.last_corruption = corrupted
+        if tel.enabled:
+            self._phase_telemetry(
+                phase_name or f"phase{self._phase_idx}", phase_deps, t0,
+                elapsed, policy, num_workers, k, entry, stats,
+                extra_attempts, cost_model=cost_model,
+                corrupted=corrupted)
+            if raised:
+                tel.metrics.counter("fleet.exhausted_phases").inc()
         if self.recorder is not None:
             # free_at, not len(): lazy TTL expiry means the raw pool still
             # holds containers no launch at the current clock could use.

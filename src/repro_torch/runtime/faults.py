@@ -19,8 +19,8 @@ composes onto ``FleetEngine.run_phase`` deterministically:
     seeded ``fraction`` of the warm pool's idle containers is culled.
   - ``CorruptionSpec`` - a completed worker's result is silently wrong with
     probability ``prob`` inside the window; the engine only marks it
-    (``last_corruption``).  The port's Newton loop refuses such a plan
-    until corruption detection is ported (ROADMAP Queue 1 item 4).
+    (``last_corruption``); the Newton loop's coded mat-vecs rebuild what
+    the master received and decode around it by parity checks.
 
 A ``FaultPlan`` bundles any subset plus a ``seed``.  All fault randomness
 comes from a generator folded from the phase key and that seed, so a run
@@ -144,8 +144,8 @@ class FaultPlan:
     def events(self) -> list:
         """Declared fault windows as typed, JSON-ready dicts.
 
-        The reference's incident engine reads these as ground truth
-        (``obs.incident``, ROADMAP Queue 1 item 10): each dict names the cause the window
+        The incident engine reads these as ground truth
+        (``obs.incident``): each dict names the cause the window
         would produce, its ``[t_start, t_end)`` extent in absolute
         simulated seconds (``t_end: None`` for an open window — OOM and
         pool death have effects that persist to the end of the run), and

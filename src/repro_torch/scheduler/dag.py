@@ -12,10 +12,9 @@ sketch) overlap on the simulated timeline.  A phase whose launch time
 equals the current clock takes the engine's sequential path, so a DAG that
 serializes every phase reproduces the sequential schedule bit for bit.
 ``run_dag`` validates a declared DAG and dispatches it in the canonical
-order (``spec.canonical_order``).
-
-The reference's ``critical_path`` methods (``DagRun`` and ``DagResult``)
-read its ``obs`` package and wait for ROADMAP Queue 1 item 10.
+order (``spec.canonical_order``).  ``critical_path()`` on either result
+reports the makespan-binding chain and each phase's slack
+(``obs.from_dag``).
 """
 from __future__ import annotations
 
@@ -50,6 +49,12 @@ class DagResult:
 
     def finish(self, name: str) -> float:
         return self.results[name].finish
+
+    def critical_path(self):
+        """Makespan-binding chain and per-phase slack of this dispatched
+        DAG (an ``obs.CriticalPathReport``)."""
+        from repro_torch import obs
+        return obs.from_dag(self)
 
 
 class DagRun:
@@ -111,6 +116,12 @@ class DagRun:
         if not self.results:
             return 0.0
         return max(r.finish for r in self.results.values()) - self.start
+
+    def critical_path(self):
+        """Critical path and slack over the phases dispatched so far (an
+        ``obs.CriticalPathReport``)."""
+        from repro_torch import obs
+        return obs.from_dag(self)
 
 
 def run_dag(clock, key: torch.Tensor, specs: Sequence[PhaseSpec], *,

@@ -514,7 +514,9 @@ def test_coded_block_matvec_misaligned_enc(cuda, offset):
 
 
 @pytest.mark.parametrize("shape", [(0,), (1,), (1000,), (3, 4097),
-                                   (1 << 20) + 3])
+                                   (1 << 20) + 3,
+                                   # the corruption noise at both encodes
+                                   (36, 36, 256), (5, 5, 256)])
 def test_normal_kernel_is_the_plain_version_bit_for_bit(cuda, shape):
     key = prng.fold_in(prng.PRNGKey(5), 3)
     got = ops.normal(key, shape, cuda)
@@ -799,3 +801,119 @@ def test_optimizer_on_the_card_matches_its_cpu_history(cuda, name,
         assert card[k] == cpu[k], k
     for k in ("fval", "gnorm"):
         np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4, atol=1e-6)
+
+
+def _corruption_engine(device, rows=1200, d=20, block_rows=64):
+    from repro_torch.core import StragglerModel
+    from repro_torch.core.newton import CodedMatvecEngine
+    from repro_torch.data import make_logistic_dataset
+    data = make_logistic_dataset(prng.PRNGKey(0), rows, d, 10, device=device)
+    return CodedMatvecEngine(data, block_rows, StragglerModel())
+
+
+@pytest.mark.parametrize("detection", [True, False])
+@pytest.mark.parametrize("tag", ["X", "XT"])
+def test_corrupted_decode_on_the_card_matches_the_cpu(cuda, tag, detection):
+    """The master's rebuild of what it received (clean products, seeded
+    noise at the corrupted cells: the normal kernel on the card) and its
+    verified or blind decode: the same flags, verdict and latch as the
+    CPU's, y within REL_TOL."""
+    out = {}
+    for device in (cuda, "cpu"):
+        eng = _corruption_engine(device)
+        eng.corruption_detection = detection
+        code = eng.code_for(tag)
+        g1 = code.grid + 1
+        rng = np.random.default_rng(g1)
+        arrived = rng.random(g1 * g1) < 0.9
+        corrupt = arrived & (rng.random(g1 * g1) < 0.1)
+        v = torch.randn(eng.enc_x.shape[-1] if tag == "X"
+                        else eng.enc_xt.shape[-1],
+                        generator=torch.Generator().manual_seed(1)).to(device)
+        y, ok = eng._corrupted_decode(tag, v, prng.PRNGKey(9), None, corrupt,
+                                      arrived)
+        out[str(device)] = (y.cpu(), bool(ok), eng.paranoid)
+    (yc, okc, pc), (yp, okp, pp) = out[str(cuda)], out["cpu"]
+    assert (okc, pc) == (okp, pp)
+    assert _rel_err(yc, yp) < REL_TOL
+
+
+def test_parity_margin_on_the_card(cuda):
+    """Clean lines' relative residual sits far under the detector's 1e-3."""
+    from repro_torch.core import coded
+    from repro_torch.kernels.coded_matvec import parity_residuals
+    eng = _corruption_engine(cuda, rows=20_000, d=300)
+    v = torch.randn(300, generator=torch.Generator().manual_seed(2)).to(cuda)
+    prods = coded.coded_block_products(eng.enc_x, v)
+    known = torch.ones(prods.shape[:2], dtype=torch.bool, device=cuda)
+    rr, rm, cr, cm = parity_residuals(prods, known)
+    assert float(torch.max(torch.cat([rr / rm, cr / cm]))) < 1e-5
+    assert not coded.detect_corrupted(prods, known, eng.code_x).any()
+
+
+@pytest.mark.parametrize("mode", ["corruption", "blind", "adaptive_mp",
+                                  "adaptive_stall", "telemetry"])
+def test_newton_modes_on_the_card_match_the_cpu(cuda, mode):
+    """Corruption (detection on and off), adaptive growth and live
+    telemetry at the CPU parity tests' size (n = 1,000, d = 20): the
+    card's run against the CPU's, both through the kernel entry points
+    (the plain versions on the CPU).  Time, cost, steps, sketch_dim and
+    every telemetry row equal; fval within rtol 1e-4."""
+    from repro_torch import obs
+    from repro_torch.core import (LogisticRegression, NewtonConfig,
+                                  OverSketchConfig, SimClock, StragglerModel,
+                                  oversketched_newton)
+    from repro_torch.data import make_logistic_dataset
+    from repro_torch.runtime import get_scenario
+    data = make_logistic_dataset(prng.PRNGKey(0), 1000, 20, 200,
+                                 device="cpu")
+    cfg = dict(iters=4, sketch=OverSketchConfig(512, 64, 0.25),
+               coded_block_rows=64, use_kernels=True)
+    if mode == "blind":
+        cfg["corruption_detection"] = False
+    if mode == "adaptive_mp":
+        cfg.update(sketch=OverSketchConfig(64, 16, 0.25),
+                   adaptive_sketch=True, adaptive_metric="mp")
+    if mode == "adaptive_stall":
+        cfg["adaptive_sketch"] = True
+
+    def run(device):
+        tel = obs.Telemetry(monitors=True) if mode == "telemetry" else None
+        faults = (get_scenario("corruption", prob=0.3)
+                  if mode in ("corruption", "blind") else None)
+        clock = SimClock(StragglerModel(), faults=faults, telemetry=tel)
+        res = oversketched_newton(LogisticRegression(lam=1e-4), data,
+                                  np.zeros(20, np.float32),
+                                  NewtonConfig(**cfg), clock, device=device)
+        return res.history, tel
+    (card, ctel), (plain, ptel) = run(cuda), run("cpu")
+    for k in ("step", "time", "cost", "sketch_dim"):
+        assert card[k] == plain[k], k
+    np.testing.assert_allclose(card["fval"], plain["fval"], rtol=1e-4,
+                               atol=1e-6)
+    if mode == "adaptive_mp":
+        assert card["sketch_dim"][-1] > card["sketch_dim"][0]
+    if ctel is not None:
+        assert obs.telemetry_rows(ctel) == obs.telemetry_rows(ptel)
+
+
+def test_ops_profiler_on_cuda_tensors(cuda):
+    from repro_torch import obs
+    g = torch.Generator().manual_seed(4)
+    enc = torch.randn(9, 16, 700, generator=g).to(cuda)
+    x = torch.randn(700, generator=g).to(cuda)
+    erased = torch.zeros(9, dtype=torch.bool, device=cuda)
+    reg = obs.MetricsRegistry()
+    ops.reset_launch_counts()
+    ops.set_profiler(reg)
+    try:
+        got = ops.coded_block_matvec(enc, x, erased)
+        ops.fwht(torch.randn(1, 1024, 8, generator=g).to(cuda))
+    finally:
+        ops.set_profiler(None)
+    snap = reg.snapshot()
+    assert snap["counters"] == {"kernel.coded_block_matvec.calls": 1.0,
+                                "kernel.fwht.calls": 1.0}
+    assert snap["histograms"]["kernel.coded_block_matvec.us"]["max"] > 0
+    assert ops.launch_counts()["coded_block_matvec"] == 1
+    assert torch.equal(got, ops.coded_block_matvec(enc, x, erased))

@@ -5,9 +5,9 @@ non-telemetry cases on the three committed fixtures), the warm pool and
 the DAG helpers (``tests/test_scheduler.py``), the straggler helpers
 (``tests/test_straggler.py``), and the Newton loop and GIANT under fault
 plans.  Simulated seconds, dollars, masks and trace rows are held bit for
-bit.  Corruption detection (ROADMAP Queue 1 item 4) and the monitor and
-alert cases (item 10) are not ported; the port's Newton loop refuses a
-corruption plan."""
+bit.  Corruption detection has its own file
+(``tests/test_torch_corruption.py``), the monitors and alerts theirs
+(``tests/test_torch_obs.py``)."""
 import dataclasses
 import json
 import pathlib
@@ -322,11 +322,12 @@ def assert_same_newton(rj, rt):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("scen", ["az_burst", "oom", "pool_death",
-                                  "s3_transient", "throttle"])
+@pytest.mark.parametrize("scen", ["az_burst", "corruption", "oom",
+                                  "pool_death", "s3_transient", "throttle"])
 def test_newton_under_every_scenario_matches_reference(small_problem, scen):
     """test_newton_converges_under_every_scenario's fleet (a real retry
-    budget and a warm pool), every scenario but corruption."""
+    budget and a warm pool), every scenario (corruption with the
+    parity-check detection on, the default)."""
     (rj, jc), (rt, tc) = both(lambda p: newton_solve(
         p, small_problem, p.rt.get_scenario(scen),
         fleet=p.rt.FleetConfig(cold_start_prob=0.1, fail_open=False,
@@ -348,18 +349,6 @@ def test_strict_and_degraded_newton_match_reference(small_problem):
         fleet=p.rt.FleetConfig(fail_open=False, max_retries=1)))
     assert_same_newton(rj, rt)
     assert_same_clock(jc, tc)
-
-
-def test_newton_refuses_corruption(small_problem):
-    """Corrupted coded products need the parity-check detection of ROADMAP
-    Queue 1 item 4: a corruption plan, or the replay of a trace whose rows
-    carry corruption, is refused, never run as if clean."""
-    with pytest.raises(NotImplementedError, match="item 4"):
-        newton_solve(T, small_problem, trt.get_scenario("corruption"))
-    _, rows = load_fixture("chaos_trace_golden.jsonl")
-    assert any((r.get("faults") or {}).get("corrupted") for r in rows)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        newton_solve(T, small_problem, replay=trt.TraceReplayer(rows))
 
 
 @pytest.mark.parametrize("schedule", ["dag", "sequential"])

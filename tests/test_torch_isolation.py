@@ -33,7 +33,10 @@ def test_port_imports_neither_jax_nor_repro():
                  "optim.gradient_coding", "optim.exact_newton",
                  "optim.first_order", "optim.giant", "runtime.faults",
                  "runtime.trace", "runtime.engine", "scheduler.pool",
-                 "scheduler.dag", "scheduler.spec"):
+                 "scheduler.dag", "scheduler.spec", "core.coded", "obs",
+                 "obs.span", "obs.metrics", "obs.critical_path",
+                 "obs.health", "obs.slo", "obs.perfetto", "obs.export",
+                 "obs.incident", "obs.store", "obs.diff", "obs.console"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"

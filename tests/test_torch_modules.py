@@ -475,16 +475,16 @@ def test_exhausted_phase_raises_like_the_reference():
     np.testing.assert_array_equal(teng.dollars, jeng.dollars)
 
 
-def test_unported_fleet_options_raise():
-    """Live telemetry is the one fleet option left unported (ROADMAP Queue
-    1 item 10); record, replay, the warm pool and fault plans are ported
-    (``tests/test_torch_fleet.py``) and accepted."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tstraggler.SimClock(tstraggler.StragglerModel(), telemetry=object())
+def test_fleet_options_are_accepted():
+    """Record, replay, the warm pool, fault plans and live telemetry reach
+    the engine as given (``tests/test_torch_fleet.py`` and
+    ``tests/test_torch_obs.py`` hold their behaviour)."""
+    from repro_torch import obs
     from repro_torch.runtime import FaultPlan, TraceRecorder, TraceReplayer
     from repro_torch.scheduler import WarmPool
     for kw in ({"recorder": TraceRecorder()}, {"replay": TraceReplayer([])},
-               {"pool": WarmPool()}, {"faults": FaultPlan()}):
+               {"pool": WarmPool()}, {"faults": FaultPlan()},
+               {"telemetry": obs.Telemetry()}):
         clock = tstraggler.SimClock(tstraggler.StragglerModel(), **kw)
         (name, value), = kw.items()
         assert getattr(clock.engine, name) is value

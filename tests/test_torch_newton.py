@@ -174,16 +174,6 @@ def test_distributed_avg_refuses_a_block_not_past_d(data):
                          sketch=TSketch(80, 16, 0.25)), device="cpu")
 
 
-@pytest.mark.parametrize("overrides,what", [
-    (dict(adaptive_sketch=True), "adaptive_sketch"),
-])
-def test_unported_modes_are_refused(data, overrides, what):
-    with pytest.raises(NotImplementedError, match=what):
-        t_newton(TLogistic(), convert.dataset(*data[1], device="cpu"),
-                 np.zeros(D, np.float32), TConfig(iters=1, **overrides),
-                 device="cpu")
-
-
 def test_exhausted_fleet_is_refused_not_degraded(data):
     """An exhausted phase degrades as the reference degrades (the name is
     from when the port refused): the same history on the same failing
