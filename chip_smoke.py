@@ -13,7 +13,8 @@ with its seconds:
   kernels  each CUDA kernel against its plain PyTorch version at its
            path's own inputs (A = hess_sqrt(w0) and the first iteration's
            draw of the path's sketch family: b = 256 and 30 of 150 blocks
-           masked for the blocks paths, the masked Gram at the nystrom
+           masked for the blocks paths, the fused Gram also at fig6_paper's
+           sketch (30 of 148 blocks masked), the masked Gram at the nystrom
            family's A_tilde, b = 4,096 and K = 10 for distributed-avg,
            whose SJLT apply is the count-sketch kernel with s = 4 layers,
            one signed, padded (2^19, 3,000) block for the FWHT, the coded
@@ -85,6 +86,21 @@ with its seconds:
            the Perfetto export validated, spans and alerts counted, wall ms
            beside each other; then one iteration under the kernel profiler
            (kernels.ops.set_profiler), each kernel.<op>.us
+  fig6_paper
+           the paper's fig. 6 through the port's bench body
+           (repro_torch.benchmarks.fig6_logistic_synthetic._fig6) at the
+           synthetic profile's n = 300,000 and d = 3,000 (fig. 6's
+           generator, 1,000 test rows), with the reference bench's full
+           counts: OSN and exact Newton 12 iterations, GIANT under each
+           policy 18; the six rows, each run's wall seconds an iteration,
+           peak device memory and launches (OSN: the fused Gram once, the
+           coded mat-vec and the draw kernel twice an iteration; exact
+           Newton the coded mat-vec twice; GIANT none), on a card that
+           holds none of the earlier phases' tensors
+  tenancy  the tenancy bench's autoscaled shared-pool cell at its quick
+           size (1,000 jobs at 60 a second) and the committed golden
+           two-tenant trace replayed through the port's JobScheduler,
+           seconds and dollars bit for bit (host only)
   softmax_data, softmax_kernels, softmax
            softmax regression at the emnist profile's widths (d = 784,
            K = 10, 40,000 test rows) with n cut from 240,000 to 180,000 to
@@ -412,6 +428,30 @@ def check_kernels(ops, ref, h, sigma, a, mask, b) -> dict:
     out["sketch_gram_count"] = row
     return out
 
+
+def drop_mask(k: int, masked: int, dev):
+    """A mask over k blocks with ``masked`` of them, chosen from SEED,
+    dropped."""
+    import numpy as np
+    import torch
+    drop = np.random.default_rng(SEED).choice(k, masked, replace=False)
+    mask = torch.ones(k, dtype=torch.bool)
+    mask[torch.from_numpy(drop)] = False
+    return mask.to(dev)
+
+
+def check_gram_at(ops, ref, state, a, b, masked: int, label: str) -> dict:
+    """sketch_gram_count against its plain version on another path's draw
+    of the count sketch, ``masked`` of its blocks dropped."""
+    k = state.h.shape[0]
+    mask = drop_mask(k, masked, a.device)
+    got = ops.sketch_gram_count(state.h, state.sigma, a, b, mask)
+    row = compare(f"sketch_gram_count {label}", got,
+                  ref.sketch_gram_count(state.h, state.sigma, a, b, mask))
+    row["ms"] = cuda_ms(
+        lambda: ops.sketch_gram_count(state.h, state.sigma, a, b, mask), 3)
+    row.update(K=k, masked=masked)
+    return row
 
 def sjlt_matrix(h, sigma, live, b: int, n: int):
     """The live blocks' SJLT sketches as one sparse (live*b, n) matrix, s
@@ -1911,6 +1951,128 @@ def run_modes(core, ops, obs, prng, objective, data, w0, scfg, b: int,
     return paths
 
 
+# Fig. 6 at the synthetic profile's width: the reference bench's "full"
+# iteration counts (benchmarks/fig6_logistic_synthetic.py), OSN and exact
+# Newton 12, GIANT under each policy 18.
+FIG6_ITERS = 12
+FIG6_GIANT_ITERS = 18
+
+
+def run_fig6_paper(ops, data_mod, prng, fig6, dev) -> tuple:
+    """The paper's fig. 6 comparison at the synthetic profile's n and d
+    through the port's fig. 6 body, kernels on: each run's launch counts
+    set to 0 just before it and read just after (OSN: the fused Gram once,
+    the coded mat-vec twice and the draw kernel twice an iteration; exact
+    Newton the coded mat-vec twice; GIANT none), its iterations' wall
+    seconds and its peak device memory.  Checks that every value is finite
+    and that each run ends below f(w0).  Returns the phase's row and the
+    summed launch counts."""
+    import torch
+    t0 = time.perf_counter()
+    data = data_mod.make_logistic_dataset(
+        prng.PRNGKey(0), 300_000, 3_000, n_test=1_000, cond=10.0,
+        sorted_layout=True, device=dev)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    f0 = fig6.LogisticRegression(lam=1e-5).value(
+        torch.zeros(data.x.shape[1], device=dev), data).item()
+    expect = {"osn": {"sketch_gram_count": FIG6_ITERS,
+                      "coded_block_matvec": 2 * FIG6_ITERS,
+                      "draw": 2 * FIG6_ITERS},
+              "exact_newton_spec": {"coded_block_matvec": 2 * FIG6_ITERS}}
+    runs, total = {}, {name: 0 for name in ops.KERNELS}
+
+    def observe(name, run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        hist = run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        runs[name] = {
+            "iters": len(hist["fval"]),
+            "wall_s_per_iter": hist["wall_s"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {k: v for k, v in launches.items() if v},
+            "sim_seconds": hist["time"][-1], "sim_dollars": hist["cost"][-1],
+            "f": hist["fval"][-1], "gnorm": hist["gnorm"][-1],
+            "seconds": time.perf_counter() - t1}
+        for k, v in launches.items():
+            total[k] += v
+            if v != expect.get(name, {}).get(k, 0):
+                raise AssertionError(f"fig6_paper {name}: {k} launched {v} "
+                                     "times, expected "
+                                     f"{expect.get(name, {}).get(k, 0)}")
+        finite = all(math.isfinite(v) for k in ("fval", "gnorm", "time",
+                                                "cost") for v in hist[k])
+        if not finite or not hist["fval"][-1] < f0:
+            raise AssertionError(f"fig6_paper {name}: f {f0} -> "
+                                 f"{hist['fval']}, finite {finite}")
+        torch.cuda.empty_cache()
+        return hist
+
+    rows = fig6._fig6(data, FIG6_ITERS, FIG6_GIANT_ITERS,
+                      observe=observe)
+    if [r["name"] for r in rows] != [f"fig6_{n}" for n in fig6.RUNS] + [
+            "fig6_speedup_osn_vs_exact"] or not all(
+                math.isfinite(r["us"]) for r in rows):
+        raise AssertionError(f"fig6_paper: rows {rows}")
+    n, d = data.x.shape
+    del data
+    torch.cuda.empty_cache()
+    return ({"phase": "fig6_paper", "n": n, "d": d, "data_s": data_s,
+             "f0": f0, "rows": rows, "runs": runs,
+             "seconds": time.perf_counter() - t0}, total)
+
+
+def run_tenancy() -> dict:
+    """The multi-tenant scheduler on the host: tenancy_bench's autoscaled
+    shared-pool cell at its quick size (1,000 jobs at 60 a second), then
+    the committed two-tenant golden trace replayed through JobScheduler,
+    its seconds and dollars bit for bit the sums of the recorded rows."""
+    from repro_torch import prng, tenancy
+    from repro_torch.benchmarks import tenancy_bench as tb
+    from repro_torch.core.straggler import SimClock, StragglerModel
+    from repro_torch.runtime import CostLedger, CostModel, TraceReplayer
+    from repro_torch.scheduler import WarmPool
+    t0 = time.perf_counter()
+    jobs = tenancy.generate_workload(tenancy.WorkloadConfig(
+        seed=tb.SEED, rate=60.0, n_jobs=1_000))
+    pool = WarmPool(ttl=tb.POOL_TTL, prewarmed=0)
+    res = tb._drive(jobs, pool=pool, config=tenancy.TenancyConfig(
+        admission=tb.OPEN, pool_aware=True,
+        autoscaler=tenancy.Autoscaler(max_provisioned=400)))
+    host_s = time.perf_counter() - t0
+    row = tb._row("tenancy_autoscale", host_s, res, pool=pool)
+    summary = res.summary()
+    if summary["completed"] != 1_000 or not summary["provisioned_gb_seconds"]:
+        raise AssertionError(f"tenancy: {summary}")
+    fixture = ROOT / "tests" / "fixtures" / "tenancy_trace_golden.jsonl"
+    rows = [json.loads(line) for line in fixture.read_text().splitlines()
+            if line.strip()][1:]
+    seconds, ledger = 0.0, CostLedger()
+    for r in rows:
+        seconds += r.get("advance", r["elapsed"])
+        ledger.add(CostLedger(gb_seconds=r["gb_seconds"],
+                              invocations=r["invocations"],
+                              s3_puts=r["s3_puts"], s3_gets=r["s3_gets"]))
+    clock = SimClock(StragglerModel(), replay=TraceReplayer(rows))
+    tenancy.JobScheduler(clock, prng.PRNGKey(99), tenancy.workload_from_trace(
+        [(0.0, "matvec"), (0.1, "giant")]), tenancy.TenancyConfig()).run()
+    exact = (clock.time == seconds
+             and clock.dollars == ledger.dollars(CostModel()))
+    if not exact:
+        raise AssertionError(f"tenancy golden replay: {clock.time} s, "
+                             f"{clock.dollars} $ against {seconds} s, "
+                             f"{ledger.dollars(CostModel())} $")
+    return {"phase": "tenancy", "row": row, "summary": summary,
+            "host_s": host_s, "golden_replay": {
+                "phases": len(rows), "seconds": clock.time,
+                "dollars": clock.dollars, "bit_for_bit": exact},
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1922,7 +2084,6 @@ def main() -> int:
               "from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    import numpy as np
     from repro_torch import core, optim, prng, sketching
     from repro_torch import data as data_mod
     from repro_torch.configs import PROFILES, WORKER_SETUP
@@ -1972,14 +2133,16 @@ def main() -> int:
     _, _, kh, _ = prng.split(prng.PRNGKey(SEED), 4)
     draw = prng.fold_in(kh, 7)
     state = sketching.get("oversketch", scfg).sample(draw, n, device=dev)
-    drop = np.random.default_rng(SEED).choice(scfg.total_blocks, 30,
-                                              replace=False)
-    mask = torch.ones(scfg.total_blocks, dtype=torch.bool)
-    mask[torch.from_numpy(drop)] = False
-    mask = mask.to(dev)
+    mask = drop_mask(scfg.total_blocks, 30, dev)
     ops.reset_launch_counts()
     rows = check_kernels(ops, ref, state.h, state.sigma, a, mask, b)
     del state
+    # The fig6_paper phase's sketch: fig. 6's rule, ((10 d) // 256 + 1)
+    # 256 rows (K = 148 at d = 3,000).
+    fig6_cfg = core.OverSketchConfig(((10 * d) // b + 1) * b, b, 0.25)
+    rows["sketch_gram_count"]["fig6_paper"] = check_gram_at(
+        ops, ref, sketching.get("oversketch", fig6_cfg).sample(
+            draw, n, device=dev), a, b, 30, "fig6_paper")
     rows.update(check_family_kernels(
         ops, ref, a, sketching.get("sjlt", scfg).sample(draw, n, device=dev),
         sketching.get("srht", scfg).sample(draw, n, device=dev), mask, b))
@@ -2118,6 +2281,14 @@ def main() -> int:
                            b, dev))
     del data
     torch.cuda.empty_cache()
+
+    # The paper's fig. 6 at the synthetic profile's width, on a card that
+    # holds nothing else of the smoke's, then the multi-tenant scheduler.
+    from repro_torch.benchmarks import fig6_logistic_synthetic as fig6
+    row, paths["fig6_paper"] = run_fig6_paper(ops, data_mod, prng, fig6,
+                                              dev)
+    emit(row)
+    emit(run_tenancy())
 
     # Softmax regression at the emnist profile's widths (n cut to fit).
     from repro_torch.core import solvers

@@ -36,7 +36,16 @@ def test_port_imports_neither_jax_nor_repro():
                  "scheduler.dag", "scheduler.spec", "core.coded", "obs",
                  "obs.span", "obs.metrics", "obs.critical_path",
                  "obs.health", "obs.slo", "obs.perfetto", "obs.export",
-                 "obs.incident", "obs.store", "obs.diff", "obs.console"):
+                 "obs.incident", "obs.store", "obs.diff", "obs.console",
+                 "tenancy", "tenancy.workload", "tenancy.scheduler",
+                 "benchmarks", "benchmarks.common", "benchmarks.run",
+                 "benchmarks.fig1_stragglers",
+                 "benchmarks.fig6_logistic_synthetic",
+                 "benchmarks.fig7_epsilon", "benchmarks.fig8_small_datasets",
+                 "benchmarks.fig9_softmax", "benchmarks.fig10_coded_vs_spec",
+                 "benchmarks.fig11_first_order", "benchmarks.fig12_serverful",
+                 "benchmarks.fleet_bench", "benchmarks.scheduler_bench",
+                 "benchmarks.tenancy_bench"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
