@@ -125,6 +125,40 @@ with its seconds:
            runs' launch counts (the one-pass FWHT runs there, at n_pad =
            1,024)
 
+  lm_init  the dense LM slice: qwen3-4b (src/repro_torch/configs/qwen3_4b.py)
+           at its published width, 4,411,424,256 bf16 parameters drawn on
+           the card from PRNGKey(0) through get_bundle(...).init: one
+           launch of the normal kernel's bfloat16 mode per drawn leaf (9)
+  lm_check the smoke-width qwen3-4b on the card against the CPU (float32:
+           forward's last logits within 1e-4 of max |CPU|, the server's
+           tokens equal; bfloat16: the gap, within the CPU tests' 3e-2),
+           then at full width the reference's serving invariant: prefill
+           of 511 tokens plus one decode against forward's last logits, 2
+           sequences, max abs diff within 0.06 of max |logit|
+  lm_serve BatchedServer(batch 16, max_seq 2,048) on 32 requests (prompt
+           lengths as launch/serve.py draws them, 4 to 1,024 tokens), 64
+           new tokens each: prefill ms a wave and decode ms a step beside
+           launch/analytic.py's bound (989 TFLOP/s bf16, 3.35 TB/s),
+           tokens a second, peak memory; then 3 decode steps under
+           torch.profiler (kernels and device ms a step, idle share)
+  lm_features, lm_head_kernels, lm_osn_head, lm_osn_head_reference
+           extract_features over 8,192 synthetic documents of 64 tokens
+           (4 classes, class-conditioned token ranges) in batches of 128;
+           the fused Gram at the OSN head's shape (A = hess_sqrt(0) is
+           (32,768, 10,240), K = 400 blocks of b = 128, 80 masked) against
+           its plain version and beside torch.sparse.mm then torch.mm,
+           with eigh of its Gram; the coded mat-vec at the features' two
+           encodes; the draw kernel at the head's draw; the normal
+           kernel's bfloat16 mode at the embedding's shape, bit for bit;
+           then train_osn_head with use_kernels=True, 4 iterations (per
+           iteration the fused Gram once, the coded mat-vec 2 K = 8 times,
+           the draw kernel twice), and as the reference configures it
+           (use_kernels=False), 2 iterations: simulated time, cost and
+           steps bit for bit, fval and gnorm gaps printed (the pinv
+           direction inverts eigenvalues inside the Gram's fp32 rounding:
+           lm_head_kernels prints the direction's gap beside the Grams'
+           and the eigenvalues by band); the probe's train accuracy
+
 Every Newton run on the card (exact Newton's included) computes its coded
 gradient with the coded mat-vec kernel: two launches per iteration, as
 the default fleet's coded_decode policy waits for a peelable set and no
@@ -1365,8 +1399,7 @@ def check_softmax_kernels(ops, ref, solvers, a, h, sg, device) -> dict:
         return library
 
     def gram_bound(kb, kl):
-        return bound(float(kl) * (2.0 * n * d + BLOCK * d * (d + 1)),
-                     4.0 * (n * d + 2 * kl * n + d * d) + kb)
+        return count_gram_bound(n, d, BLOCK, kb, kl)
 
     kb = SOFTMAX_CHECK_BLOCKS
     hc, sc = h[:kb].contiguous(), sg[:kb].contiguous()
@@ -2073,6 +2106,523 @@ def run_tenancy() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------- the LM slice
+# qwen3-4b (src/repro_torch/configs/qwen3_4b.py) at its published width.
+LM_ARCH = "qwen3-4b"
+LM_PARAMS = 4_411_424_256
+# bf16 tensor-core peak of the H100 SXM (dense), for the serving bounds.
+BF16_FLOPS = 989e12
+LM_CHECK_SEQ = 512        # 2 sequences: forward against prefill + decode
+# The reference's DECODE_TOL (tests/test_archs.py) of 0.2 at its logit
+# scale of ~3.5, as a share of max |logit|.
+LM_DECODE_GATE = 0.06
+LM_SMOKE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # card vs CPU, smoke
+LM_BATCH, LM_MAX_SEQ, LM_REQUESTS, LM_MAX_NEW = 16, 2048, 32, 64
+LM_PROMPT_LEN = 1024      # launch/serve.py's draw: 4 to this many tokens
+LM_DOCS, LM_DOC_LEN, LM_FEATURE_BATCH, LM_CLASSES = 8192, 64, 128, 4
+LM_HEAD_ITERS, LM_HEAD_REF_ITERS = 4, 2
+LM_HEAD_BLOCK = 128       # train_osn_head's block size
+LM_CODED_ROWS = 256       # train_osn_head's coded_block_rows at 8,192 rows
+
+
+def peak_gib() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def fresh_peak() -> None:
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def run_lm_init(ops, prng, registry, dev) -> tuple:
+    """qwen3-4b at full width on the card from PRNGKey(0): one launch of the
+    normal kernel's bfloat16 mode per drawn leaf."""
+    import torch
+    from repro_torch.models.common import flatten
+    fresh_peak()
+    bundle = registry.get_bundle(LM_ARCH)
+    count = bundle.param_count()
+    if count != LM_PARAMS:
+        raise AssertionError(f"{LM_ARCH}: {count} parameters, expected "
+                             f"{LM_PARAMS}")
+    drawn = sum(1 for _, s in flatten(bundle.specs()) if s.init == "normal")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    params = bundle.init(prng.PRNGKey(SEED), device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    held = sum(p.numel() for p in params.parameters())
+    emit({"phase": "lm_init", "arch": LM_ARCH, "params": count,
+          "params_held": held, "bytes": nbytes,
+          "dtype": str(bundle.cfg.compute_dtype), "seconds": seconds,
+          "normal_launches": launches["normal"], "drawn_leaves": drawn,
+          "launches": launches, "peak_gib": peak_gib()})
+    if held != count or launches["normal"] != drawn:
+        raise AssertionError(f"lm_init: {held} parameters held, "
+                             f"{launches['normal']} normal launches for "
+                             f"{drawn} drawn leaves")
+    for name, p in params.named_parameters():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"lm_init: {name} is not finite")
+    return bundle, params, launches
+
+
+def check_normal_bf16(ops, prng, dev) -> dict:
+    """The normal kernel's bfloat16 mode at lm_init's largest leaf (the
+    embedding, 151,936 x 2,560) against the plain draw on the card, every
+    bit."""
+    import torch
+    from repro_torch.models import get_config
+    cfg = get_config(LM_ARCH)
+    shape = (cfg.vocab_size, cfg.d_model)
+    key = prng.PRNGKey(SEED + 1)
+    got = ops.normal(key, shape, dev, dtype=torch.bfloat16)
+    want, plain_ms = timed_once(lambda: prng.normal_bf16_plain(key, shape,
+                                                               dev))
+    differing = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    if differing:
+        raise AssertionError(f"normal bf16: {differing} draws differ from "
+                             "the plain version")
+    row = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+           "entries_differing": 0, "max_abs_plain":
+           float(want.float().abs().max())}
+    del got, want
+    row["ms"] = cuda_ms(lambda: ops.normal(key, shape, dev,
+                                           dtype=torch.bfloat16), 5)
+    row["plain_ms"] = plain_ms
+    row["library_ms"] = None
+    row["library_call"] = "none: no PyTorch call draws jax's bits"
+    row["yardstick_ms"] = cuda_ms(lambda: torch.randn(
+        shape, device=dev, dtype=torch.bfloat16), 5)
+    count = math.prod(shape)
+    row["bound_ms"], row["bound_by"] = bound(float(HASH_INT_OPS) * count,
+                                             2.0 * count, INT32_OPS)
+    row["shape"] = list(shape)
+    return row
+
+
+def run_lm_check(prng, registry, transformer, serve, bundle, params,
+                 dev) -> dict:
+    """The card against the CPU at smoke width (float32: forward's last
+    logits within 1e-4 of max |CPU| and the server's tokens equal;
+    bfloat16: the gap, within the CPU tests' 3e-2), then the reference's
+    serving invariant at full width: prefill of S - 1 tokens plus one
+    decode against forward's last logits, 2 sequences of 512."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    fresh_peak()
+    t0 = time.perf_counter()
+    smoke = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = smoke_config(LM_ARCH).scaled(dtype=dtype)
+        b = registry.ModelBundle(cfg)
+        cpu = b.init(prng.PRNGKey(SEED), device="cpu")
+        card = b.init(prng.PRNGKey(SEED), device=dev)
+        rs = np.random.RandomState(SEED)
+        toks = torch.from_numpy(rs.randint(1, cfg.vocab_size - 1, (2, 40)))
+        want = transformer.forward(cfg, cpu, toks)[0][:, -1].float()
+        got = transformer.forward(cfg, card, toks.to(dev))[0][:, -1].float()
+        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        row = {"forward_rel_err": rel, "tol": LM_SMOKE_TOL[dtype]}
+        if rel > LM_SMOKE_TOL[dtype]:
+            raise AssertionError(f"lm_check {dtype}: card and CPU logits "
+                                 f"differ by {rel} of max |CPU|")
+        prompts = [rs.randint(1, cfg.vocab_size - 1, rs.randint(4, 16))
+                   for _ in range(10)]
+        outs = [serve.BatchedServer(b, p, batch=4, max_seq=128).generate(
+            prompts, max_new=12) for p in (cpu, card)]
+        row["served_equal"] = outs[0] == outs[1]
+        row["served_slots_differing"] = sum(a != c for a, c in zip(*outs))
+        if dtype == "float32" and not row["served_equal"]:
+            raise AssertionError("lm_check: the card served other tokens "
+                                 "than the CPU at float32")
+        smoke[dtype] = row
+
+    cfg = bundle.cfg
+    rs = np.random.RandomState(SEED + 1)
+    toks = torch.from_numpy(rs.randint(1, cfg.vocab_size - 1,
+                                       (2, LM_CHECK_SEQ))).to(dev)
+    full = transformer.forward(cfg, params, toks)[0][:, -1].float()
+    cache = bundle.init_cache(2, LM_CHECK_SEQ, device=dev)
+    _, cache = bundle.prefill(params, toks[:, :-1], cache)
+    dec, cache = bundle.decode(params, cache, toks[:, -1])
+    diff = float((dec.float() - full).abs().max())
+    scale = float(full.abs().max())
+    row = {"phase": "lm_check", "smoke": smoke,
+           "full_width": {"sequences": 2, "tokens": LM_CHECK_SEQ,
+                          "max_abs_diff": diff, "max_abs_logit": scale,
+                          "gate": LM_DECODE_GATE * scale,
+                          "pos": cache["pos"],
+                          "finite": bool(torch.isfinite(full).all())},
+           "peak_gib": peak_gib(), "seconds": time.perf_counter() - t0}
+    emit(row)
+    if not row["full_width"]["finite"] or not diff <= LM_DECODE_GATE * scale:
+        raise AssertionError(f"lm_check: decode drifts {diff} from forward "
+                             f"(gate {LM_DECODE_GATE} x {scale})")
+    return row
+
+
+class TimedBundle:
+    """A bundle whose prefill and decode are timed (the device synchronized
+    around each), for the server's per-wave and per-step times."""
+
+    def __init__(self, bundle):
+        self.bundle, self.cfg = bundle, bundle.cfg
+        self.prefill_ms, self.prefill_len = [], []
+        self.decode_ms, self.decode_ctx = [], []
+
+    def init_cache(self, *args, **kw):
+        return self.bundle.init_cache(*args, **kw)
+
+    def _timed(self, fn, *args):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def prefill(self, params, tokens, cache, extra=None):
+        out, ms = self._timed(self.bundle.prefill, params, tokens, cache,
+                              extra)
+        self.prefill_ms.append(ms)
+        self.prefill_len.append(tokens.shape[1])
+        return out
+
+    def decode(self, params, cache, token):
+        self.decode_ctx.append(cache["pos"] + 1)
+        out, ms = self._timed(self.bundle.decode, params, cache, token)
+        self.decode_ms.append(ms)
+        return out
+
+
+def lm_bound(analytic, registry, cfg, kind: str, seq: int) -> dict:
+    """launch/analytic.py's flops and HBM bytes of one prefill wave or one
+    decode step of LM_BATCH sequences at context ``seq`` on one card, and
+    the bound: the larger of flops at BF16_FLOPS and bytes at
+    HBM_BYTES_PER_S."""
+    c = analytic.cell_costs(cfg, registry.ShapeSpec(kind, kind, seq,
+                                                    LM_BATCH),
+                            chips=1, mesh_model=1, mesh_data=1)
+    t_f = c.flops_per_chip / BF16_FLOPS * 1e3
+    t_b = c.hbm_bytes_per_chip / HBM_BYTES_PER_S * 1e3
+    return {"flops": c.flops_per_chip, "bytes": c.hbm_bytes_per_chip,
+            "bound_ms": max(t_f, t_b),
+            "bound_by": "operations" if t_f >= t_b else "bytes"}
+
+
+def run_lm_serve(serve, analytic, registry, bundle, params, dev) -> dict:
+    """BatchedServer(batch 16, max_seq 2,048) on 32 requests, prompt
+    lengths drawn as launch/serve.py's main draws them (RandomState(0), 4
+    to 1,024 tokens), 64 new tokens each."""
+    import numpy as np
+    fresh_peak()
+    cfg = bundle.cfg
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(1, cfg.vocab_size - 1,
+                          rs.randint(4, LM_PROMPT_LEN + 1))
+               for _ in range(LM_REQUESTS)]
+    timed = TimedBundle(bundle)
+    server = serve.BatchedServer(timed, params, LM_BATCH, LM_MAX_SEQ)
+    t0 = time.perf_counter()
+    outs = server.generate(prompts, LM_MAX_NEW)
+    wall = time.perf_counter() - t0
+    new = sum(len(o) for o in outs)
+    if len(outs) != LM_REQUESTS or not all(
+            1 <= len(o) <= LM_MAX_NEW and all(0 <= t < cfg.vocab_size
+                                              for t in o) for o in outs):
+        raise AssertionError("lm_serve: malformed outputs")
+    waves = [{"prompt_len": s, "ms": ms, **lm_bound(analytic, registry,
+                                                     cfg, "prefill", s)}
+             for s, ms in zip(timed.prefill_len, timed.prefill_ms)]
+    steps = [dict(ms=ms, ctx=c, **lm_bound(analytic, registry, cfg,
+                                          "decode", c))
+             for c, ms in zip(timed.decode_ctx, timed.decode_ms)]
+    ms = sorted(s["ms"] for s in steps)
+    bounds = sorted(s["bound_ms"] for s in steps)
+    row = {"phase": "lm_serve", "requests": LM_REQUESTS, "batch": LM_BATCH,
+           "max_seq": LM_MAX_SEQ, "max_new": LM_MAX_NEW,
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": new,
+           "wall_s": wall, "tokens_per_s": new / wall, "waves": waves,
+           "decode_steps": len(steps),
+           "decode_ms_median": ms[len(ms) // 2], "decode_ms_max": ms[-1],
+           "decode_ms_min": ms[0],
+           "decode_bound_ms_median": bounds[len(bounds) // 2],
+           "decode_bound_by": steps[0]["bound_by"],
+           "decode_ms_first_wave": [s["ms"] for s in steps[:3]],
+           "first_outputs": [o[:8] for o in outs[:2]],
+           "peak_gib": peak_gib()}
+    row["decode_profile"] = profile_decode(bundle, params, dev)
+    emit(row)
+    return row
+
+
+def profile_decode(bundle, params, dev, steps: int = 3) -> dict:
+    """torch.profiler over ``steps`` decode steps of LM_BATCH sequences
+    after a 256-token prefill: device kernels a step, device ms a step
+    beside the wall ms, and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cfg = bundle.cfg
+    toks = torch.randint(1, cfg.vocab_size - 1, (LM_BATCH, 256),
+                         generator=torch.Generator().manual_seed(SEED)
+                         ).to(dev)
+    cache = bundle.init_cache(LM_BATCH, 512, device=dev)
+    logits, cache = bundle.prefill(params, toks, cache)
+    tok = logits[:, -1].argmax(dim=-1)
+    logits, cache = bundle.decode(params, cache, tok)    # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = bundle.decode(params, cache,
+                                          logits.argmax(dim=-1))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:8]
+    return {"steps": steps, "context": cache["pos"],
+            "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps,
+            "idle_share": 1.0 - device_ms / wall_ms,
+            "kernels_per_step": sum(e.count for e in events) / steps,
+            "top": [{"op": e.key[:80], "device_ms": dev_us(e) / 1e3,
+                     "calls": e.count} for e in top]}
+
+
+def lm_documents():
+    """LM_DOCS synthetic documents of LM_DOC_LEN tokens with
+    class-conditioned token ranges (examples/osn_lm_head.py's recipe)."""
+    import numpy as np
+    from repro_torch.models import get_config
+    vocab = get_config(LM_ARCH).vocab_size
+    rs = np.random.RandomState(SEED)
+    labels = rs.randint(0, LM_CLASSES, LM_DOCS)
+    span = vocab // LM_CLASSES
+    tokens = (rs.randint(1, span - 1, (LM_DOCS, LM_DOC_LEN)) +
+              labels[:, None] * span).astype(np.int64)
+    return tokens, labels
+
+
+def run_lm_features(training, bundle, params, dev) -> tuple:
+    """extract_features over the documents in batches of 128."""
+    import torch
+    fresh_peak()
+    tokens, labels = lm_documents()
+    toks = torch.from_numpy(tokens).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = torch.cat([training.extract_features(
+        bundle, params, toks[i:i + LM_FEATURE_BATCH])
+        for i in range(0, LM_DOCS, LM_FEATURE_BATCH)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if feats.shape != (LM_DOCS, bundle.cfg.d_model) or \
+            not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"lm_features: {tuple(feats.shape)} or not "
+                             "finite")
+    emit({"phase": "lm_features", "documents": LM_DOCS,
+          "tokens_each": LM_DOC_LEN, "batch": LM_FEATURE_BATCH,
+          "classes": LM_CLASSES, "shape": list(feats.shape),
+          "seconds": seconds, "tokens_per_s": LM_DOCS * LM_DOC_LEN / seconds,
+          "feature_abs_max": float(feats.abs().max()),
+          "peak_gib": peak_gib()})
+    return feats, torch.from_numpy(labels).to(dev)
+
+
+def count_gram_bound(n: int, d: int, b: int, kb: int, kl: int) -> tuple:
+    """The fused count-sketch Gram's bound: kl live blocks of b rows each
+    sketch all n rows of the (n, d) A (2 n d) and add their (d, d) Gram
+    (b d (d + 1)); A read once, h and sigma once, G written once."""
+    return bound(float(kl) * (2.0 * n * d + b * d * (d + 1)),
+                 4.0 * (n * d + 2 * kl * n + d * d) + kb)
+
+
+def pinv_sensitivity(core, objective, data, g_kernel, g_plain,
+                     dk: int) -> dict:
+    """How far the pinv direction (rtol 1e-6 of the largest eigenvalue,
+    core/solvers.py) moves between the kernel's Gram and the plain
+    version's, which differ by fp32 rounding: the first iteration's
+    direction from each, their relative gap beside the Grams', and the
+    kernel Gram's eigenvalues by band of lambda / lambda_max."""
+    import torch
+    from repro_torch.core import solvers
+    grad = objective.gradient_via(torch.zeros(dk, device=g_kernel.device),
+                                  data)
+    p_k = solvers.psd_pinv_solve(g_kernel, grad)
+    p_p = solvers.psd_pinv_solve(g_plain, grad)
+    ev = torch.linalg.eigvalsh(g_kernel).abs()
+    top = float(ev.max())
+    bands = {}
+    for lo, hi in ((0.0, 1e-6), (1e-6, 1e-5), (1e-5, 1e-4), (1e-4, 1e-2),
+                   (1e-2, 1.01)):
+        bands[f"[{lo:g}, {hi:g})"] = int(((ev >= lo * top) &
+                                          (ev < hi * top)).sum())
+    return {"gram_rel_gap": float((g_kernel - g_plain).norm()
+                                  / g_plain.norm()),
+            "direction_rel_gap": float((p_k - p_p).norm() / p_p.norm()),
+            "eigenvalues_by_band": bands}
+
+
+def check_head_kernels(ops, ref, core, prng, sketching, feats, onehot,
+                       dev) -> dict:
+    """sketch_gram_count at the head's Hessian factor A = hess_sqrt(0)
+    ((32,768, 10,240)) and the first iteration's draw (key kh, as the loop
+    splits it), the path's k-of-n share of the 400 blocks live (320, the
+    rest masked from SEED), against its plain version and beside the
+    library call; the draw kernel at that draw; the coded mat-vec at the
+    features' two encodes, 5% of the workers erased."""
+    import torch
+    k = LM_CLASSES
+    data = core.Dataset(x=feats, y=onehot)
+    objective = core.SoftmaxRegression(num_classes=k)
+    n, dk = feats.shape[0] * k, feats.shape[1] * k
+    scfg = core.OverSketchConfig(max(LM_HEAD_BLOCK, LM_HEAD_BLOCK * (
+        -(-4 * dk // LM_HEAD_BLOCK))), LM_HEAD_BLOCK, 0.25)
+    kb, b = scfg.total_blocks, LM_HEAD_BLOCK
+    a = objective.hess_sqrt(torch.zeros(dk, device=dev), data)
+    _, _, kh, _ = prng.split(prng.PRNGKey(SEED), 4)
+    key = prng.fold_in(kh, 7)
+    draws = check_draw(ops, prng, key, n, kb, b, dev, label="lm_osn_head ",
+                       nystrom=False)
+    state = sketching.get("oversketch", scfg).sample(key, n, device=dev)
+    mask = drop_mask(kb, kb - scfg.num_blocks, dev)
+    kl = int(mask.sum())
+    got = ops.sketch_gram_count(state.h, state.sigma, a, b, mask)
+    want, plain_ms = timed_once(
+        lambda: ref.sketch_gram_count(state.h, state.sigma, a, b, mask))
+    row = compare("sketch_gram_count lm_osn_head", got, want)
+    row["pinv"] = pinv_sensitivity(core, objective, data, got, want, dk)
+    del want
+    row["bit_identical"] = same_bits(
+        "sketch_gram_count lm_osn_head",
+        lambda: ops.sketch_gram_count(state.h, state.sigma, a, b, mask), got)
+    row["symmetric"] = symmetric("sketch_gram_count lm_osn_head", got)
+    row["ms"] = cuda_ms(lambda: ops.sketch_gram_count(
+        state.h, state.sigma, a, b, mask), 2, warm=False)
+    row["plain_ms"] = plain_ms
+    s_live = sketch_matrix(state.h, state.sigma, mask.nonzero().squeeze(1),
+                           b, n)
+
+    def library():
+        x = torch.sparse.mm(s_live, a)
+        return torch.mm(x.T, x)
+    row["library_ms"] = cuda_ms(library, 2)
+    row["library_call"] = ("torch.sparse.mm(CSR sketch (K_live*b, n), A) "
+                           "then torch.mm")
+    row["bound_ms"], row["bound_by"] = count_gram_bound(n, dk, b, kb, kl)
+    row["shape"] = {"K": kb, "masked": kb - kl, "n": n, "d": dk, "b": b}
+    _, row["eigh_ms"] = timed_once(lambda: torch.linalg.eigh(got))
+    del s_live, got, a, state
+    torch.cuda.empty_cache()
+    coded_rows = check_coded(ops, ref, data, LM_CODED_ROWS, dev)
+    return {"sketch_gram_count": row, "coded_X": coded_rows["X"],
+            "coded_XT": coded_rows["XT"], "draw": draws}
+
+
+def run_osn_head(ops, training, feats, labels, onehot, label: str,
+                 iters: int, use_kernels: bool, expect: dict) -> tuple:
+    """train_osn_head on the features, launch counts set to 0 just before
+    and read just after; each expected count checked."""
+    import torch
+    fresh_peak()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    w, hist = training.train_osn_head(feats, onehot, num_classes=LM_CLASSES,
+                                      iters=iters, use_kernels=use_kernels)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    seconds = time.perf_counter() - t0
+    pred = (feats @ w.reshape(LM_CLASSES, -1).T).argmax(dim=1)
+    acc = float((pred == labels).float().mean())
+    row = {"phase": label, "iters": iters, "use_kernels": use_kernels,
+           "launches": launches, "fval": hist["fval"],
+           "gnorm": hist["gnorm"], "step": hist["step"],
+           "sim_seconds": hist["time"], "sim_dollars": hist["cost"],
+           "wall_ms": [t * 1e3 for t in hist["wall_s"]],
+           "train_accuracy": acc, "peak_gib": peak_gib(),
+           "seconds": seconds}
+    emit(row)
+    for name, count in expect.items():
+        if launches[name] != count:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times, expected {count}")
+    f = [math.log(LM_CLASSES)] + hist["fval"]
+    if not all(b_ < a_ for a_, b_ in zip(f, f[1:])) or not all(
+            math.isfinite(v) for k in ("fval", "gnorm", "time", "cost")
+            for v in hist[k]):
+        raise AssertionError(f"{label}: f does not decrease or a value is "
+                             f"not finite: {f}")
+    if not acc > 1.0 / LM_CLASSES:
+        raise AssertionError(f"{label}: train accuracy {acc} is not above "
+                             "chance")
+    return launches, hist
+
+
+def run_lm(ops, ref, core, prng, sketching, dev) -> tuple:
+    """The LM slice: init, checks, serving and features on qwen3-4b at
+    full width, then the OSN readout head with and without the fused
+    kernel.  Returns (launches by run, the head's kernel rows)."""
+    import torch
+    from repro_torch import training
+    from repro_torch.launch import analytic, serve
+    from repro_torch.models import registry, transformer
+    paths = {}
+    bundle, params, paths["lm_init"] = run_lm_init(ops, prng, registry, dev)
+    run_lm_check(prng, registry, transformer, serve, bundle, params, dev)
+    run_lm_serve(serve, analytic, registry, bundle, params, dev)
+    feats, labels = run_lm_features(training, bundle, params, dev)
+    del params
+    fresh_peak()
+    t0 = time.perf_counter()
+    onehot = prng.one_hot(labels, LM_CLASSES)
+    rows = check_head_kernels(ops, ref, core, prng, sketching, feats, onehot,
+                              dev)
+    rows["normal_bf16"] = check_normal_bf16(ops, prng, dev)
+    emit({"phase": "lm_head_kernels", **rows, "tolerance_rel": REL_TOL,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    k = LM_CLASSES
+    paths["lm_osn_head"], fused = run_osn_head(
+        ops, training, feats, labels, onehot, "lm_osn_head", LM_HEAD_ITERS,
+        True, {"sketch_gram_count": LM_HEAD_ITERS,
+               "coded_block_matvec": 2 * k * LM_HEAD_ITERS,
+               "draw": 2 * LM_HEAD_ITERS, "normal": 0})
+    paths["lm_osn_head_reference"], plain = run_osn_head(
+        ops, training, feats, labels, onehot, "lm_osn_head_reference",
+        LM_HEAD_REF_ITERS, False,
+        {"sketch_gram_count": 0, "coded_block_matvec": 2 * k *
+         LM_HEAD_REF_ITERS, "draw": 2 * LM_HEAD_REF_ITERS})
+    # The fleet's phases must be the same: simulated time, cost and the
+    # line search's steps equal.  fval and gnorm are printed: the pinv
+    # direction inverts eigenvalues down to 1e-6 of the largest, inside
+    # the fp32 rounding of a 10,240-wide Gram (lm_head_kernels' "pinv"),
+    # so the two Grams' rounding moves the iterates apart.
+    m = LM_HEAD_REF_ITERS
+    agree = {"time_equal": plain["time"] == fused["time"][:m],
+             "cost_equal": plain["cost"] == fused["cost"][:m],
+             "steps_equal": plain["step"] == fused["step"][:m],
+             "fval_rel": [abs(a - b) / abs(b) for a, b in
+                          zip(plain["fval"], fused["fval"])],
+             "gnorm_rel": [abs(a - b) / abs(b) for a, b in
+                           zip(plain["gnorm"], fused["gnorm"])]}
+    emit({"phase": "lm_osn_head_agreement", **agree})
+    if not (agree["time_equal"] and agree["cost_equal"]
+            and agree["steps_equal"]):
+        raise AssertionError(f"lm_osn_head: the fused and the reference "
+                             f"configurations disagree: {agree}")
+    return paths, rows
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -2304,6 +2854,12 @@ def main() -> int:
         raise AssertionError("the one-pass fwht was not launched on the "
                              "check phase's distributed-avg srht run")
 
+    # The dense LM slice, on a card that holds nothing of the earlier
+    # phases: qwen3-4b at full width, then the OSN readout head.
+    torch.cuda.empty_cache()
+    lm_paths, lm_rows = run_lm(ops, ref, core, prng, sketching, dev)
+    paths.update(lm_paths)
+
     # Each kernel's numbers at the shape its full-width path launches it:
     # count_sketch_apply at b = 4,096 (distributed-avg), the coded mat-vec
     # at the X^T encode, the masked Gram at nystrom's A_tilde, each with its
@@ -2318,13 +2874,22 @@ def main() -> int:
             f"softmax ({SOFTMAX_CHECK_BLOCKS} of its blocks, n K = "
             f"{softmax_rows['sketch_gram_count']['shape']['n']:,}, d K = "
             f"{softmax_rows['sketch_gram_count']['shape']['d']:,})":
-                softmax_rows["sketch_gram_count"]},
+                softmax_rows["sketch_gram_count"],
+            "lm_osn_head (K = {K}, {masked} masked, n K = {n:,}, d K = "
+            "{d:,}, b = {b})".format(**lm_rows["sketch_gram_count"]["shape"]):
+                lm_rows["sketch_gram_count"]},
         "coded_block_matvec": {
             "X encode (W = 1,296, s = 3,000)": coded_rows["X"],
             f"softmax X encode (W = {sm_x['shape']['W']:,}, s = "
             f"{sm_x['shape']['s']:,})": sm_x,
             f"softmax X^T encode (W = {sm_xt['shape']['W']:,}, s = "
-            f"{sm_xt['shape']['s']:,})": sm_xt},
+            f"{sm_xt['shape']['s']:,})": sm_xt,
+            **{f"lm_osn_head {tag} encode (W = {r['shape']['W']:,}, b = "
+               f"{r['shape']['b']}, s = {r['shape']['s']:,})": r
+               for tag, r in (("X", lm_rows["coded_X"]),
+                              ("X^T", lm_rows["coded_XT"]))}},
+        "normal": {"bf16 mode, lm_init's embed (151,936 x 2,560)":
+                   lm_rows["normal_bf16"]},
         "fwht": rows["fwht_lengths"],
         "oversketch_gram": {"count-sketch A_tilde (no path)": count_gram},
         "sketch_gram_sjlt": {
@@ -2332,7 +2897,8 @@ def main() -> int:
                 rows["sjlt_apply"],
             "Gram alone (oversketch_gram of that A_tilde)":
                 rows["sjlt_gram"]},
-        "draw": {**rows["draw"]["other_shapes"], **softmax_rows["draw"]}}
+        "draw": {**rows["draw"]["other_shapes"], **softmax_rows["draw"],
+                 **lm_rows["draw"]}}
     summary = []
     for name, kern in ops.KERNELS.items():
         r = rows[name]

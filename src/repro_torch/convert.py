@@ -6,6 +6,7 @@ array), so nothing here imports jax or ``repro``:
   dataset(x, y, x_test, y_test, device)  -> core.objectives.Dataset
   vector(w0, device)                     -> float32 tensor
   key(raw)                               -> a prng key from uint32[2]
+  params(cfg, tree, device)              -> a model's modules
 
 With the same inputs and the same key both packages compute on identical
 data and draw identical sketches, masks and fleet timelines.
@@ -42,3 +43,27 @@ def key(raw) -> torch.Tensor:
     ``jax.random.key_data(k)``, as a port key."""
     words = np.asarray(raw, dtype=np.uint32).reshape(2)
     return torch.tensor(words.astype(np.int64))
+
+
+def tensor(a, device=None) -> torch.Tensor:
+    """A numpy array of any dtype as a tensor of the same dtype, bit for bit
+    (a jax bfloat16 array arrives as an ``ml_dtypes`` bfloat16 array, which
+    ``torch.from_numpy`` refuses: it crosses as its 16-bit patterns)."""
+    device = resolve_device(device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a.view(np.int16)))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params(cfg, tree, device=None):
+    """The JAX package's parameter tree of a model (nested dicts of arrays,
+    as numpy) as the port's modules for ``cfg`` on ``device``."""
+    from repro_torch.models import transformer
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return tensor(node, device)
+    return transformer.DecoderLM(cfg, walk(tree))

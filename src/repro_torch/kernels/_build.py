@@ -104,8 +104,10 @@ class CudaKernel:
         fn.restype = ctypes.c_int
         return fn
 
-    def launch(self, *args) -> None:
-        err = self.host_function(self.symbol, self.argtypes)(*args)
+    def launch(self, *args, symbol: str = "") -> None:
+        """Launch through the entry point, or through ``symbol``, another
+        mode of the same kernel with the same argument types."""
+        err = self.host_function(symbol or self.symbol, self.argtypes)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}: launch failed with CUDA error "
                                f"{err}")

@@ -143,6 +143,35 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// bfloat16 draws (jax.random.normal(key, shape, jnp.bfloat16)): jax draws
+// one byte a bfloat16 element, the low byte of the same 32-bit word, and
+// the uniform keeps its top 7 bits, so a draw is one of 128 values:
+// out[i] = table[(bits >> 1) & 127], the table computed on the host by
+// prng.normal_bf16_table.  The draws are bfloat16 bit patterns.
+__global__ void __launch_bounds__(THREADS)
+    normal_bf16_kernel(uint32_t k0, uint32_t k1,
+                       const uint16_t* __restrict__ table,
+                       uint16_t* __restrict__ out, int64_t size) {
+  __shared__ uint16_t t[128];
+  if (threadIdx.x < 128) t[threadIdx.x] = table[threadIdx.x];
+  __syncthreads();
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < size;
+       i += stride) {
+    const uint32_t bits = threefry::bits(k0, k1, (uint64_t)i);
+    __stcs(out + i, t[(bits >> 1) & 127u]);
+  }
+}
+
+int grid_blocks(long long size) {
+  int sms = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = (size + THREADS - 1) / THREADS;
+  const long long cap = (long long)(sms > 0 ? sms : 132) * 8;
+  return (int)(want < cap ? want : cap);
+}
+
 }  // namespace
 
 extern "C" int normal_consts_count() { return N_CONSTS; }
@@ -162,13 +191,19 @@ extern "C" int normal_table_launch(const float* consts, float* table,
 extern "C" int normal_launch(uint32_t k0, uint32_t k1, const float* table,
                              float* out, long long size, void* stream) {
   if (size <= 0) return 0;
-  int sms = 0, dev = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long want = (size + THREADS - 1) / THREADS;
-  const long long cap = (long long)(sms > 0 ? sms : 132) * 8;
-  const int blocks = (int)(want < cap ? want : cap);
-  normal_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  normal_kernel<<<grid_blocks(size), THREADS, 0, (cudaStream_t)stream>>>(
       k0, k1, table, out, (int64_t)size);
+  return (int)cudaGetLastError();
+}
+
+// out[i] = bfloat16 normal draw i of key (k0, k1), i in [0, size), from
+// the 128-entry bfloat16 table.
+extern "C" int normal_bf16_launch(uint32_t k0, uint32_t k1,
+                                  const uint16_t* table, uint16_t* out,
+                                  long long size, void* stream) {
+  if (size <= 0) return 0;
+  normal_bf16_kernel<<<grid_blocks(size), THREADS, 0,
+                       (cudaStream_t)stream>>>(k0, k1, table, out,
+                                               (int64_t)size);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,10 @@ at first use, by the kernel's own computed form of the plain version's
 float32 steps, in one launch of the table kernel (not counted as a launch
 of ``normal``), waits for that launch, and keeps the table for the
 process, so that a draw on any stream reads a finished table.
+
+bfloat16 draws depend on 7 bits of the word (``prng.normal_bf16_plain``):
+the kernel's bfloat16 mode reads a table of 128 draws, made on the host by
+the plain steps and copied to the device once.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ KERNEL = CudaKernel(
 
 TABLE_SIZE = 1 << 23     # one draw per 23-bit mantissa
 _TABLES: Dict[torch.device, torch.Tensor] = {}
+_BF16_TABLES: Dict[torch.device, torch.Tensor] = {}
 
 
 def constants() -> np.ndarray:
@@ -96,20 +101,37 @@ def table_plain(device) -> torch.Tensor:
     return prng.normal_of_mantissas(m)
 
 
-def normal(key: torch.Tensor, shape: prng.Shape = (),
-           device=None) -> torch.Tensor:
-    """float32 standard normal draws (``jax.random.normal``) of ``shape`` on
-    ``device`` (the CUDA device when none is given): the kernel on a CUDA
-    device, ``prng.normal_plain`` on the CPU."""
+def bf16_table(device) -> torch.Tensor:
+    """The 128 bfloat16 draws (``prng.normal_bf16_table``) on ``device``,
+    kept for the process."""
+    device = _cuda(device)
+    if device not in _BF16_TABLES:
+        _BF16_TABLES[device] = prng.normal_bf16_table().to(device)
+    return _BF16_TABLES[device]
+
+
+def normal(key: torch.Tensor, shape: prng.Shape = (), device=None,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard normal draws (``jax.random.normal``) of ``shape`` and
+    ``dtype`` (float32 or bfloat16) on ``device`` (the CUDA device when none
+    is given): the kernel on a CUDA device, ``prng.normal_plain`` or
+    ``prng.normal_bf16_plain`` on the CPU."""
     device = resolve_device(device)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"normal: dtype must be float32 or bfloat16, got "
+                         f"{dtype}")
+    bf16 = dtype == torch.bfloat16
     if device.type == "cpu":
-        return prng.normal_plain(key, shape, device)
+        return (prng.normal_bf16_plain if bf16 else prng.normal_plain)(
+            key, shape, device)
     if device.type != "cuda":
         raise ValueError(f"normal: device must be the CPU or a CUDA device, "
                          f"got {device}")
-    out = torch.empty(prng._shape(shape), dtype=torch.float32, device=device)
+    out = torch.empty(prng._shape(shape), dtype=dtype, device=device)
     if out.numel():
         k0, k1 = prng._words(key)
-        KERNEL.launch(k0, k1, table(device).data_ptr(), out.data_ptr(),
-                      out.numel(), stream(out))
+        tab = bf16_table(device) if bf16 else table(device)
+        KERNEL.launch(k0, k1, tab.data_ptr(), out.data_ptr(), out.numel(),
+                      stream(out), symbol="normal_bf16_launch" if bf16
+                      else "")
     return out

@@ -6,8 +6,8 @@ same seed gives the same draws in both packages:
 
   PRNGKey, split, fold_in, key_data          key algebra
   uniform, bernoulli, rademacher, randint,   draws
-  normal_plain, choice, gumbel, categorical,
-  permutation
+  normal_plain, normal_bf16_plain, choice,
+  gumbel, categorical, permutation
   one_hot                                    jax.nn.one_hot
 
 The generator is threefry2x32 (20 rounds) in the layout jax uses when
@@ -383,6 +383,37 @@ def normal_plain(key: torch.Tensor, shape: Shape, device) -> torch.Tensor:
     takes this on the CPU and the normal kernel on a CUDA device."""
     return _chunked(key, _shape(shape), torch.float32, device,
                     lambda bits: normal_of_mantissas(bits >> 9))
+
+
+# bfloat16 normals: jax draws 8 random bits an element (the low byte of
+# the 32-bit word) for a float with 7 mantissa bits, and its uniform keeps
+# the top 7 of them, bits 1-7 of the word.  Every step runs in bfloat16,
+# rounded after each operation: the uniform on (nextafter(-1, 0), 1), then
+# sqrt(2) erfinv(u) with erfinv computed in float32 and rounded.
+NORMAL_BF16_LO = -0.99609375      # nextafter(-1, 0) in bfloat16
+NORMAL_BF16_VALUES = 128
+
+
+def normal_bf16_table() -> torch.Tensor:
+    """The bfloat16 normal draw of every word whose bits 1-7 are m, for
+    m in [0, 128), on the CPU (the normal kernel's bfloat16 table)."""
+    bf = torch.bfloat16
+    m = torch.arange(NORMAL_BF16_VALUES, dtype=torch.int32)
+    one = torch.tensor(1.0, dtype=bf)
+    f = (m | 0x3F80).to(torch.int16).view(bf) - one
+    lo = torch.tensor(NORMAL_BF16_LO, dtype=bf)
+    u = torch.maximum(lo, f * (one - lo) + lo)
+    return torch.tensor(SQRT2, dtype=bf) * erfinv(u.float()).to(bf)
+
+
+def normal_bf16_plain(key: torch.Tensor, shape: Shape,
+                      device) -> torch.Tensor:
+    """bfloat16 standard normal draws (``jax.random.normal(key, shape,
+    jnp.bfloat16)``) on any device: the table read at bits 1-7 of each
+    word.  The entry point is ``kernels.ops.normal`` with ``dtype``."""
+    table = normal_bf16_table().to(device)
+    return _chunked(key, _shape(shape), torch.bfloat16, device,
+                    lambda bits: table[(bits >> 1) & 0x7F])
 
 
 def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:

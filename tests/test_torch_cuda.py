@@ -917,3 +917,101 @@ def test_ops_profiler_on_cuda_tensors(cuda):
     assert snap["histograms"]["kernel.coded_block_matvec.us"]["max"] > 0
     assert ops.launch_counts()["coded_block_matvec"] == 1
     assert torch.equal(got, ops.coded_block_matvec(enc, x, erased))
+
+
+# ----------------------------------------------------- the dense model family
+def _smoke(dtype):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import ModelBundle
+    cfg = smoke_config("qwen3-4b").scaled(dtype=dtype)
+    return cfg, ModelBundle(cfg)
+
+
+@pytest.mark.parametrize("shape", [(5,), (1000, 7), (36, 64, 33)])
+def test_normal_bf16_mode_is_the_plain_draw_bit_for_bit(cuda, shape):
+    key = prng.PRNGKey(sum(shape))
+    ops.reset_launch_counts()
+    got = ops.normal(key, shape, cuda, dtype=torch.bfloat16)
+    assert ops.launch_counts()["normal"] == 1
+    want = prng.normal_bf16_plain(key, shape, "cpu")
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_init_on_the_card_is_the_cpu_init(cuda, dtype):
+    """One normal launch per drawn leaf, the CPU's bits."""
+    from repro_torch.models.common import flatten
+    cfg, bundle = _smoke(dtype)
+    ops.reset_launch_counts()
+    card = bundle.init(prng.PRNGKey(0), device=cuda)
+    drawn = sum(1 for _, s in flatten(bundle.specs()) if s.init == "normal")
+    assert ops.launch_counts()["normal"] == drawn
+    cpu = bundle.init(prng.PRNGKey(0), device="cpu")
+    for (name, a), (_, b) in zip(card.state_dict().items(),
+                                 cpu.state_dict().items()):
+        assert torch.equal(a.cpu(), b), name
+
+
+# float32 products on the card sum in other orders than the CPU's; bfloat16
+# rounds every operation, as the CPU parity tests state.
+MODEL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_on_the_card_matches_the_cpu(cuda, dtype):
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import transformer
+    cfg, bundle = _smoke(dtype)
+    cpu = bundle.init(prng.PRNGKey(0), device="cpu")
+    card = bundle.init(prng.PRNGKey(0), device=cuda)
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(1, cfg.vocab_size - 1, (2, 40)))
+    want = transformer.forward(cfg, cpu, toks)[0][:, -1].float()
+    got = transformer.forward(cfg, card, toks.to(cuda))[0][:, -1].float()
+    assert _rel_err(got.cpu(), want) <= MODEL_TOL[dtype]
+    if dtype == "float32":
+        prompts = [rs.randint(1, cfg.vocab_size - 1, rs.randint(4, 16))
+                   for _ in range(6)]
+        outs = [BatchedServer(bundle, p, batch=4, max_seq=64).generate(
+            prompts, max_new=8) for p in (cpu, card)]
+        assert outs[0] == outs[1]
+
+
+def test_decode_matches_forward_on_the_card(cuda):
+    from repro_torch.models import transformer
+    cfg, bundle = _smoke("float32")
+    params = bundle.init(prng.PRNGKey(1), device=cuda)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        1, cfg.vocab_size - 1, (2, 24))).to(cuda)
+    full = transformer.forward(cfg, params, toks)[0][:, -1]
+    cache = bundle.init_cache(2, 64, device=cuda)
+    _, cache = bundle.prefill(params, toks[:, :23], cache)
+    dec, cache = bundle.decode(params, cache, toks[:, 23])
+    assert cache["pos"] == 24
+    assert _rel_err(dec, full) <= 1e-4
+
+
+def test_osn_head_with_the_fused_kernel_matches_the_cpu(cuda):
+    """train_osn_head with use_kernels=True on the card: the fused Gram
+    once and the coded mat-vec 2 K times an iteration; the CPU's history
+    (time and cost bit for bit, fval rtol 1e-4)."""
+    from repro_torch.training import extract_features, train_osn_head
+    cfg, bundle = _smoke("float32")
+    params = bundle.init(prng.PRNGKey(0), device="cpu")
+    rs = np.random.RandomState(0)
+    k, n = 4, 512
+    labels = rs.randint(0, k, n)
+    toks = torch.from_numpy(rs.randint(1, cfg.vocab_size // k - 1, (n, 16)) +
+                            labels[:, None] * (cfg.vocab_size // k))
+    feats = extract_features(bundle, params, toks)
+    onehot = prng.one_hot(torch.from_numpy(labels), k)
+    ops.reset_launch_counts()
+    _, card = train_osn_head(feats.to(cuda), onehot.to(cuda), num_classes=k,
+                             iters=3, use_kernels=True)
+    counts = ops.launch_counts()
+    assert counts["sketch_gram_count"] == 3
+    assert counts["coded_block_matvec"] == 2 * k * 3
+    _, plain = train_osn_head(feats, onehot, num_classes=k, iters=3,
+                              use_kernels=True)
+    assert card["time"] == plain["time"] and card["cost"] == plain["cost"]
+    np.testing.assert_allclose(card["fval"], plain["fval"], rtol=1e-4)

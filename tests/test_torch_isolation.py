@@ -45,7 +45,15 @@ def test_port_imports_neither_jax_nor_repro():
                  "benchmarks.fig9_softmax", "benchmarks.fig10_coded_vs_spec",
                  "benchmarks.fig11_first_order", "benchmarks.fig12_serverful",
                  "benchmarks.fleet_bench", "benchmarks.scheduler_bench",
-                 "benchmarks.tenancy_bench"):
+                 "benchmarks.tenancy_bench", "models", "models.common",
+                 "models.attention", "models.transformer",
+                 "models.registry", "configs", "configs.paper",
+                 "configs.qwen3_4b", "configs.qwen3_32b", "configs.qwen2_7b",
+                 "configs.gemma3_27b", "configs.llava_next_34b",
+                 "configs.mamba2_780m", "configs.qwen3_moe_30b_a3b",
+                 "configs.qwen3_moe_235b_a22b", "configs.recurrentgemma_2b",
+                 "configs.whisper_large_v3", "launch", "launch.serve",
+                 "launch.analytic", "training", "training.osn_head"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
@@ -53,7 +61,7 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
-        "             m.startswith('repro.'))\n"
+        "             m.startswith('repro.') or m == 'ml_dtypes')\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=str(SRC),
@@ -71,6 +79,7 @@ def test_entry_points_raise_without_a_device():
     from repro_torch.data import (make_logistic_dataset, make_softmax_dataset,
                                   profile_dataset)
     from repro_torch.kernels import ops
+    from repro_torch.models import get_bundle
     from repro_torch.optim import (FirstOrderConfig, GiantConfig,
                                    exact_newton, first_order, giant)
     key = prng.PRNGKey(0)
@@ -108,6 +117,10 @@ def test_entry_points_raise_without_a_device():
         lambda: ops.normal(key, (3,)),
         lambda: convert.vector(np.zeros(2)),
         lambda: convert.dataset(np.zeros((8, 2)), np.ones(8)),
+        lambda: convert.tensor(np.zeros(2)),
+        lambda: ops.normal(key, (3,), dtype=torch.bfloat16),
+        lambda: get_bundle("qwen3-4b").init(key),
+        lambda: get_bundle("qwen3-4b").init_cache(1, 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
