@@ -158,6 +158,41 @@ with its seconds:
            direction inverts eigenvalues inside the Gram's fp32 rounding:
            lm_head_kernels prints the direction's gap beside the Grams'
            and the eigenvalues by band); the probe's train accuracy
+  lm_moe_init, lm_moe_init_window
+           the MoE slice: qwen3-moe-30b-a3b (configs/qwen3_moe_30b_a3b.py)
+           at its published width, 30,532,122,624 bf16 parameters (61.06
+           GB) drawn on the card from PRNGKey(0), one bf16 normal launch
+           per drawn leaf (10); 4,096 draws of the expert leaf w_gate
+           (9,663,676,416 elements) around counter 2^32 and at its end
+           against the plain hash of the same counters, bit for bit; the
+           bf16 mode at the MoE's embedding (151,936 x 2,048), bit for bit
+  lm_moe_check
+           the smoke-width MoE card against CPU (as lm_check); at full
+           width prefill of 512 tokens (two whole groups of 256) plus one
+           decode against forward over 513, 2 sequences, within 0.06 of
+           max |logit|; the dropped assignments of real tokens in forward
+           (2 x 513 and 16 x 512 tokens, capacity 20 a group), with the
+           first layer's top-k and capacity positions taken again on the
+           CPU from the card's probabilities, equal
+  lm_moe_serve, lm_moe_features, lm_moe_head_kernels, lm_moe_osn_head
+           BatchedServer(16, 2,048) on 16 requests (one wave, prompts as
+           lm_serve's), 64 new tokens each, beside the analytic bound, and
+           3 profiled decode steps; features of 4,096 documents of 64
+           tokens; the fused Gram, the coded mat-vec and the draw kernel at
+           the head's new shapes (A (16,384, 8,192), K = 320, 64 masked)
+           against their plain versions; train_osn_head with the kernels,
+           4 iterations (launches as lm_osn_head's)
+  lm_moe_235b
+           qwen3-moe-235b-a22b (470.19 GB of bf16 weights, past any card):
+           its parameter count and launch/analytic.py's decode bound only
+  lm_families_<arch>_{init,check,serve}
+           mamba2-780m, recurrentgemma-2b and whisper-large-v3 at their
+           published widths, one after another: init (one bf16 normal
+           launch per drawn leaf), the smoke-width card against CPU, the
+           full-width serving invariant (2 x 512 tokens, gate 0.06), and
+           16 requests of 32 new tokens (whisper through its bundle with
+           seeded frame embeddings (16, 1,500, 1,280): the reference's
+           server passes no frames), each with 3 profiled decode steps
 
 Every Newton run on the card (exact Newton's included) computes its coded
 gradient with the coded mat-vec kernel: two launches per iteration, as
@@ -2137,17 +2172,19 @@ def fresh_peak() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def run_lm_init(ops, prng, registry, dev) -> tuple:
-    """qwen3-4b at full width on the card from PRNGKey(0): one launch of the
-    normal kernel's bfloat16 mode per drawn leaf."""
+def run_lm_init(ops, prng, registry, dev, arch: str = LM_ARCH,
+                expect: int = LM_PARAMS, phase: str = "lm_init") -> tuple:
+    """A model (qwen3-4b unless ``arch``) at full width on the card from
+    PRNGKey(0): one launch of the normal kernel's bfloat16 mode per drawn
+    leaf."""
     import torch
     from repro_torch.models.common import flatten
     fresh_peak()
-    bundle = registry.get_bundle(LM_ARCH)
+    bundle = registry.get_bundle(arch)
     count = bundle.param_count()
-    if count != LM_PARAMS:
-        raise AssertionError(f"{LM_ARCH}: {count} parameters, expected "
-                             f"{LM_PARAMS}")
+    if count != expect:
+        raise AssertionError(f"{arch}: {count} parameters, expected "
+                             f"{expect}")
     drawn = sum(1 for _, s in flatten(bundle.specs()) if s.init == "normal")
     t0 = time.perf_counter()
     ops.reset_launch_counts()
@@ -2157,28 +2194,28 @@ def run_lm_init(ops, prng, registry, dev) -> tuple:
     launches = ops.launch_counts()
     nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
     held = sum(p.numel() for p in params.parameters())
-    emit({"phase": "lm_init", "arch": LM_ARCH, "params": count,
+    emit({"phase": phase, "arch": arch, "params": count,
           "params_held": held, "bytes": nbytes,
           "dtype": str(bundle.cfg.compute_dtype), "seconds": seconds,
           "normal_launches": launches["normal"], "drawn_leaves": drawn,
           "launches": launches, "peak_gib": peak_gib()})
     if held != count or launches["normal"] != drawn:
-        raise AssertionError(f"lm_init: {held} parameters held, "
+        raise AssertionError(f"{phase}: {held} parameters held, "
                              f"{launches['normal']} normal launches for "
                              f"{drawn} drawn leaves")
     for name, p in params.named_parameters():
         if not bool(torch.isfinite(p).all()):
-            raise AssertionError(f"lm_init: {name} is not finite")
+            raise AssertionError(f"{phase}: {name} is not finite")
     return bundle, params, launches
 
 
-def check_normal_bf16(ops, prng, dev) -> dict:
-    """The normal kernel's bfloat16 mode at lm_init's largest leaf (the
-    embedding, 151,936 x 2,560) against the plain draw on the card, every
-    bit."""
+def check_normal_bf16(ops, prng, dev, arch: str = LM_ARCH) -> dict:
+    """The normal kernel's bfloat16 mode at the embedding's shape (qwen3-4b
+    unless ``arch``: 151,936 x 2,560, lm_init's largest leaf) against the
+    plain draw on the card, every bit."""
     import torch
     from repro_torch.models import get_config
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     shape = (cfg.vocab_size, cfg.d_model)
     key = prng.PRNGKey(SEED + 1)
     got = ops.normal(key, shape, dev, dtype=torch.bfloat16)
@@ -2206,65 +2243,108 @@ def check_normal_bf16(ops, prng, dev) -> dict:
     return row
 
 
-def run_lm_check(prng, registry, transformer, serve, bundle, params,
-                 dev) -> dict:
-    """The card against the CPU at smoke width (float32: forward's last
-    logits within 1e-4 of max |CPU| and the server's tokens equal;
-    bfloat16: the gap, within the CPU tests' 3e-2), then the reference's
-    serving invariant at full width: prefill of S - 1 tokens plus one
-    decode against forward's last logits, 2 sequences of 512."""
+def frame_embeds(cfg, batch: int, dev, seed: int = SEED):
+    """The audio stub's frame embeddings (batch, encoder_seq, d) from a
+    seed, in the compute dtype."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                       generator=g).to(cfg.compute_dtype).to(dev)
+
+
+def model_forward(cfg, params, toks, frames=None):
+    """forward's logits of any family (the encoder-decoder's with its
+    frames)."""
+    from repro_torch.models import encdec, transformer
+    if cfg.family == "encdec":
+        return encdec.forward(cfg, params, toks, frames)[0]
+    return transformer.forward(cfg, params, toks)[0]
+
+
+def smoke_check(prng, registry, serve, arch: str, dev) -> dict:
+    """The smoke-width model on the card against the CPU, float32
+    (forward's last logits within 1e-4 of max |CPU|, the server's tokens
+    equal) and bfloat16 (the gap, within the CPU tests' 3e-2).  The
+    encoder-decoder has no server (the reference's passes no frames)."""
     import numpy as np
     import torch
     from repro_torch.configs import smoke_config
-    fresh_peak()
-    t0 = time.perf_counter()
     smoke = {}
     for dtype in ("float32", "bfloat16"):
-        cfg = smoke_config(LM_ARCH).scaled(dtype=dtype)
+        cfg = smoke_config(arch).scaled(dtype=dtype)
         b = registry.ModelBundle(cfg)
         cpu = b.init(prng.PRNGKey(SEED), device="cpu")
         card = b.init(prng.PRNGKey(SEED), device=dev)
         rs = np.random.RandomState(SEED)
         toks = torch.from_numpy(rs.randint(1, cfg.vocab_size - 1, (2, 40)))
-        want = transformer.forward(cfg, cpu, toks)[0][:, -1].float()
-        got = transformer.forward(cfg, card, toks.to(dev))[0][:, -1].float()
+        frames = frame_embeds(cfg, 2, "cpu") if cfg.family == "encdec" \
+            else None
+        want = model_forward(cfg, cpu, toks, frames)[:, -1].float()
+        got = model_forward(cfg, card, toks.to(dev), None if frames is None
+                            else frames.to(dev))[:, -1].float()
         rel = float((got.cpu() - want).abs().max() / want.abs().max())
         row = {"forward_rel_err": rel, "tol": LM_SMOKE_TOL[dtype]}
         if rel > LM_SMOKE_TOL[dtype]:
-            raise AssertionError(f"lm_check {dtype}: card and CPU logits "
+            raise AssertionError(f"{arch} {dtype}: card and CPU logits "
                                  f"differ by {rel} of max |CPU|")
-        prompts = [rs.randint(1, cfg.vocab_size - 1, rs.randint(4, 16))
-                   for _ in range(10)]
-        outs = [serve.BatchedServer(b, p, batch=4, max_seq=128).generate(
-            prompts, max_new=12) for p in (cpu, card)]
-        row["served_equal"] = outs[0] == outs[1]
-        row["served_slots_differing"] = sum(a != c for a, c in zip(*outs))
-        if dtype == "float32" and not row["served_equal"]:
-            raise AssertionError("lm_check: the card served other tokens "
-                                 "than the CPU at float32")
+        if cfg.family != "encdec":
+            prompts = [rs.randint(1, cfg.vocab_size - 1, rs.randint(4, 16))
+                       for _ in range(10)]
+            outs = [serve.BatchedServer(b, p, batch=4, max_seq=128).generate(
+                prompts, max_new=12) for p in (cpu, card)]
+            row["served_equal"] = outs[0] == outs[1]
+            row["served_slots_differing"] = sum(a != c for a, c in
+                                                zip(*outs))
+            if dtype == "float32" and not row["served_equal"]:
+                raise AssertionError(f"{arch}: the card served other tokens "
+                                     "than the CPU at float32")
         smoke[dtype] = row
+    return smoke
 
+
+def serving_invariant(bundle, params, dev, seq: int) -> dict:
+    """The reference's serving invariant at full width, 2 sequences:
+    prefill of seq - 1 tokens plus one decode against forward's last
+    logits over seq tokens; the gate is LM_DECODE_GATE of max |logit|."""
+    import numpy as np
+    import torch
     cfg = bundle.cfg
     rs = np.random.RandomState(SEED + 1)
     toks = torch.from_numpy(rs.randint(1, cfg.vocab_size - 1,
-                                       (2, LM_CHECK_SEQ))).to(dev)
-    full = transformer.forward(cfg, params, toks)[0][:, -1].float()
-    cache = bundle.init_cache(2, LM_CHECK_SEQ, device=dev)
-    _, cache = bundle.prefill(params, toks[:, :-1], cache)
+                                       (2, seq))).to(dev)
+    frames = frame_embeds(cfg, 2, dev) if cfg.family == "encdec" else None
+    full = model_forward(cfg, params, toks, frames)[:, -1].float()
+    cache = bundle.init_cache(2, seq, device=dev)
+    _, cache = bundle.prefill(params, toks[:, :-1], cache, frames)
     dec, cache = bundle.decode(params, cache, toks[:, -1])
     diff = float((dec.float() - full).abs().max())
     scale = float(full.abs().max())
+    return {"sequences": 2, "tokens": seq, "max_abs_diff": diff,
+            "max_abs_logit": scale, "gate": LM_DECODE_GATE * scale,
+            "pos": cache["pos"], "finite": bool(torch.isfinite(full).all())}
+
+
+def check_invariant(row: dict, label: str) -> None:
+    """Raise unless ``serving_invariant``'s row is finite and in its gate
+    (after the row is printed)."""
+    if not row["finite"] or not row["max_abs_diff"] <= row["gate"]:
+        raise AssertionError(f"{label}: decode drifts {row['max_abs_diff']} "
+                             f"from forward (gate {row['gate']})")
+
+
+def run_lm_check(prng, registry, serve, bundle, params, dev) -> dict:
+    """The card against the CPU at smoke width (``smoke_check``), then the
+    reference's serving invariant at full width: prefill of S - 1 tokens
+    plus one decode against forward's last logits, 2 sequences of 512."""
+    fresh_peak()
+    t0 = time.perf_counter()
+    smoke = smoke_check(prng, registry, serve, LM_ARCH, dev)
     row = {"phase": "lm_check", "smoke": smoke,
-           "full_width": {"sequences": 2, "tokens": LM_CHECK_SEQ,
-                          "max_abs_diff": diff, "max_abs_logit": scale,
-                          "gate": LM_DECODE_GATE * scale,
-                          "pos": cache["pos"],
-                          "finite": bool(torch.isfinite(full).all())},
+           "full_width": serving_invariant(bundle, params, dev,
+                                           LM_CHECK_SEQ),
            "peak_gib": peak_gib(), "seconds": time.perf_counter() - t0}
     emit(row)
-    if not row["full_width"]["finite"] or not diff <= LM_DECODE_GATE * scale:
-        raise AssertionError(f"lm_check: decode drifts {diff} from forward "
-                             f"(gate {LM_DECODE_GATE} x {scale})")
+    check_invariant(row["full_width"], "lm_check")
     return row
 
 
@@ -2317,37 +2397,74 @@ def lm_bound(analytic, registry, cfg, kind: str, seq: int) -> dict:
             "bound_by": "operations" if t_f >= t_b else "bytes"}
 
 
-def run_lm_serve(serve, analytic, registry, bundle, params, dev) -> dict:
-    """BatchedServer(batch 16, max_seq 2,048) on 32 requests, prompt
-    lengths drawn as launch/serve.py's main draws them (RandomState(0), 4
-    to 1,024 tokens), 64 new tokens each."""
+def generate_with_frames(bundle, params, prompts, frames, max_new: int,
+                         max_seq: int):
+    """The server's wave for the encoder-decoder (the reference's server
+    passes no frames): prompts left-padded with 0, one prefill with the
+    frames, then greedy decode steps, as ``BatchedServer.generate``."""
+    import numpy as np
+    import torch
+    dev = frames.device
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    cache = bundle.init_cache(len(prompts), max_seq, device=dev)
+    logits, cache = bundle.prefill(params, torch.from_numpy(toks).to(dev),
+                                   cache, frames)
+    tok = logits[:, -1].argmax(dim=-1)
+    out = [[] for _ in prompts]
+    for _ in range(max_new):
+        for o, t in zip(out, tok.tolist()):
+            o.append(t)
+        logits, cache = bundle.decode(params, cache, tok)
+        tok = logits.argmax(dim=-1)
+    return out
+
+
+def run_lm_serve(serve, analytic, registry, bundle, params, dev,
+                 requests: int = LM_REQUESTS, max_new: int = LM_MAX_NEW,
+                 phase: str = "lm_serve") -> dict:
+    """BatchedServer(batch 16, max_seq 2,048) on ``requests`` requests
+    (32 for qwen3-4b), prompt lengths drawn as launch/serve.py's main
+    draws them (RandomState(0), 4 to 1,024 tokens), ``max_new`` new tokens
+    each; the encoder-decoder through its bundle with seeded frames."""
     import numpy as np
     fresh_peak()
     cfg = bundle.cfg
     rs = np.random.RandomState(0)
     prompts = [rs.randint(1, cfg.vocab_size - 1,
                           rs.randint(4, LM_PROMPT_LEN + 1))
-               for _ in range(LM_REQUESTS)]
+               for _ in range(requests)]
     timed = TimedBundle(bundle)
-    server = serve.BatchedServer(timed, params, LM_BATCH, LM_MAX_SEQ)
+    frames = None
     t0 = time.perf_counter()
-    outs = server.generate(prompts, LM_MAX_NEW)
+    if cfg.family == "encdec":
+        frames = frame_embeds(cfg, LM_BATCH, dev)
+        outs = []
+        for w in range(0, requests, LM_BATCH):
+            outs += generate_with_frames(timed, params,
+                                         prompts[w:w + LM_BATCH], frames,
+                                         max_new, LM_MAX_SEQ)
+    else:
+        server = serve.BatchedServer(timed, params, LM_BATCH, LM_MAX_SEQ)
+        outs = server.generate(prompts, max_new)
     wall = time.perf_counter() - t0
     new = sum(len(o) for o in outs)
-    if len(outs) != LM_REQUESTS or not all(
-            1 <= len(o) <= LM_MAX_NEW and all(0 <= t < cfg.vocab_size
-                                              for t in o) for o in outs):
-        raise AssertionError("lm_serve: malformed outputs")
-    waves = [{"prompt_len": s, "ms": ms, **lm_bound(analytic, registry,
-                                                     cfg, "prefill", s)}
-             for s, ms in zip(timed.prefill_len, timed.prefill_ms)]
+    if len(outs) != requests or not all(
+            1 <= len(o) <= max_new and all(0 <= t < cfg.vocab_size
+                                           for t in o) for o in outs):
+        raise AssertionError(f"{phase}: malformed outputs")
+    waves = [{"prompt_len": n, "ms": ms, **lm_bound(analytic, registry,
+                                                     cfg, "prefill", n)}
+             for n, ms in zip(timed.prefill_len, timed.prefill_ms)]
     steps = [dict(ms=ms, ctx=c, **lm_bound(analytic, registry, cfg,
                                           "decode", c))
              for c, ms in zip(timed.decode_ctx, timed.decode_ms)]
-    ms = sorted(s["ms"] for s in steps)
-    bounds = sorted(s["bound_ms"] for s in steps)
-    row = {"phase": "lm_serve", "requests": LM_REQUESTS, "batch": LM_BATCH,
-           "max_seq": LM_MAX_SEQ, "max_new": LM_MAX_NEW,
+    ms = sorted(st["ms"] for st in steps)
+    bounds = sorted(st["bound_ms"] for st in steps)
+    row = {"phase": phase, "arch": cfg.name, "requests": requests,
+           "batch": LM_BATCH, "max_seq": LM_MAX_SEQ, "max_new": max_new,
            "prompt_lens": [len(p) for p in prompts], "new_tokens": new,
            "wall_s": wall, "tokens_per_s": new / wall, "waves": waves,
            "decode_steps": len(steps),
@@ -2355,18 +2472,20 @@ def run_lm_serve(serve, analytic, registry, bundle, params, dev) -> dict:
            "decode_ms_min": ms[0],
            "decode_bound_ms_median": bounds[len(bounds) // 2],
            "decode_bound_by": steps[0]["bound_by"],
-           "decode_ms_first_wave": [s["ms"] for s in steps[:3]],
+           "decode_ms_first_wave": [st["ms"] for st in steps[:3]],
            "first_outputs": [o[:8] for o in outs[:2]],
            "peak_gib": peak_gib()}
-    row["decode_profile"] = profile_decode(bundle, params, dev)
+    row["decode_profile"] = profile_decode(bundle, params, dev, frames=frames)
     emit(row)
     return row
 
 
-def profile_decode(bundle, params, dev, steps: int = 3) -> dict:
+def profile_decode(bundle, params, dev, steps: int = 3,
+                   frames=None) -> dict:
     """torch.profiler over ``steps`` decode steps of LM_BATCH sequences
-    after a 256-token prefill: device kernels a step, device ms a step
-    beside the wall ms, and the device's idle share."""
+    after a 256-token prefill (with ``frames`` for the encoder-decoder):
+    device kernels a step, device ms a step beside the wall ms, and the
+    device's idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     cfg = bundle.cfg
@@ -2374,7 +2493,7 @@ def profile_decode(bundle, params, dev, steps: int = 3) -> dict:
                          generator=torch.Generator().manual_seed(SEED)
                          ).to(dev)
     cache = bundle.init_cache(LM_BATCH, 512, device=dev)
-    logits, cache = bundle.prefill(params, toks, cache)
+    logits, cache = bundle.prefill(params, toks, cache, frames)
     tok = logits[:, -1].argmax(dim=-1)
     logits, cache = bundle.decode(params, cache, tok)    # warm
     torch.cuda.synchronize()
@@ -2399,41 +2518,42 @@ def profile_decode(bundle, params, dev, steps: int = 3) -> dict:
                      "calls": e.count} for e in top]}
 
 
-def lm_documents():
-    """LM_DOCS synthetic documents of LM_DOC_LEN tokens with
+def lm_documents(arch: str = LM_ARCH, docs: int = LM_DOCS):
+    """``docs`` synthetic documents of LM_DOC_LEN tokens with
     class-conditioned token ranges (examples/osn_lm_head.py's recipe)."""
     import numpy as np
     from repro_torch.models import get_config
-    vocab = get_config(LM_ARCH).vocab_size
+    vocab = get_config(arch).vocab_size
     rs = np.random.RandomState(SEED)
-    labels = rs.randint(0, LM_CLASSES, LM_DOCS)
+    labels = rs.randint(0, LM_CLASSES, docs)
     span = vocab // LM_CLASSES
-    tokens = (rs.randint(1, span - 1, (LM_DOCS, LM_DOC_LEN)) +
+    tokens = (rs.randint(1, span - 1, (docs, LM_DOC_LEN)) +
               labels[:, None] * span).astype(np.int64)
     return tokens, labels
 
 
-def run_lm_features(training, bundle, params, dev) -> tuple:
+def run_lm_features(training, bundle, params, dev, docs: int = LM_DOCS,
+                    phase: str = "lm_features") -> tuple:
     """extract_features over the documents in batches of 128."""
     import torch
     fresh_peak()
-    tokens, labels = lm_documents()
+    tokens, labels = lm_documents(bundle.cfg.name, docs)
     toks = torch.from_numpy(tokens).to(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     feats = torch.cat([training.extract_features(
         bundle, params, toks[i:i + LM_FEATURE_BATCH])
-        for i in range(0, LM_DOCS, LM_FEATURE_BATCH)])
+        for i in range(0, docs, LM_FEATURE_BATCH)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    if feats.shape != (LM_DOCS, bundle.cfg.d_model) or \
+    if feats.shape != (docs, bundle.cfg.d_model) or \
             not bool(torch.isfinite(feats).all()):
-        raise AssertionError(f"lm_features: {tuple(feats.shape)} or not "
+        raise AssertionError(f"{phase}: {tuple(feats.shape)} or not "
                              "finite")
-    emit({"phase": "lm_features", "documents": LM_DOCS,
+    emit({"phase": phase, "arch": bundle.cfg.name, "documents": docs,
           "tokens_each": LM_DOC_LEN, "batch": LM_FEATURE_BATCH,
           "classes": LM_CLASSES, "shape": list(feats.shape),
-          "seconds": seconds, "tokens_per_s": LM_DOCS * LM_DOC_LEN / seconds,
+          "seconds": seconds, "tokens_per_s": docs * LM_DOC_LEN / seconds,
           "feature_abs_max": float(feats.abs().max()),
           "peak_gib": peak_gib()})
     return feats, torch.from_numpy(labels).to(dev)
@@ -2474,13 +2594,14 @@ def pinv_sensitivity(core, objective, data, g_kernel, g_plain,
 
 
 def check_head_kernels(ops, ref, core, prng, sketching, feats, onehot,
-                       dev) -> dict:
+                       dev, label: str = "lm_osn_head") -> dict:
     """sketch_gram_count at the head's Hessian factor A = hess_sqrt(0)
-    ((32,768, 10,240)) and the first iteration's draw (key kh, as the loop
-    splits it), the path's k-of-n share of the 400 blocks live (320, the
-    rest masked from SEED), against its plain version and beside the
-    library call; the draw kernel at that draw; the coded mat-vec at the
-    features' two encodes, 5% of the workers erased."""
+    ((32,768, 10,240) on qwen3-4b's features) and the first iteration's
+    draw (key kh, as the loop splits it), the path's k-of-n share of the
+    blocks live (320 of 400 there, the rest masked from SEED), against its
+    plain version and beside the library call; the draw kernel at that
+    draw; the coded mat-vec at the features' two encodes, 5% of the
+    workers erased."""
     import torch
     k = LM_CLASSES
     data = core.Dataset(x=feats, y=onehot)
@@ -2492,7 +2613,7 @@ def check_head_kernels(ops, ref, core, prng, sketching, feats, onehot,
     a = objective.hess_sqrt(torch.zeros(dk, device=dev), data)
     _, _, kh, _ = prng.split(prng.PRNGKey(SEED), 4)
     key = prng.fold_in(kh, 7)
-    draws = check_draw(ops, prng, key, n, kb, b, dev, label="lm_osn_head ",
+    draws = check_draw(ops, prng, key, n, kb, b, dev, label=label + " ",
                        nystrom=False)
     state = sketching.get("oversketch", scfg).sample(key, n, device=dev)
     mask = drop_mask(kb, kb - scfg.num_blocks, dev)
@@ -2500,13 +2621,13 @@ def check_head_kernels(ops, ref, core, prng, sketching, feats, onehot,
     got = ops.sketch_gram_count(state.h, state.sigma, a, b, mask)
     want, plain_ms = timed_once(
         lambda: ref.sketch_gram_count(state.h, state.sigma, a, b, mask))
-    row = compare("sketch_gram_count lm_osn_head", got, want)
+    row = compare(f"sketch_gram_count {label}", got, want)
     row["pinv"] = pinv_sensitivity(core, objective, data, got, want, dk)
     del want
     row["bit_identical"] = same_bits(
-        "sketch_gram_count lm_osn_head",
+        f"sketch_gram_count {label}",
         lambda: ops.sketch_gram_count(state.h, state.sigma, a, b, mask), got)
-    row["symmetric"] = symmetric("sketch_gram_count lm_osn_head", got)
+    row["symmetric"] = symmetric(f"sketch_gram_count {label}", got)
     row["ms"] = cuda_ms(lambda: ops.sketch_gram_count(
         state.h, state.sigma, a, b, mask), 2, warm=False)
     row["plain_ms"] = plain_ms
@@ -2575,10 +2696,10 @@ def run_lm(ops, ref, core, prng, sketching, dev) -> tuple:
     import torch
     from repro_torch import training
     from repro_torch.launch import analytic, serve
-    from repro_torch.models import registry, transformer
+    from repro_torch.models import registry
     paths = {}
     bundle, params, paths["lm_init"] = run_lm_init(ops, prng, registry, dev)
-    run_lm_check(prng, registry, transformer, serve, bundle, params, dev)
+    run_lm_check(prng, registry, serve, bundle, params, dev)
     run_lm_serve(serve, analytic, registry, bundle, params, dev)
     feats, labels = run_lm_features(training, bundle, params, dev)
     del params
@@ -2621,6 +2742,228 @@ def run_lm(ops, ref, core, prng, sketching, dev) -> tuple:
         raise AssertionError(f"lm_osn_head: the fused and the reference "
                              f"configurations disagree: {agree}")
     return paths, rows
+
+# ------------------------------------------------- the MoE slice and families
+# qwen3-moe-30b-a3b (src/repro_torch/configs/qwen3_moe_30b_a3b.py) at its
+# published width: 61.06 GB of bf16 weights, the first init leaves past
+# 2^32 counters (w_gate, w_up, w_down: 48 x 128 x 2,048 x 768 each).
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_PARAMS = 30_532_122_624
+# Two whole groups of 256 in the prefill: the decoded token opens a group
+# of its own in forward's 513 tokens, so neither run drops its
+# assignments and the invariant compares like with like.
+MOE_CHECK_SEQ = 513
+MOE_REQUESTS = 16         # one wave of LM_BATCH
+MOE_DOCS = 4096           # the head's documents: A is (16,384, 8,192)
+MOE_WINDOW = 4096         # bf16 draws checked around 2^32 and at the end
+MOE_235B = "qwen3-moe-235b-a22b"
+MOE_235B_PARAMS = 235_093_634_560
+FAMILY_ARCHS = {"mamba2-780m": 780_148_992,
+                "recurrentgemma-2b": 2_894_574_080,
+                "whisper-large-v3": 1_577_408_000}
+FAMILY_MAX_NEW = 32
+
+
+def stacked_window(layers, start: int, count: int):
+    """Elements start .. start + count - 1 of a stacked (L, ...) leaf held
+    as L per-layer views (``layers``)."""
+    import torch
+    per = layers[0].numel()
+    parts, i = [], start
+    while i < start + count:
+        layer, off = divmod(i, per)
+        take = min(per - off, start + count - i)
+        parts.append(layers[layer].reshape(-1)[off:off + take])
+        i += take
+    return torch.cat(parts)
+
+
+def check_moe_leaf_window(prng, bundle, params, dev) -> dict:
+    """The init's bfloat16 draws of the expert leaf w_gate (9,663,676,416
+    elements, counters past 2^32) against the plain hash of the same
+    counters on the card, times the leaf's scale: MOE_WINDOW draws around
+    2^32 and at the leaf's end, bit for bit."""
+    import math as m
+    import torch
+    from repro_torch.models.common import flatten
+    leaves = flatten(bundle.specs())
+    names = [p for p, _ in leaves]
+    i = names.index("layers/ffn/w_gate")
+    spec = leaves[i][1]
+    key = prng.split(prng.PRNGKey(SEED), len(leaves))[i]
+    fan_in = m.prod(spec.shape[d] for d in spec.fan_in_dims)
+    scale = torch.tensor(1.0 / m.sqrt(fan_in), dtype=torch.bfloat16,
+                         device=dev)
+    size = m.prod(spec.shape)
+    layers = [layer.ffn.w_gate for layer in params.layers]
+    row = {"leaf": names[i], "shape": list(spec.shape), "elements": size,
+           "windows": []}
+    around = min(1 << 32, size - MOE_WINDOW // 2)
+    for start in (around - MOE_WINDOW // 2, size - MOE_WINDOW):
+        got = stacked_window(layers, start, MOE_WINDOW)
+        want = prng.normal_bf16_window(key, start, MOE_WINDOW, dev) * scale
+        differing = int((got.view(torch.int16) !=
+                         want.view(torch.int16)).sum())
+        row["windows"].append({"start": start, "count": MOE_WINDOW,
+                               "differing": differing})
+        if differing:
+            raise AssertionError(f"lm_moe_init: {differing} draws of "
+                                 f"{names[i]} from {start} differ from the "
+                                 "plain hash")
+    return row
+
+
+class DropCounter:
+    """Wraps ``moe.route`` while a forward runs: assignments routed and
+    dropped, of real tokens (a group's zero padding is routed too, and its
+    zero rows are left out here).  The first layer's top-k and capacity
+    positions are also taken on the CPU from the card's probabilities
+    (the stable sorts and scatters of ``moe.top_k`` and
+    ``moe.slot_positions``) and must be the card's exactly."""
+
+    def __init__(self, moe):
+        self.moe, self.route = moe, moe.route
+        self.assignments = self.dropped = 0
+        self.cpu_equal = None
+
+    def __enter__(self):
+        def counted(cfg, router, xg, cap):
+            r = self.route(cfg, router, xg, cap)
+            real = (xg.abs().amax(dim=-1) > 0)[..., None].expand_as(r.keep)
+            self.assignments += int(real.sum())
+            self.dropped += int((real & ~r.keep).sum())
+            if self.cpu_equal is None:
+                _, expert = self.moe.top_k(r.probs.cpu(), r.expert.shape[-1])
+                pos, _ = self.moe.slot_positions(
+                    expert.reshape(expert.shape[0], -1), cfg.num_experts)
+                self.cpu_equal = bool(
+                    (expert == r.expert.cpu()).all() and
+                    (pos.view_as(expert) == r.pos.cpu()).all())
+            return r
+        self.moe.route = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def run_moe_check(prng, registry, serve, moe, transformer, bundle, params,
+                  dev) -> dict:
+    """The smoke-width MoE on the card against the CPU, then the serving
+    invariant at full width (prefill 512 + decode 1 against forward 513),
+    then the dropped assignments of forward over the check's 2 x 513
+    tokens and over 16 x 512 (capacity 20 a group of 256)."""
+    import numpy as np
+    import torch
+    fresh_peak()
+    t0 = time.perf_counter()
+    smoke = smoke_check(prng, registry, serve, MOE_ARCH, dev)
+    full = serving_invariant(bundle, params, dev, MOE_CHECK_SEQ)
+    drops = {}
+    rs = np.random.RandomState(SEED + 2)
+    for b, seq in ((2, MOE_CHECK_SEQ), (LM_BATCH, 512)):
+        toks = torch.from_numpy(rs.randint(1, bundle.cfg.vocab_size - 1,
+                                           (b, seq))).to(dev)
+        with DropCounter(moe) as c:
+            transformer.forward_hidden(bundle.cfg, params, toks)
+        drops[f"{b}x{seq}"] = {"assignments": c.assignments,
+                               "dropped": c.dropped,
+                               "share": c.dropped / c.assignments,
+                               "routing_card_equals_cpu": c.cpu_equal}
+    row = {"phase": "lm_moe_check", "arch": MOE_ARCH, "smoke": smoke,
+           "full_width": full, "dropped_in_forward": drops,
+           "capacity": moe._capacity(256, bundle.cfg),
+           "peak_gib": peak_gib(), "seconds": time.perf_counter() - t0}
+    emit(row)
+    check_invariant(full, "lm_moe_check")
+    if not all(d["routing_card_equals_cpu"] for d in drops.values()):
+        raise AssertionError("lm_moe_check: the card's top-k or capacity "
+                             "positions differ from the CPU's")
+    return row
+
+
+def run_moe(ops, ref, core, prng, sketching, dev) -> tuple:
+    """The MoE slice: qwen3-moe-30b-a3b at full width (init with the window
+    past 2^32, checks, serving), the OSN head on its features, and
+    qwen3-moe-235b-a22b's specs and analytic costs.  Returns (launches by
+    run, the head's kernel rows)."""
+    import torch
+    from repro_torch import training
+    from repro_torch.launch import analytic, serve
+    from repro_torch.models import moe, registry, transformer
+    paths = {}
+    bundle, params, paths["lm_moe_init"] = run_lm_init(
+        ops, prng, registry, dev, MOE_ARCH, MOE_PARAMS, "lm_moe_init")
+    t0 = time.perf_counter()
+    normal_row = check_normal_bf16(ops, prng, dev, MOE_ARCH)
+    emit({"phase": "lm_moe_init_window",
+          **check_moe_leaf_window(prng, bundle, params, dev),
+          "normal_bf16": normal_row, "seconds": time.perf_counter() - t0})
+    run_moe_check(prng, registry, serve, moe, transformer, bundle, params,
+                  dev)
+    run_lm_serve(serve, analytic, registry, bundle, params, dev,
+                 MOE_REQUESTS, LM_MAX_NEW, "lm_moe_serve")
+    feats, labels = run_lm_features(training, bundle, params, dev,
+                                    MOE_DOCS, "lm_moe_features")
+    del params
+    fresh_peak()
+    t0 = time.perf_counter()
+    onehot = prng.one_hot(labels, LM_CLASSES)
+    rows = check_head_kernels(ops, ref, core, prng, sketching, feats, onehot,
+                              dev, "lm_moe_osn_head")
+    rows["normal_bf16"] = normal_row
+    emit({"phase": "lm_moe_head_kernels", **rows, "tolerance_rel": REL_TOL,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    k = LM_CLASSES
+    paths["lm_moe_osn_head"], _ = run_osn_head(
+        ops, training, feats, labels, onehot, "lm_moe_osn_head",
+        LM_HEAD_ITERS, True,
+        {"sketch_gram_count": LM_HEAD_ITERS,
+         "coded_block_matvec": 2 * k * LM_HEAD_ITERS,
+         "draw": 2 * LM_HEAD_ITERS, "normal": 0})
+    del feats
+    big = registry.get_bundle(MOE_235B)
+    count = big.param_count()
+    emit({"phase": "lm_moe_235b", "arch": MOE_235B, "params": count,
+          "bf16_gb": count * 2 / 1e9,
+          "decode_bound": lm_bound(analytic, registry, big.cfg, "decode",
+                                   1024),
+          "note": "470.19 GB of bf16 weights fit no card: specs and "
+                  "launch/analytic.py only"})
+    if count != MOE_235B_PARAMS:
+        raise AssertionError(f"{MOE_235B}: {count} parameters")
+    return paths, rows
+
+
+def run_families(ops, prng, dev) -> dict:
+    """mamba2-780m, recurrentgemma-2b and whisper-large-v3 at their
+    published widths, one after the other: init, the smoke-width card
+    against the CPU, the full-width serving invariant (2 x 512), and 16
+    requests of FAMILY_MAX_NEW new tokens (whisper through its bundle with
+    seeded frames (16, 1,500, 1,280)).  Returns the inits' launches."""
+    from repro_torch.launch import analytic, serve
+    from repro_torch.models import registry
+    paths = {}
+    for arch, expect in FAMILY_ARCHS.items():
+        label = f"lm_families_{arch}"
+        bundle, params, paths[label + "_init"] = run_lm_init(
+            ops, prng, registry, dev, arch, expect, label + "_init")
+        fresh_peak()
+        t0 = time.perf_counter()
+        row = {"phase": label + "_check", "arch": arch,
+               "smoke": smoke_check(prng, registry, serve, arch, dev),
+               "full_width": serving_invariant(bundle, params, dev,
+                                               LM_CHECK_SEQ),
+               "peak_gib": peak_gib(), "seconds": time.perf_counter() - t0}
+        emit(row)
+        check_invariant(row["full_width"], label)
+        run_lm_serve(serve, analytic, registry, bundle, params, dev,
+                     LM_BATCH, FAMILY_MAX_NEW, label + "_serve")
+        del bundle, params
+        fresh_peak()
+    return paths
+
 
 
 def main() -> int:
@@ -2860,6 +3203,13 @@ def main() -> int:
     lm_paths, lm_rows = run_lm(ops, ref, core, prng, sketching, dev)
     paths.update(lm_paths)
 
+    # The MoE slice at full width, then the SSM, hybrid and
+    # encoder-decoder families, each on a card holding no earlier model.
+    torch.cuda.empty_cache()
+    moe_paths, moe_rows = run_moe(ops, ref, core, prng, sketching, dev)
+    paths.update(moe_paths)
+    paths.update(run_families(ops, prng, dev))
+
     # Each kernel's numbers at the shape its full-width path launches it:
     # count_sketch_apply at b = 4,096 (distributed-avg), the coded mat-vec
     # at the X^T encode, the masked Gram at nystrom's A_tilde, each with its
@@ -2877,19 +3227,26 @@ def main() -> int:
                 softmax_rows["sketch_gram_count"],
             "lm_osn_head (K = {K}, {masked} masked, n K = {n:,}, d K = "
             "{d:,}, b = {b})".format(**lm_rows["sketch_gram_count"]["shape"]):
-                lm_rows["sketch_gram_count"]},
+                lm_rows["sketch_gram_count"],
+            "lm_moe_osn_head (K = {K}, {masked} masked, n K = {n:,}, d K = "
+            "{d:,}, b = {b})".format(**moe_rows["sketch_gram_count"]["shape"]):
+                moe_rows["sketch_gram_count"]},
         "coded_block_matvec": {
             "X encode (W = 1,296, s = 3,000)": coded_rows["X"],
             f"softmax X encode (W = {sm_x['shape']['W']:,}, s = "
             f"{sm_x['shape']['s']:,})": sm_x,
             f"softmax X^T encode (W = {sm_xt['shape']['W']:,}, s = "
             f"{sm_xt['shape']['s']:,})": sm_xt,
-            **{f"lm_osn_head {tag} encode (W = {r['shape']['W']:,}, b = "
+            **{f"{head} {tag} encode (W = {r['shape']['W']:,}, b = "
                f"{r['shape']['b']}, s = {r['shape']['s']:,})": r
-               for tag, r in (("X", lm_rows["coded_X"]),
-                              ("X^T", lm_rows["coded_XT"]))}},
+               for head, rs_ in (("lm_osn_head", lm_rows),
+                                 ("lm_moe_osn_head", moe_rows))
+               for tag, r in (("X", rs_["coded_X"]),
+                              ("X^T", rs_["coded_XT"]))}},
         "normal": {"bf16 mode, lm_init's embed (151,936 x 2,560)":
-                   lm_rows["normal_bf16"]},
+                   lm_rows["normal_bf16"],
+                   "bf16 mode, lm_moe_init's embed (151,936 x 2,048)":
+                   moe_rows["normal_bf16"]},
         "fwht": rows["fwht_lengths"],
         "oversketch_gram": {"count-sketch A_tilde (no path)": count_gram},
         "sketch_gram_sjlt": {
@@ -2898,7 +3255,7 @@ def main() -> int:
             "Gram alone (oversketch_gram of that A_tilde)":
                 rows["sjlt_gram"]},
         "draw": {**rows["draw"]["other_shapes"], **softmax_rows["draw"],
-                 **lm_rows["draw"]}}
+                 **lm_rows["draw"], **moe_rows["draw"]}}
     summary = []
     for name, kern in ops.KERNELS.items():
         r = rows[name]

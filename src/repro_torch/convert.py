@@ -59,11 +59,11 @@ def tensor(a, device=None) -> torch.Tensor:
 
 def params(cfg, tree, device=None):
     """The JAX package's parameter tree of a model (nested dicts of arrays,
-    as numpy) as the port's modules for ``cfg`` on ``device``."""
-    from repro_torch.models import transformer
+    as numpy) as the port's modules for ``cfg``'s family on ``device``."""
+    from repro_torch.models import registry
 
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
         return tensor(node, device)
-    return transformer.DecoderLM(cfg, walk(tree))
+    return registry.build(cfg, walk(tree))

@@ -21,6 +21,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import prng, resolve_device
@@ -126,6 +127,26 @@ class Params(nn.Module):
         for name, t in leaves.items():
             self.register_parameter(name, nn.Parameter(t,
                                                        requires_grad=False))
+
+
+class Layer(nn.Module):
+    """One layer's parameter groups (``ln1``, ``attn``, ``ffn``, ...), each
+    a ``Params`` under the reference's group name."""
+
+    def __init__(self, groups: Dict[str, Dict[str, torch.Tensor]]):
+        super().__init__()
+        for name, leaves in groups.items():
+            setattr(self, name, Params(leaves))
+
+
+def stack_layers(groups: Dict[str, Dict[str, torch.Tensor]],
+                 n: int) -> nn.ModuleList:
+    """n ``Layer``s from the reference's stacked (n, ...) leaves: layer i
+    holds the views of every leaf at index i."""
+    return nn.ModuleList(
+        Layer({g: {name: t[i] for name, t in leaves.items()}
+               for g, leaves in groups.items()})
+        for i in range(n))
 
 
 def flatten(tree: Pytree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -258,6 +279,34 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu: x sigmoid(x)."""
+    return x * torch.sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, x (B, S, C), w (K, C): the taps summed in the
+    reference's order (``sum`` of the shifted products), then the bias."""
+    k, s = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = pad[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + pad[:, i:i + s] * w[i]
+    return out + b
 
 
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:

@@ -10,10 +10,11 @@ A bundle exposes:
   prefill(params, ...)       -> (logits, cache)
   decode(params, cache, tok) -> (logits, cache)
 
-The dense family is ported; the MoE, hybrid, SSM and encoder-decoder
-families raise ``NotImplementedError`` (ROADMAP Queue 1 item 13), as do
-the reference's ``abstract``, ``logical_axes``, ``input_specs``,
-``supports`` and ``loss``, which come with training and the dry run.
+Every family is ported: dense, MoE, hybrid and SSM through
+``transformer``, the encoder-decoder through ``encdec`` (its prefill takes
+the frame embeddings as ``extra``).  The reference's ``abstract``,
+``logical_axes``, ``input_specs``, ``supports`` and ``loss`` come with
+training and the dry run (ROADMAP Queue 1 items 12 and 13).
 """
 from __future__ import annotations
 
@@ -23,11 +24,12 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import common, transformer
+from torch import nn
+
+from repro_torch.models import common, encdec, transformer
 from repro_torch.models.common import ModelConfig
 
 Pytree = Any
-PORTED_FAMILIES = ("dense",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,25 +49,32 @@ SHAPES = {
 }
 
 
+def build(cfg: ModelConfig, tree: Pytree) -> nn.Module:
+    """The modules of ``cfg``'s family from a parameter tree in the
+    reference's layout."""
+    if cfg.family == "encdec":
+        return encdec.EncDecLM(cfg, tree)
+    return transformer.build(cfg, tree)
+
+
 class ModelBundle:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet "
-                f"(ROADMAP Queue 1 item 13)")
         self.cfg = cfg
+        self.is_encdec = cfg.family == "encdec"
+        self._mod = encdec if self.is_encdec else transformer
 
     # ------------------------------------------------------------- params --
     def specs(self) -> Pytree:
+        if self.is_encdec:
+            return encdec.encdec_specs(self.cfg)
         return transformer.decoder_specs(self.cfg)
 
-    def init(self, key: torch.Tensor,
-             device=None) -> transformer.DecoderLM:
+    def init(self, key: torch.Tensor, device=None) -> nn.Module:
         """The model with the reference's init from ``key`` on ``device``
         (the CUDA device when none is given)."""
         tree = common.materialize(self.specs(), key, self.cfg.compute_dtype,
                                   resolve_device(device))
-        return transformer.DecoderLM(self.cfg, tree)
+        return build(self.cfg, tree)
 
     def param_count(self) -> int:
         return common.param_count(self.specs())
@@ -73,16 +82,17 @@ class ModelBundle:
     # --------------------------------------------------------------- steps --
     def init_cache(self, batch: int, max_seq: int, dtype=None,
                    device=None) -> Pytree:
-        return transformer.init_cache(self.cfg, batch, max_seq, dtype,
-                                      resolve_device(device))
+        return self._mod.init_cache(self.cfg, batch, max_seq, dtype,
+                                    resolve_device(device))
 
-    def prefill(self, params: transformer.DecoderLM, tokens: torch.Tensor,
+    def prefill(self, params: nn.Module, tokens: torch.Tensor,
                 cache: Pytree, extra: Optional[torch.Tensor] = None):
+        if self.is_encdec:
+            return encdec.prefill(self.cfg, params, tokens, cache, extra)
         return transformer.prefill(self.cfg, params, tokens, cache, extra)
 
-    def decode(self, params: transformer.DecoderLM, cache: Pytree,
-               token: torch.Tensor):
-        return transformer.decode_step(self.cfg, params, cache, token)
+    def decode(self, params: nn.Module, cache: Pytree, token: torch.Tensor):
+        return self._mod.decode_step(self.cfg, params, cache, token)
 
 
 # --------------------------------------------------------------- registry ----

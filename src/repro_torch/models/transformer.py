@@ -1,18 +1,24 @@
-"""Decoder-only LM, the dense family (the counterpart of the uniform dense
-layout of ``repro/models/transformer.py``).
+"""Decoder-only LM covering the dense, MoE, hybrid (RG-LRU), SSM (SSD) and
+VLM-backbone families (the counterpart of ``repro/models/transformer.py``).
 
 The reference scans one body over stacked (L, ...) parameters; here each
-layer is its own ``nn.Module`` (``DecoderLayer``) with the reference's
+layer is its own ``nn.Module`` (``common.Layer``) with the reference's
 parameter names, and the layers run in a plain loop, which is the
 reference's ``forward`` with ``remat=False``.  Per-layer scalars (sliding
 window, rope theta) come from ``layer_schedule`` as in the reference.
 Caches are dicts of tensors updated in place, with ``pos`` a Python int.
 
-Both cache layouts are here: the uniform one (every layer caches the full
-context) and, where ``windowed_decode_cache`` is set on a local:global
-pattern (gemma3), local layers in ring buffers of ``window_size`` slots.
-The MoE, hybrid (RG-LRU), SSM and encoder-decoder families are not ported
-yet; ``registry.ModelBundle`` refuses them.
+The uniform stack (``DecoderLM``) serves the dense, MoE and SSM families;
+the hybrid's recurrent and attention layers are stacked apart in the
+reference's tree, so it has its own layout (``HybridLM``) and runs the
+reference's (rec, rec, attn) groups, then the trailing recurrent layers.
+Cache layouts: the uniform one (every layer caches the full context);
+where ``windowed_decode_cache`` is set on a dense or MoE local:global
+pattern (gemma3), local layers in ring buffers of ``window_size`` slots;
+the SSM's per-layer conv and ssm states; the hybrid's recurrent states
+beside its attention layers' ring buffers.  The MoE layers' auxiliary
+load-balance loss is returned by ``forward_hidden``, not kept in a
+module-level store as the reference keeps it.
 """
 from __future__ import annotations
 
@@ -20,11 +26,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models import common
+from repro_torch.models import common, moe, rglru, ssd
 from repro_torch.models.common import ModelConfig, Params, Spec
 
 Pytree = Any
@@ -56,25 +61,56 @@ def mlp_specs(cfg: ModelConfig, stacked: int = 0) -> Dict[str, Spec]:
 
 def mlp_forward(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_type == "swiglu":
-        g = x @ p.w_gate
-        return (g * torch.sigmoid(g) * (x @ p.w_up)) @ p.w_down
-    return F.gelu(x @ p.w_up + p.b_up, approximate="tanh") @ p.w_down + \
-        p.b_down
+        return (common.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    return common.gelu(x @ p.w_up + p.b_up) @ p.w_down + p.b_down
 
 
 def _uniform_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
     n = cfg.num_layers
-    return {
+    sp: Dict[str, Any] = {
         "ln1": common.norm_spec(cfg, cfg.d_model, stacked=n),
         "ln2": common.norm_spec(cfg, cfg.d_model, stacked=n),
-        "attn": attn.attn_specs(cfg, stacked=n),
-        "ffn": mlp_specs(cfg, stacked=n),
+    }
+    if cfg.family == "ssm":
+        sp.pop("ln2")
+        sp["mix"] = ssd.ssd_specs(cfg, stacked=n)
+    else:
+        sp["attn"] = attn.attn_specs(cfg, stacked=n)
+        if cfg.family == "moe":
+            sp["ffn"] = moe.moe_specs(cfg, stacked=n)
+        else:
+            sp["ffn"] = mlp_specs(cfg, stacked=n)
+    return sp
+
+
+REC_GROUPS = ("rec", "rec_ln", "rec_mlp", "rec_mlp_ln")
+ATTN_GROUPS = ("attn", "attn_ln", "attn_mlp", "attn_mlp_ln")
+
+
+def _hybrid_counts(cfg: ModelConfig) -> Tuple[int, int]:
+    """(recurrent layers, attention layers) of the hybrid stack."""
+    n_attn = cfg.num_layers // cfg.attn_every
+    return cfg.num_layers - n_attn, n_attn
+
+
+def _hybrid_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """RecurrentGemma: pattern (rec, rec, attn); every layer has an MLP."""
+    n_rec, n_attn = _hybrid_counts(cfg)
+    return {
+        "rec": rglru.rglru_specs(cfg, stacked=n_rec),
+        "rec_ln": common.norm_spec(cfg, cfg.d_model, stacked=n_rec),
+        "rec_mlp": mlp_specs(cfg, stacked=n_rec),
+        "rec_mlp_ln": common.norm_spec(cfg, cfg.d_model, stacked=n_rec),
+        "attn": attn.attn_specs(cfg, stacked=n_attn),
+        "attn_ln": common.norm_spec(cfg, cfg.d_model, stacked=n_attn),
+        "attn_mlp": mlp_specs(cfg, stacked=n_attn),
+        "attn_mlp_ln": common.norm_spec(cfg, cfg.d_model, stacked=n_attn),
     }
 
 
 def decoder_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The dense family's spec tree (``registry.ModelBundle`` refuses the
-    other families)."""
+    """The decoder families' spec tree (the encoder-decoder's is
+    ``encdec.encdec_specs``)."""
     sp: Dict[str, Any] = {
         "embed": Spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                       fan_in_dims=(1,)),
@@ -83,28 +119,16 @@ def decoder_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         sp["lm_head"] = Spec((cfg.d_model, cfg.vocab_size),
                              ("embed", "vocab"), fan_in_dims=(0,))
-    sp["layers"] = _uniform_layer_specs(cfg)
+    if cfg.family == "hybrid":
+        sp["layers"] = _hybrid_layer_specs(cfg)
+    else:
+        sp["layers"] = _uniform_layer_specs(cfg)
     return sp
 
 
 # ---------------------------------------------------------------- modules ----
-class DecoderLayer(nn.Module):
-    """One layer: ln1, attn, ln2, ffn (the reference's ``layers/*`` leaves
-    at one index of their leading axis)."""
-
-    def __init__(self, tree: Dict[str, Dict[str, torch.Tensor]]):
-        super().__init__()
-        self.ln1 = Params(tree["ln1"])
-        self.attn = Params(tree["attn"])
-        self.ln2 = Params(tree["ln2"])
-        self.ffn = Params(tree["ffn"])
-
-
-class DecoderLM(nn.Module):
-    """The dense decoder's parameters: embed, final_norm, lm_head (untied
-    configs), and one ``DecoderLayer`` per layer, from a parameter tree in
-    the reference's layout (each layer's parameters are views of the
-    stacked (L, ...) leaves)."""
+class _LM(nn.Module):
+    """embed, final_norm and, for untied configs, lm_head."""
 
     def __init__(self, cfg: ModelConfig, tree: Pytree):
         super().__init__()
@@ -113,11 +137,38 @@ class DecoderLM(nn.Module):
         self.final_norm = Params(tree["final_norm"])
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(tree["lm_head"], requires_grad=False)
+
+
+class DecoderLM(_LM):
+    """The uniform stack (dense, MoE, SSM): one ``common.Layer`` per layer
+    (ln1, attn, ln2, ffn; or ln1, mix), from a parameter tree in the
+    reference's layout (each layer's parameters are views of the stacked
+    (L, ...) leaves)."""
+
+    def __init__(self, cfg: ModelConfig, tree: Pytree):
+        super().__init__(cfg, tree)
+        self.layers = common.stack_layers(tree["layers"], cfg.num_layers)
+
+
+class HybridLM(_LM):
+    """RecurrentGemma: the recurrent layers (rec, rec_ln, rec_mlp,
+    rec_mlp_ln) and the attention layers (attn, attn_ln, attn_mlp,
+    attn_mlp_ln), each stacked apart as in the reference's tree."""
+
+    def __init__(self, cfg: ModelConfig, tree: Pytree):
+        super().__init__(cfg, tree)
+        n_rec, n_attn = _hybrid_counts(cfg)
         layers = tree["layers"]
-        self.layers = nn.ModuleList(
-            DecoderLayer({g: {n: t[i] for n, t in leaves.items()}
-                          for g, leaves in layers.items()})
-            for i in range(cfg.num_layers))
+        self.rec_layers = common.stack_layers(
+            {g: layers[g] for g in REC_GROUPS}, n_rec)
+        self.attn_layers = common.stack_layers(
+            {g: layers[g] for g in ATTN_GROUPS}, n_attn)
+
+
+def build(cfg: ModelConfig, tree: Pytree) -> _LM:
+    """The decoder's modules for ``cfg`` from a tree in the reference's
+    layout."""
+    return (HybridLM if cfg.family == "hybrid" else DecoderLM)(cfg, tree)
 
 
 # --------------------------------------------------------- layer schedules ---
@@ -140,7 +191,7 @@ def layer_schedule(cfg: ModelConfig) -> Tuple[np.ndarray, np.ndarray]:
 
 
 # ------------------------------------------------------------- embeddings ----
-def embed_tokens(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
+def embed_tokens(cfg: ModelConfig, params: _LM, tokens: torch.Tensor,
                  extra_embeds: Optional[torch.Tensor]) -> torch.Tensor:
     h = common.embed_lookup(params.embed, tokens).to(cfg.compute_dtype)
     if extra_embeds is not None:   # VLM / audio stub: prepend frontier embeds
@@ -152,7 +203,7 @@ def embed_tokens(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
     return h
 
 
-def lm_logits(cfg: ModelConfig, params: DecoderLM,
+def lm_logits(cfg: ModelConfig, params: _LM,
               h: torch.Tensor) -> torch.Tensor:
     h = common.apply_norm(cfg, h, params.final_norm)
     if cfg.tie_embeddings:
@@ -161,23 +212,31 @@ def lm_logits(cfg: ModelConfig, params: DecoderLM,
 
 
 # -------------------------------------------------------------- full pass ----
-def _attend(cfg: ModelConfig, lp: DecoderLayer, h: torch.Tensor,
-            positions: torch.Tensor, window: int, theta: float):
-    """ln1 and the projections: (x's q, k, v) with rope applied."""
-    x = common.apply_norm(cfg, h, lp.ln1)
-    q, k, v = attn.project_qkv(cfg, lp.attn, x)
+def _attend(cfg: ModelConfig, p, ln, h: torch.Tensor,
+            positions: torch.Tensor, theta: float):
+    """The norm ``ln`` and the projections of attention ``p``: (x's q, k,
+    v) with rope applied."""
+    x = common.apply_norm(cfg, h, ln)
+    q, k, v = attn.project_qkv(cfg, p, x)
     if cfg.pos_embed == "rope":
         q = common.rope(q, positions, theta)
         k = common.rope(k, positions, theta)
     return q, k, v
 
 
-def _finish(cfg: ModelConfig, lp: DecoderLayer, h: torch.Tensor,
-            o: torch.Tensor) -> torch.Tensor:
-    """The attention output's projection and residual, then the MLP."""
+def _ffn(cfg: ModelConfig, p, x: torch.Tensor):
+    """The feed-forward block -> (y, the MoE's aux loss or None)."""
+    if cfg.family == "moe":
+        return moe.moe_ffn(cfg, p, x)
+    return mlp_forward(cfg, p, x), None
+
+
+def _finish(cfg: ModelConfig, lp, h: torch.Tensor, o: torch.Tensor):
+    """The attention output's projection and residual, then the MLP or the
+    MoE -> (h, aux or None)."""
     h = h + attn.out_proj(lp.attn, o)
-    x = common.apply_norm(cfg, h, lp.ln2)
-    return h + mlp_forward(cfg, lp.ffn, x)
+    y, aux = _ffn(cfg, lp.ffn, common.apply_norm(cfg, h, lp.ln2))
+    return h + y, aux
 
 
 def _full_attention(cfg, q, k, v, window):
@@ -187,33 +246,123 @@ def _full_attention(cfg, q, k, v, window):
                                   repeat_kv=cfg.repeat_kv)
 
 
-def _uniform_block(cfg: ModelConfig, lp: DecoderLayer, h: torch.Tensor,
-                   positions: torch.Tensor, window: int,
-                   theta: float) -> torch.Tensor:
-    q, k, v = _attend(cfg, lp, h, positions, window, theta)
+def _uniform_block(cfg: ModelConfig, lp, h: torch.Tensor,
+                   positions: torch.Tensor, window: int, theta: float):
+    """One layer of the uniform stack -> (h, aux or None)."""
+    if cfg.family == "ssm":
+        return h + ssd.ssd_forward(cfg, lp.mix, common.apply_norm(
+            cfg, h, lp.ln1)), None
+    q, k, v = _attend(cfg, lp.attn, lp.ln1, h, positions, theta)
     return _finish(cfg, lp, h, _full_attention(cfg, q, k, v, window))
 
 
-def forward_hidden(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
+def forward_hidden(cfg: ModelConfig, params: _LM, tokens: torch.Tensor,
                    extra_embeds: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence pass -> (hidden (B,S,d), moe_aux scalar): the
+    """Full-sequence pass -> (hidden (B,S,d), moe_aux scalar: the MoE
+    layers' aux losses summed, 0 for the other families): the
     reference's with ``remat=False`` (rematerialization, its training
     switch, changes no value)."""
     h = embed_tokens(cfg, params, tokens, extra_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family == "hybrid":
+        return _hybrid_forward(cfg, params, h, positions), aux_total
     windows, thetas = layer_schedule(cfg)
     for lp, w, th in zip(params.layers, windows, thetas):
-        h = _uniform_block(cfg, lp, h, positions, int(w), float(th))
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+        h, aux = _uniform_block(cfg, lp, h, positions, int(w), float(th))
+        if aux is not None:
+            aux_total = aux_total + aux
+    return h, aux_total
 
 
-def forward(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
+def forward(cfg: ModelConfig, params: _LM, tokens: torch.Tensor,
             extra_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence pass -> (logits (B,S,V), moe_aux scalar)."""
     h, aux = forward_hidden(cfg, params, tokens, extra_embeds)
     return lm_logits(cfg, params, h), aux
+
+
+# ------------------------------------------------------------------- hybrid --
+def _hybrid_slots(cfg: ModelConfig) -> List[Tuple[bool, int]]:
+    """(attention, index in its stack) of each hybrid layer in order: the
+    (rec, ..., attn) groups, then the trailing recurrent layers."""
+    _, n_attn = _hybrid_counts(cfg)
+    out, ri, ai = [], 0, 0
+    for i in range(cfg.num_layers):
+        if (i + 1) % cfg.attn_every == 0 and ai < n_attn:
+            out.append((True, ai))
+            ai += 1
+        else:
+            out.append((False, ri))
+            ri += 1
+    return out
+
+
+def _rec_mlp(cfg: ModelConfig, lp, h: torch.Tensor) -> torch.Tensor:
+    return h + mlp_forward(cfg, lp.rec_mlp,
+                           common.apply_norm(cfg, h, lp.rec_mlp_ln))
+
+
+def _attn_finish(cfg: ModelConfig, lp, h: torch.Tensor,
+                 o: torch.Tensor) -> torch.Tensor:
+    h = h + attn.out_proj(lp.attn, o)
+    return h + mlp_forward(cfg, lp.attn_mlp,
+                           common.apply_norm(cfg, h, lp.attn_mlp_ln))
+
+
+def _hybrid_forward(cfg: ModelConfig, params: HybridLM, h: torch.Tensor,
+                    positions: torch.Tensor, cache: Optional[Pytree] = None
+                    ) -> torch.Tensor:
+    """The hybrid stack over a sequence; with ``cache``, the prefill: each
+    recurrent layer's final state and each attention layer's last
+    ``window`` keys and values written into it."""
+    s = h.shape[1]
+    for is_attn, j in _hybrid_slots(cfg):
+        if is_attn:
+            lp = params.attn_layers[j]
+            q, k, v = _attend(cfg, lp.attn, lp.attn_ln, h, positions,
+                              cfg.rope_theta)
+            if cache is not None:
+                _write_ring(cache["k"][j], k, s)
+                _write_ring(cache["v"][j], v, s)
+            h = _attn_finish(cfg, lp, h, attn.chunked_attention(
+                q, k, v, causal=True, window=cfg.window_size,
+                chunk=cfg.attn_chunk, repeat_kv=cfg.repeat_kv))
+        else:
+            lp = params.rec_layers[j]
+            x = common.apply_norm(cfg, h, lp.rec_ln)
+            y, hseq, u_raw = rglru.rglru_sequence(cfg, lp.rec, x)
+            if cache is not None:
+                cache["rec"]["h"][j].copy_(hseq[:, -1])
+                cache["rec"]["conv"][j].copy_(u_raw[:, -3:])
+            h = _rec_mlp(cfg, lp, h + y)
+    return h
+
+
+def _hybrid_decode(cfg: ModelConfig, params: HybridLM, cache: Pytree,
+                   h: torch.Tensor) -> torch.Tensor:
+    pos = int(cache["pos"])
+    positions = torch.tensor([pos], device=h.device)
+    for is_attn, j in _hybrid_slots(cfg):
+        if is_attn:
+            lp = params.attn_layers[j]
+            q, k, v = _attend(cfg, lp.attn, lp.attn_ln, h, positions,
+                              cfg.rope_theta)
+            kc, vc = cache["k"][j], cache["v"][j]
+            win = kc.shape[1]
+            attn.update_cache(kc, vc, k, v, pos % win)
+            h = _attn_finish(cfg, lp, h, _ring_decode_attn(
+                q, kc, vc, min(pos + 1, win)))
+        else:
+            lp = params.rec_layers[j]
+            x = common.apply_norm(cfg, h, lp.rec_ln)
+            state = {"h": cache["rec"]["h"][j],
+                     "conv": cache["rec"]["conv"][j]}
+            y = rglru.rglru_decode_step(cfg, lp.rec, state, x[:, 0])
+            h = _rec_mlp(cfg, lp, h + y[:, None])
+    return h
 
 
 # ------------------------------------------------------------------ caches ---
@@ -225,7 +374,8 @@ def _pattern_counts(cfg: ModelConfig):
 
 
 def _windowed(cfg: ModelConfig) -> bool:
-    return bool(cfg.windowed_decode_cache and cfg.window_size)
+    return bool(cfg.windowed_decode_cache and cfg.window_size and
+                cfg.family in ("dense", "moe"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
@@ -243,9 +393,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                 "kl": zeros(max(n_l, 1), batch, win, kv, hd),
                 "vl": zeros(max(n_l, 1), batch, win, kv, hd),
                 "pos": 0}
+    if cfg.family == "ssm":
+        per = ssd.ssd_init_state(cfg, batch, dtype, device)
+        return {"layers": {name: t.expand((cfg.num_layers,) + t.shape)
+                           .contiguous() for name, t in per.items()},
+                "pos": 0}
+    if cfg.family == "hybrid":
+        n_rec, n_attn = _hybrid_counts(cfg)
+        rec = rglru.rglru_init_state(cfg, batch, dtype, device)
+        win = min(cfg.window_size or max_seq, max_seq)
+        return {"rec": {name: t.expand((n_rec,) + t.shape).contiguous()
+                        for name, t in rec.items()},
+                "k": zeros(n_attn, batch, win, kv, hd),
+                "v": zeros(n_attn, batch, win, kv, hd),
+                "pos": 0}
     return {"k": zeros(cfg.num_layers, batch, max_seq, kv, hd),
             "v": zeros(cfg.num_layers, batch, max_seq, kv, hd),
             "pos": 0}
+
+
+def _ssd_state(cache: Pytree, i: int) -> Dict[str, torch.Tensor]:
+    """Layer i's SSD state: views of the cache's stacked leaves."""
+    return {name: t[i] for name, t in cache["layers"].items()}
 
 
 def _slots(cfg: ModelConfig) -> List[Tuple[bool, int]]:
@@ -259,7 +428,7 @@ def _slots(cfg: ModelConfig) -> List[Tuple[bool, int]]:
 
 
 # ------------------------------------------------------------------ prefill --
-def prefill(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
+def prefill(cfg: ModelConfig, params: _LM, tokens: torch.Tensor,
             cache: Pytree, extra_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Pytree]:
     """Process the prompt, fill the cache (in place), return last-position
@@ -267,20 +436,33 @@ def prefill(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
     h = embed_tokens(cfg, params, tokens, extra_embeds)
     s = h.shape[1]
     positions = torch.arange(s, device=h.device)
-    windows, thetas = layer_schedule(cfg)
-    windowed = "kg" in cache
-    slots = _slots(cfg) if windowed else None
-    for i, (lp, w, th) in enumerate(zip(params.layers, windows, thetas)):
-        q, k, v = _attend(cfg, lp, h, positions, int(w), float(th))
-        if not windowed:
-            attn.update_cache(cache["k"][i], cache["v"][i], k, v, 0)
-        elif slots[i][0]:
-            _write_ring(cache["kl"][slots[i][1]], k, s)
-            _write_ring(cache["vl"][slots[i][1]], v, s)
-        else:
-            attn.update_cache(cache["kg"][slots[i][1]],
-                              cache["vg"][slots[i][1]], k, v, 0)
-        h = _finish(cfg, lp, h, _full_attention(cfg, q, k, v, int(w)))
+    if cfg.family == "hybrid":
+        h = _hybrid_forward(cfg, params, h, positions, cache)
+    elif cfg.family == "ssm":
+        # The chunked form for the outputs, then each layer's final state
+        # by the reference's per-token recurrence.
+        for i, lp in enumerate(params.layers):
+            x = common.apply_norm(cfg, h, lp.ln1)
+            y = ssd.ssd_forward(cfg, lp.mix, x)
+            ssd.ssd_final_state(cfg, lp.mix, x, _ssd_state(cache, i))
+            h = h + y
+    else:
+        windows, thetas = layer_schedule(cfg)
+        windowed = "kg" in cache
+        slots = _slots(cfg) if windowed else None
+        for i, (lp, w, th) in enumerate(zip(params.layers, windows,
+                                            thetas)):
+            q, k, v = _attend(cfg, lp.attn, lp.ln1, h, positions, float(th))
+            if not windowed:
+                attn.update_cache(cache["k"][i], cache["v"][i], k, v, 0)
+            elif slots[i][0]:
+                _write_ring(cache["kl"][slots[i][1]], k, s)
+                _write_ring(cache["vl"][slots[i][1]], v, s)
+            else:
+                attn.update_cache(cache["kg"][slots[i][1]],
+                                  cache["vg"][slots[i][1]], k, v, 0)
+            h = _finish(cfg, lp, h, _full_attention(cfg, q, k, v,
+                                                    int(w)))[0]
     cache["pos"] = s
     return lm_logits(cfg, params, h[:, -1:]), cache
 
@@ -298,19 +480,35 @@ def _write_ring(buf: torch.Tensor, x: torch.Tensor, s: int) -> None:
 
 
 # --------------------------------------------------------------- decode ------
-def decode_step(cfg: ModelConfig, params: DecoderLM, cache: Pytree,
+def decode_step(cfg: ModelConfig, params: _LM, cache: Pytree,
                 token: torch.Tensor) -> Tuple[torch.Tensor, Pytree]:
     """One decode step for the whole batch.  token (B,) -> logits (B, V);
     the cache is updated in place."""
     pos = int(cache["pos"])
     h = common.embed_lookup(params.embed, token[:, None]).to(
         cfg.compute_dtype)                                   # (B, 1, d)
+    if cfg.family == "hybrid":
+        h = _hybrid_decode(cfg, params, cache, h)
+    elif cfg.family == "ssm":
+        for i, lp in enumerate(params.layers):
+            x = common.apply_norm(cfg, h, lp.ln1)
+            h = h + ssd.ssd_decode_step(cfg, lp.mix, _ssd_state(cache, i),
+                                        x[:, 0])[:, None]
+    else:
+        h = _attention_decode(cfg, params, cache, h, pos)
+    cache["pos"] = pos + 1
+    return lm_logits(cfg, params, h)[:, 0], cache
+
+
+def _attention_decode(cfg: ModelConfig, params: DecoderLM, cache: Pytree,
+                      h: torch.Tensor, pos: int) -> torch.Tensor:
+    """The uniform attention stack's decode (both cache layouts)."""
     positions = torch.tensor([pos], device=h.device)
     windows, thetas = layer_schedule(cfg)
     windowed = "kg" in cache
     slots = _slots(cfg) if windowed else None
     for i, (lp, w, th) in enumerate(zip(params.layers, windows, thetas)):
-        q, k, v = _attend(cfg, lp, h, positions, int(w), float(th))
+        q, k, v = _attend(cfg, lp.attn, lp.ln1, h, positions, float(th))
         if windowed and slots[i][0]:
             kc, vc = cache["kl"][slots[i][1]], cache["vl"][slots[i][1]]
             win = kc.shape[1]
@@ -326,9 +524,8 @@ def decode_step(cfg: ModelConfig, params: DecoderLM, cache: Pytree,
             attn.update_cache(kc, vc, k, v, pos)
             o = attn.decode_attention(q, kc, vc, pos, window=int(w),
                                       softcap=cfg.logit_softcap)
-        h = _finish(cfg, lp, h, o)
-    cache["pos"] = pos + 1
-    return lm_logits(cfg, params, h)[:, 0], cache
+        h = _finish(cfg, lp, h, o)[0]
+    return h
 
 
 def _ring_decode_attn(q, kc, vc, valid_len: int, softcap: float = 0.0):

@@ -416,6 +416,15 @@ def normal_bf16_plain(key: torch.Tensor, shape: Shape,
                     lambda bits: table[(bits >> 1) & 0x7F])
 
 
+def normal_bf16_window(key: torch.Tensor, start: int, count: int,
+                       device) -> torch.Tensor:
+    """Draws start .. start + count - 1 of a bfloat16 normal draw of
+    ``key`` of any shape (flat index i hashes counter i), on any device: a
+    window of a large draw without the whole of it."""
+    table = normal_bf16_table().to(device)
+    return table[(_bits(key, start, count, device) >> 1) & 0x7F]
+
+
 def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
     """Sequential float32 running sum along the last axis."""
     out = x.clone()
@@ -425,21 +434,22 @@ def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive float32 prefix sum of a 1-D tensor in the order of XLA's
-    CPU ``jnp.cumsum``: rows of 16 (zero-padded at the end) summed in
-    order, the row totals' prefix by the same scheme (in order once 16 or
-    fewer remain), and each row's exclusive prefix added to it.  The same
-    float32 adds on every device; never ``torch.cumsum``, which accumulates
-    in float64 on the CPU."""
-    n = x.shape[0]
+    """Inclusive float32 prefix sum along the last axis in the order of
+    XLA's CPU ``jnp.cumsum`` (along any axis, each line alike): rows of 16
+    (zero-padded at the end) summed in order, the row totals' prefix by
+    the same scheme (in order once 16 or fewer remain), and each row's
+    exclusive prefix added to it.  The same float32 adds on every device;
+    never ``torch.cumsum``, which accumulates in float64 on the CPU."""
+    n = x.shape[-1]
     if n <= 16:
         return _cumsum_rows(x)
-    rows = x.new_zeros((-(-n // 16), 16))
-    rows.view(-1)[:n] = x
+    lead = x.shape[:-1]
+    rows = x.new_zeros(lead + (-(-n // 16), 16))
+    rows.view(lead + (-1,))[..., :n] = x
     rows = _cumsum_rows(rows)
-    totals = cumsum_f32(rows[:, -1].contiguous())
-    rows[1:] += totals[:-1, None]
-    return rows.view(-1)[:n]
+    totals = cumsum_f32(rows[..., -1].contiguous())
+    rows[..., 1:, :] += totals[..., :-1, None]
+    return rows.view(lead + (-1,))[..., :n]
 
 
 def choice(key: torch.Tensor, n: int, shape: Shape,

@@ -991,6 +991,121 @@ def test_decode_matches_forward_on_the_card(cuda):
     assert _rel_err(dec, full) <= 1e-4
 
 
+def test_normal_bf16_counters_past_two_to_the_32(cuda):
+    """A bfloat16 draw of 2^32 + 4,096 elements (the MoE's expert leaves
+    hold 9.7e9): the words around 2^32 and at the end are the plain
+    draw's at the same counters."""
+    key = prng.PRNGKey(21)
+    size = (1 << 32) + 4096
+    got = ops.normal(key, (size,), cuda, dtype=torch.bfloat16)
+    for start in (0, (1 << 32) - 2048, size - 4096):
+        want = prng.normal_bf16_window(key, start, 4096, cuda)
+        assert torch.equal(got[start:start + 4096].view(torch.int16),
+                           want.view(torch.int16))
+    del got
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------ the MoE, SSM, hybrid, encdec families
+FAMILIES = ["qwen3-moe-30b-a3b", "mamba2-780m", "recurrentgemma-2b",
+            "whisper-large-v3"]
+
+
+def _family_run(cfg, bundle, params, device, toks, frames):
+    """(forward's last logits, prefill's logits, 4 decode steps' logits,
+    the cache) of one model on one device."""
+    from repro_torch.models import encdec, transformer
+    toks = toks.to(device)
+    extra = None if frames is None else frames.to(device)
+    if cfg.family == "encdec":
+        full = encdec.forward(cfg, params, toks, extra)[0][:, -1]
+    else:
+        full = transformer.forward(cfg, params, toks)[0][:, -1]
+    cache = bundle.init_cache(2, 64, device=device)
+    s = toks.shape[1] - 4
+    first, cache = bundle.prefill(params, toks[:, :s], cache, extra)
+    steps = []
+    for i in range(s, toks.shape[1]):
+        logits, cache = bundle.decode(params, cache, toks[:, i])
+        steps.append(logits)
+    return full, first, steps, cache
+
+
+def _cache_tensors(cache, prefix=""):
+    for name, t in sorted(cache.items()):
+        if isinstance(t, dict):
+            yield from _cache_tensors(t, f"{prefix}{name}/")
+        elif name != "pos":
+            yield prefix + name, t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_on_the_card_matches_the_cpu(cuda, arch, dtype):
+    """Smoke width: the init's bits (one normal launch per drawn leaf),
+    forward, prefill, 4 decode steps and every cache leaf of the card
+    against the CPU; at float32 the server's tokens equal (the
+    encoder-decoder has no server: the reference's passes no frames)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import ModelBundle
+    from repro_torch.models.common import flatten
+    cfg = smoke_config(arch).scaled(dtype=dtype)
+    bundle = ModelBundle(cfg)
+    ops.reset_launch_counts()
+    card = bundle.init(prng.PRNGKey(0), device=cuda)
+    drawn = sum(1 for _, s in flatten(bundle.specs()) if s.init == "normal")
+    assert ops.launch_counts()["normal"] == drawn
+    cpu = bundle.init(prng.PRNGKey(0), device="cpu")
+    for (name, a), (_, b) in zip(card.state_dict().items(),
+                                 cpu.state_dict().items()):
+        assert torch.equal(a.cpu(), b), name
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(1, cfg.vocab_size - 1, (2, 40)))
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(rs.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).to(
+                cfg.compute_dtype)
+    got = _family_run(cfg, bundle, card, cuda, toks, frames)
+    want = _family_run(cfg, bundle, cpu, "cpu", toks, frames)
+    tol = MODEL_TOL[dtype]
+    for g, w in zip([got[0], got[1]] + got[2], [want[0], want[1]] + want[2]):
+        assert _rel_err(g.float().cpu(), w.float()) <= tol
+    assert got[3]["pos"] == want[3]["pos"] == 40
+    for (name, g), (_, w) in zip(_cache_tensors(got[3]),
+                                 _cache_tensors(want[3])):
+        assert _rel_err(g.float().cpu(), w.float()) <= tol, name
+    if dtype == "float32" and cfg.family != "encdec":
+        prompts = [rs.randint(1, cfg.vocab_size - 1, rs.randint(4, 16))
+                   for _ in range(6)]
+        outs = [BatchedServer(bundle, p, batch=4, max_seq=64).generate(
+            prompts, max_new=8) for p in (cpu, card)]
+        assert outs[0] == outs[1]
+
+
+def test_moe_routing_on_the_card_is_the_cpus(cuda):
+    """The MoE's top-k (ties to the lower expert) and capacity positions
+    from the same probabilities, on probabilities with many ties: the
+    card's stable sorts and scatters give the CPU's, and drops occur."""
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(0)
+    probs = torch.randint(0, 6, (12, 256, 128), generator=g).float() / 6
+    out = []
+    for device in (cuda, "cpu"):
+        _, expert = moe.top_k(probs.to(device), 8)
+        pos, counts = moe.slot_positions(expert.reshape(12, -1), 128)
+        out.append((expert.cpu(), pos.cpu(), counts.cpu()))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert int((out[1][1] >= moe._capacity(256, _moe_cfg())).sum()) > 0
+
+
+def _moe_cfg():
+    from repro_torch.models import get_config
+    return get_config("qwen3-moe-30b-a3b")
+
+
 def test_osn_head_with_the_fused_kernel_matches_the_cpu(cuda):
     """train_osn_head with use_kernels=True on the card: the fused Gram
     once and the coded mat-vec 2 K times an iteration; the CPU's history

@@ -47,7 +47,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "benchmarks.fleet_bench", "benchmarks.scheduler_bench",
                  "benchmarks.tenancy_bench", "models", "models.common",
                  "models.attention", "models.transformer",
-                 "models.registry", "configs", "configs.paper",
+                 "models.registry", "models.moe", "models.ssd",
+                 "models.rglru", "models.encdec", "configs", "configs.paper",
                  "configs.qwen3_4b", "configs.qwen3_32b", "configs.qwen2_7b",
                  "configs.gemma3_27b", "configs.llava_next_34b",
                  "configs.mamba2_780m", "configs.qwen3_moe_30b_a3b",
@@ -121,6 +122,10 @@ def test_entry_points_raise_without_a_device():
         lambda: ops.normal(key, (3,), dtype=torch.bfloat16),
         lambda: get_bundle("qwen3-4b").init(key),
         lambda: get_bundle("qwen3-4b").init_cache(1, 8),
+        *(call for arch in ("qwen3-moe-30b-a3b", "mamba2-780m",
+                            "recurrentgemma-2b", "whisper-large-v3")
+          for call in (lambda a=arch: get_bundle(a).init(key),
+                       lambda a=arch: get_bundle(a).init_cache(1, 8))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

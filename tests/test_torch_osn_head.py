@@ -57,11 +57,11 @@ def reference_example():
 
 
 @functools.lru_cache(maxsize=None)
-def _setup(dtype: str):
+def _setup(dtype: str, arch: str = "qwen3-4b"):
     """(reference features, port features, labels) for N synthetic
     documents with class-conditioned token ranges."""
-    jc = jconfigs.smoke_config("qwen3-4b").scaled(dtype=dtype)
-    tc = tconfigs.smoke_config("qwen3-4b").scaled(dtype=dtype)
+    jc = jconfigs.smoke_config(arch).scaled(dtype=dtype)
+    tc = tconfigs.smoke_config(arch).scaled(dtype=dtype)
     jb, tb = JBundle(jc), TBundle(tc)
     jp = jb.init(jax.random.PRNGKey(0))
     tp = convert.params(tc, jax.tree.map(np.asarray, jp), "cpu")
@@ -119,6 +119,22 @@ def test_train_osn_head_matches_reference(use_kernels):
     assert len(ht["fval"]) == ITERS
     np.testing.assert_allclose(wt.numpy(), np.asarray(wj), rtol=1e-3,
                                atol=1e-4)
+
+
+def test_moe_backbone():
+    """The head on an MoE backbone (qwen3-moe-30b-a3b at smoke width,
+    float32): features within 1e-5, then the fused path's history against
+    the reference's train_osn_head."""
+    fj, ft, labels = _setup("float32", "qwen3-moe-30b-a3b")
+    assert np.abs(ft.numpy() - fj).max() <= 1e-5 * np.abs(fj).max()
+    onehot = np.eye(K, dtype=np.float32)[labels]
+    _, hj = josn.train_osn_head(jnp.asarray(fj), jnp.asarray(onehot),
+                                num_classes=K, iters=ITERS)
+    _, ht = train_osn_head(torch.from_numpy(fj), torch.from_numpy(onehot),
+                           num_classes=K, iters=ITERS, use_kernels=True)
+    assert ht["time"] == hj["time"] and ht["cost"] == hj["cost"]
+    for key in ("fval", "gnorm"):
+        np.testing.assert_allclose(ht[key], hj[key], rtol=RTOL)
 
 
 def test_kernel_flag_keeps_the_history():

@@ -1,7 +1,8 @@
 """``launch/serve.py`` against ``repro/launch/serve.py`` at smoke width:
 the same weights (crossed by ``convert.params``) and prompts give the same
-tokens at float32, waves, left padding and eos included; then the
-command line and ``examples/serve_lm_torch.py --device cpu``."""
+tokens at float32 for every family the reference's server serves, waves,
+left padding and eos included; then the command line and
+``examples/serve_lm_torch.py --device cpu``."""
 import subprocess
 import sys
 from pathlib import Path
@@ -55,15 +56,22 @@ def _prompts(vocab: int, n: int, seed: int = 0):
     return [rs.randint(1, vocab - 1, rs.randint(4, 16)) for _ in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-27b",
+                                  "qwen3-moe-30b-a3b", "mamba2-780m",
+                                  "recurrentgemma-2b"])
 def test_generate_same_tokens_at_float32(arch):
     """Ten prompts in waves of four (the last wave short), 12 new tokens
-    each: the port serves the reference's tokens, one for one."""
+    each: the port serves the reference's tokens, one for one, for the
+    dense, MoE, SSM and hybrid families (the reference's server passes no
+    frame embeddings, so it serves no encoder-decoder)."""
     jb, jp, tb, tp = _bundles(arch)
     prompts = _prompts(jb.cfg.vocab_size, 10)
-    want = JServer(jb, jp, batch=4, max_seq=64).generate(prompts, max_new=12)
-    got = tserve.BatchedServer(tb, tp, batch=4, max_seq=64).generate(
+    # No slot stops (eos has its own test below): every request decodes
+    # all 12 tokens, in both packages.
+    want = JServer(jb, jp, batch=4, max_seq=64, eos_id=-1).generate(
         prompts, max_new=12)
+    got = tserve.BatchedServer(tb, tp, batch=4, max_seq=64,
+                               eos_id=-1).generate(prompts, max_new=12)
     assert got == want
     assert all(len(o) == 12 for o in got)
 
