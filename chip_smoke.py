@@ -194,6 +194,25 @@ with its seconds:
            seeded frame embeddings (16, 1,500, 1,280): the reference's
            server passes no frames), each with 3 profiled decode steps
 
+  lm_train_check, lm_train, lm_train_restart
+           the LM training path (training/trainer.py): the trainer at
+           smoke width, float32, 5 steps on the card against the CPU
+           (loss and grad norm within 1e-4), and the two custom backwards
+           (embed_lookup's one-hot product, chunked_cross_entropy) within
+           1e-5 of max |CPU|; qwen3-4b training at its published width
+           from PRNGKey(0), 8 steps of 4 x 128 tokens (the 9 bf16
+           `normal` launches of its init counted): the loss and grad norm
+           a step, step ms, tokens a second, launch/analytic.py's bound,
+           one profiled step (kernels, device ms, idle share) and one
+           timed in its stages (loss and backward, norm, AdamW), the state's
+           bytes and peak memory, the loss falling, and the embedding's
+           gradient within 1e-2 of autograd's default on uniform tokens
+           and of the float32 sum on the pipeline's Zipfian ones; then at the
+           same width cut to 2 layers, 6 steps uninterrupted and 6 with a
+           checkpoint at step 4 and a failure at step 5 into a temp dir:
+           the steps after the restore bit for bit, save and restore
+           seconds
+
 Every Newton run on the card (exact Newton's included) computes its coded
 gradient with the coded mat-vec kernel: two launches per iteration, as
 the default fleet's coded_decode policy waits for a peelable set and no
@@ -209,6 +228,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2966,6 +2986,392 @@ def run_families(ops, prng, dev) -> dict:
 
 
 
+# ------------------------------------------------------- the LM training path
+# qwen3-4b at its published width (36 layers, d 2,560, vocab 151,936):
+# TrainerConfig(arch="qwen3-4b", smoke=False, steps=8, batch=4, seq=128,
+# lr=1e-3), no checkpoint.  The restart at the same width with the depth
+# cut to 2 layers (979.7M parameters, 7.84 GB of state a save).
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 128, 1e-3
+TRAIN_CHECK_STEPS = 5
+TRAIN_CHECK_TOL = 1e-4      # card vs CPU, smoke width, float32
+TRAIN_GRAD_TOL = 1e-5       # the two custom backwards, card vs CPU
+TRAIN_EMBED_TOL = 1e-2      # full-width embed grad vs autograd's default
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 2, 6, 4, 5
+
+
+class _Float32Smoke:
+    """``configs.smoke_config`` at float32 while inside (the trainer reads
+    it at construction)."""
+
+    def __enter__(self):
+        from repro_torch import configs
+        self.base = configs.smoke_config
+        configs.smoke_config = lambda name: self.base(name).scaled(
+            dtype="float32")
+
+    def __exit__(self, *exc):
+        from repro_torch import configs
+        configs.smoke_config = self.base
+
+
+def check_train_backwards(dev) -> dict:
+    """embed_lookup's one-hot backward and chunked_cross_entropy's value
+    and gradients (chunk < S, an ignored label, tied head) on the card
+    against the CPU, float32, within TRAIN_GRAD_TOL of max |CPU|."""
+    import torch
+    from repro_torch.models import common
+    g = torch.Generator().manual_seed(SEED)
+    vocab, d, b, s = 4096, 256, 4, 600
+    toks = torch.randint(0, vocab, (b, s), generator=g)
+    cot = torch.randn(b, s, d, generator=g)
+    h = torch.randn(b, s, d, generator=g)
+    head = torch.randn(vocab, d, generator=g) / 16
+    labels = torch.randint(0, vocab, (b, s), generator=g)
+    labels[:, -1] = -1
+    out = {}
+    for device in ("cpu", dev):
+        emb = common.embed_grad(toks.to(device), cot.to(device), vocab,
+                                torch.float32)
+        hh = h.detach().to(device).requires_grad_(True)
+        hd = head.detach().to(device).requires_grad_(True)
+        loss = common.chunked_cross_entropy(hh, hd, labels.to(device),
+                                            transpose_head=True, chunk=256)
+        loss.backward()
+        out[str(device)] = [emb.cpu(), loss.detach().cpu(), hh.grad.cpu(),
+                            hd.grad.cpu()]
+    cpu, card = out["cpu"], out[str(dev)]
+    rows = {}
+    for name, a, c in zip(("embed_grad", "ce_loss", "ce_grad_h",
+                           "ce_grad_head"), cpu, card):
+        rel = float((c - a).abs().max() / a.abs().max())
+        rows[name] = rel
+        if not rel <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"lm_train_check: {name} on the card "
+                                 f"differs from the CPU by {rel}")
+    rows["shapes"] = {"vocab": vocab, "d": d, "batch": b, "seq": s,
+                      "ce_chunk": 256, "embed_chunk": 512}
+    return rows
+
+
+def run_lm_train_check(ops, dev) -> dict:
+    """The trainer at smoke width, float32: TRAIN_CHECK_STEPS steps on the
+    card against the CPU (loss and grad norm within TRAIN_CHECK_TOL), then
+    the two custom backwards (``check_train_backwards``)."""
+    from repro_torch.training import trainer as tr
+    fresh_peak()
+    t0 = time.perf_counter()
+    hist, launches = {}, None
+    with _Float32Smoke():
+        for device in (dev, "cpu"):
+            t = tr.Trainer(tr.TrainerConfig(
+                arch=LM_ARCH, steps=TRAIN_CHECK_STEPS, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, lr=TRAIN_LR), device=device)
+            ops.reset_launch_counts()
+            _, _, hist[str(device)] = t.run(*t.init_state())
+            if launches is None:
+                launches = ops.launch_counts()
+    card, cpu = hist[str(dev)], hist["cpu"]
+    rel = {k: [abs(a[k] - c[k]) / abs(c[k]) for a, c in zip(card, cpu)]
+           for k in ("loss", "grad_norm")}
+    row = {"phase": "lm_train_check", "arch": LM_ARCH, "dtype": "float32",
+           "steps": TRAIN_CHECK_STEPS, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "card_loss": [h["loss"] for h in card],
+           "cpu_loss": [h["loss"] for h in cpu],
+           "loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
+           "tol": TRAIN_CHECK_TOL, "launches": launches,
+           "backwards": check_train_backwards(dev),
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    if max(rel["loss"] + rel["grad_norm"]) > TRAIN_CHECK_TOL:
+        raise AssertionError(f"lm_train_check: card and CPU differ: {rel}")
+    return launches
+
+
+def train_bound(analytic, registry, cfg) -> dict:
+    """launch/analytic.py's flops and HBM bytes of one train step of
+    TRAIN_BATCH x TRAIN_SEQ tokens on one card (mesh 1 x 1), and the
+    bound: the larger of flops at BF16_FLOPS and bytes at
+    HBM_BYTES_PER_S."""
+    c = analytic.cell_costs(cfg, registry.ShapeSpec(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH), chips=1, mesh_model=1,
+        mesh_data=1)
+    t_f = c.flops_per_chip / BF16_FLOPS * 1e3
+    t_b = c.hbm_bytes_per_chip / HBM_BYTES_PER_S * 1e3
+    return {"flops": c.flops_per_chip, "bytes": c.hbm_bytes_per_chip,
+            "flops_ms": t_f, "bytes_ms": t_b, "bound_ms": max(t_f, t_b),
+            "bound_by": "operations" if t_f >= t_b else "bytes"}
+
+
+def profile_train_step(trainer, params, opt, dev) -> tuple:
+    """torch.profiler over one more train step (step TRAIN_STEPS's batch):
+    device kernels, device ms beside the wall ms, the device's idle share
+    and the operators that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    batch = trainer.pipeline.device_batch(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt, _ = trainer.step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:10]
+    return opt, {"wall_ms": wall_ms, "device_ms": device_ms,
+                 "idle_share": 1.0 - device_ms / wall_ms,
+                 "kernels": sum(e.count for e in events),
+                 "top": [{"op": e.key[:80], "device_ms": dev_us(e) / 1e3,
+                          "calls": e.count} for e in top]}
+
+
+def train_stage_ms(trainer, params, opt, dev) -> tuple:
+    """One more train step (step TRAIN_STEPS + 1's batch) in its stages,
+    each bracketed by CUDA events and host clocks: the loss and its
+    backward (``trainer.grads``), the grad norm, AdamW's update."""
+    import torch
+    from repro_torch.optim import adamw
+    batch = trainer.pipeline.device_batch(TRAIN_STEPS + 1)
+    out = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = {"device_ms": start.elapsed_time(end),
+                     "wall_ms": (time.perf_counter() - t0) * 1e3}
+        return res
+    _, grads = stage("loss_backward", lambda: trainer.grads(params, batch))
+    gnorm = stage("grad_norm", lambda: adamw.global_norm(grads))
+    _, opt = stage("adamw", lambda: adamw.apply(trainer.ocfg, grads, opt,
+                                                params.tree, gnorm))
+    return opt, out
+
+
+def check_embed_grad(params, zipf, dev) -> dict:
+    """The embedding's gradient at full width (151,936 x 2,560, bf16) of a
+    lookup of TRAIN_BATCH x TRAIN_SEQ tokens with a seeded normal
+    cotangent, the one-hot backward (``common.embed_grad``):
+      * on uniform tokens (few repeat) against autograd's default gather
+        backward (an index-put with atomic adds), within TRAIN_EMBED_TOL
+        of max |default|;
+      * on ``zipf`` (the pipeline's first batch: one token up to ~130
+        times) against the float32 sum (``index_add_`` of the float32
+        cotangent, rounded once to bf16), within TRAIN_EMBED_TOL; the
+        default's gap from that sum is printed beside it (it adds in the
+        parameter's bf16).
+    Each backward timed on the Zipfian tokens."""
+    import torch
+    from repro_torch.models import common
+    embed = params.embed
+    vocab, d = embed.shape
+    g = torch.Generator().manual_seed(SEED + 2)
+    uniform = torch.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                            generator=g).to(dev)
+    cot = torch.randn(TRAIN_BATCH, TRAIN_SEQ, d, generator=g).to(
+        dev, embed.dtype)
+
+    def default(toks):
+        e = embed.detach().requires_grad_(True)
+        e[toks].backward(cot)
+        return e.grad
+
+    def ours(toks):
+        return common.embed_grad(toks, cot, vocab, embed.dtype)
+
+    def f32_sum(toks):
+        return torch.zeros(vocab, d, device=dev).index_add_(
+            0, toks.reshape(-1), cot.float().reshape(-1, d)).to(embed.dtype)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() /
+                     b.float().abs().max())
+    row = {"uniform_vs_default": rel(ours(uniform), default(uniform)),
+           "zipf_vs_f32_sum": rel(ours(zipf), f32_sum(zipf)),
+           "default_zipf_vs_f32_sum": rel(default(zipf), f32_sum(zipf)),
+           "distinct_tokens": {"uniform": int(uniform.unique().numel()),
+                               "zipf": int(zipf.unique().numel())},
+           "max_repeats_zipf": int(torch.bincount(zipf.reshape(-1)).max()),
+           "tol": TRAIN_EMBED_TOL,
+           "ms": cuda_ms(lambda: ours(zipf), 3),
+           "default_ms": cuda_ms(lambda: default(zipf), 3)}
+    for key in ("uniform_vs_default", "zipf_vs_f32_sum"):
+        if not row[key] <= TRAIN_EMBED_TOL:
+            raise AssertionError(f"lm_train: the embedding's gradient "
+                                 f"{key} {row[key]}")
+    return row
+
+
+def run_lm_train(ops, dev) -> dict:
+    """qwen3-4b at full width from PRNGKey(0): TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens; per step the loss, grad norm and step
+    ms; tokens a second from the median of steps 1 .. 7; the analytic
+    bound; one profiled step and one more timed in its stages; peak
+    memory; the embedding's gradient against autograd's default.  The
+    loss must fall, every number be finite."""
+    import torch
+    from repro_torch.launch import analytic
+    from repro_torch.models import registry
+    from repro_torch.training import trainer as tr
+    fresh_peak()
+    t0 = time.perf_counter()
+    trainer = tr.Trainer(tr.TrainerConfig(
+        arch=LM_ARCH, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, lr=TRAIN_LR), device=dev)
+    ops.reset_launch_counts()
+    params, opt = trainer.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params, opt, hist = trainer.run(params, opt)
+    launches = ops.launch_counts()
+    state_bytes = {
+        name: sum(t.numel() * t.element_size()
+                  for _, t in common_leaves(tree))
+        for name, tree in (("params", params.tree),
+                           ("grads", trainer.grad_tree), ("mu", opt.mu),
+                           ("nu", opt.nu))}
+    peak_run = peak_gib()
+    ms = sorted(h["step_time"] * 1e3 for h in hist[1:])
+    median = ms[len(ms) // 2]
+    opt, prof = profile_train_step(trainer, params, opt, dev)
+    opt, stages = train_stage_ms(trainer, params, opt, dev)
+    row = {"phase": "lm_train", "arch": LM_ARCH, "params":
+           trainer.bundle.param_count(), "steps": TRAIN_STEPS,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+           "init_s": init_s,
+           "loss": [h["loss"] for h in hist],
+           "grad_norm": [h["grad_norm"] for h in hist],
+           "step_ms": [h["step_time"] * 1e3 for h in hist],
+           "step_ms_median_1_7": median,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+           "bound": train_bound(analytic, registry, trainer.mcfg),
+           "profile_step": prof, "stages": stages,
+           "state_gb": {k: v / 1e9 for k, v in
+                                               state_bytes.items()},
+           "state_gb_total": sum(state_bytes.values()) / 1e9,
+           "peak_gib": peak_run, "launches": launches}
+    row["bound_share"] = row["bound"]["bound_ms"] / median
+    row["embed_grad"] = check_embed_grad(
+        params, trainer.pipeline.device_batch(0)["tokens"], dev)
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    values = row["loss"] + row["grad_norm"]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"lm_train: a loss or norm is not finite: "
+                             f"{values}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"lm_train: the loss did not fall: "
+                             f"{row['loss']}")
+    drawn = sum(1 for _, sp in common_leaves(trainer.bundle.specs())
+                if sp.init == "normal")
+    if launches["normal"] != drawn:
+        raise AssertionError(f"lm_train: {launches['normal']} normal "
+                             f"launches for {drawn} drawn leaves")
+    return launches
+
+
+def common_leaves(tree):
+    from repro_torch.models.common import flatten
+    return flatten(tree)
+
+
+def run_lm_train_restart(ops, dev) -> dict:
+    """qwen3-4b's width at RESTART_LAYERS layers: RESTART_STEPS steps
+    uninterrupted, then again with a checkpoint every RESTART_EVERY steps
+    into a temp dir (deleted after) and a failure at step RESTART_FAIL:
+    the steps after the restore must have the uninterrupted run's losses
+    and norms bit for bit.  The save (snapshot and write) and restore
+    seconds are printed."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.models import registry
+    from repro_torch.training import trainer as tr
+    fresh_peak()
+    t0 = time.perf_counter()
+
+    def trainer(**kw):
+        t = tr.Trainer(tr.TrainerConfig(
+            arch=LM_ARCH, smoke=False, steps=RESTART_STEPS,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, **kw), device=dev)
+        t.mcfg = t.mcfg.scaled(num_layers=RESTART_LAYERS)
+        t.bundle = registry.ModelBundle(t.mcfg)
+        return t
+    ops.reset_launch_counts()
+    plain = trainer()
+    _, _, full = plain.run(*plain.init_state())
+    del plain
+    torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix="lm_train_restart-")
+    times = {"snapshot_s": [], "write_s": [], "restore_s": []}
+    try:
+        t = trainer(ckpt_dir=directory, ckpt_every=RESTART_EVERY)
+        save, async_save, restore = t.ckpt.save, t.ckpt.async_save, \
+            t.restore
+
+        def timed(fn, key):
+            def run(*a, **k):
+                s0 = time.perf_counter()
+                out = fn(*a, **k)
+                if key == "restore_s":
+                    torch.cuda.synchronize()
+                times[key].append(time.perf_counter() - s0)
+                return out
+            return run
+        t.ckpt.save = timed(save, "write_s")
+        t.ckpt.async_save = timed(async_save, "snapshot_s")
+        t.restore = timed(restore, "restore_s")
+        hist = t.run_with_restarts(fail_at=RESTART_FAIL)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(root, f))
+                         for root, _, files in os.walk(directory)
+                         for f in files)
+        params = t.bundle.param_count()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    launches = ops.launch_counts()
+    after = {h["step"]: (h["loss"], h["grad_norm"]) for h in hist}
+    want = {h["step"]: (h["loss"], h["grad_norm"]) for h in full}
+    resumed = sorted(after)
+    equal = all(after[s] == want[s] for s in resumed)
+    row = {"phase": "lm_train_restart", "arch": LM_ARCH,
+           "layers": RESTART_LAYERS, "params": params,
+           "state_gb": params * (2 + 2 + 2 + 4) / 1e9,
+           "checkpoint_gb": ckpt_bytes / 1e9, "steps": RESTART_STEPS,
+           "ckpt_every": RESTART_EVERY, "fail_at": RESTART_FAIL,
+           "resumed_steps": resumed,
+           "uninterrupted": [want[s] for s in sorted(want)],
+           "after_restore": [after[s] for s in resumed],
+           "bit_for_bit": equal, **times, "launches": launches,
+           "peak_gib": peak_gib(), "seconds": time.perf_counter() - t0}
+    emit(row)
+    if resumed != list(range(RESTART_EVERY, RESTART_STEPS)) or not equal:
+        raise AssertionError("lm_train_restart: the steps after the "
+                             "restore differ from the uninterrupted run")
+    return launches
+
+
+def run_training(ops, dev) -> dict:
+    """The LM training path on a card holding no earlier model: the smoke
+    check, qwen3-4b at full width, and the restart at 2 layers.  Returns
+    each run's launches."""
+    import torch
+    paths = {"lm_train_check": run_lm_train_check(ops, dev)}
+    torch.cuda.empty_cache()
+    paths["lm_train"] = run_lm_train(ops, dev)
+    torch.cuda.empty_cache()
+    paths["lm_train_restart"] = run_lm_train_restart(ops, dev)
+    torch.cuda.empty_cache()
+    return paths
+
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -3209,6 +3615,10 @@ def main() -> int:
     moe_paths, moe_rows = run_moe(ops, ref, core, prng, sketching, dev)
     paths.update(moe_paths)
     paths.update(run_families(ops, prng, dev))
+
+    # The LM training path: the trainer at smoke width on the card against
+    # the CPU, qwen3-4b training at full width, and its restart.
+    paths.update(run_training(ops, dev))
 
     # Each kernel's numbers at the shape its full-width path launches it:
     # count_sketch_apply at b = 4,096 (distributed-avg), the coded mat-vec

@@ -1,0 +1,4 @@
+"""Atomic checkpoints of training state (``CheckpointManager``)."""
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -7,6 +7,7 @@ array), so nothing here imports jax or ``repro``:
   vector(w0, device)                     -> float32 tensor
   key(raw)                               -> a prng key from uint32[2]
   params(cfg, tree, device)              -> a model's modules
+  adamw_state(state, device)             -> an optim.adamw.AdamWState
 
 With the same inputs and the same key both packages compute on identical
 data and draw identical sketches, masks and fleet timelines.
@@ -67,3 +68,17 @@ def params(cfg, tree, device=None):
             return {k: walk(v) for k, v in node.items()}
         return tensor(node, device)
     return registry.build(cfg, walk(tree))
+
+
+def adamw_state(state, device=None):
+    """The JAX package's ``AdamWState`` (step, mu, nu as numpy trees) as
+    the port's, the moments on ``device`` and the step an int32 host
+    counter."""
+    from repro_torch.optim import adamw
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return tensor(node, device)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32)
+    return adamw.AdamWState(step=step, mu=walk(state.mu), nu=walk(state.nu))

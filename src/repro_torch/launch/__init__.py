@@ -1,2 +1,3 @@
-"""Launchers: the batched server (``serve``) and the analytic cost model
-(``analytic``); the trainer, the dry run and the mesh are not ported yet."""
+"""Launchers: the trainer (``train``), the batched server (``serve``) and
+the analytic cost model (``analytic``); the dry run and the mesh are not
+ported yet (ROADMAP Queue 1 item 12)."""

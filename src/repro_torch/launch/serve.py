@@ -5,7 +5,7 @@ The reference's semantics: each wave's prompts are left-padded with token
 0 to the wave's longest prompt; the pads are attended, and positions
 count from 0 over the padded prompt; one position for the whole batch;
 greedy argmax; a slot stops after it emits ``eos_id``.  Decode runs
-eagerly (no CUDA graphs, no ``torch.compile``).
+eagerly (no CUDA graphs, no ``torch.compile``), without autograd.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --requests 8 --batch 4 --max-new 16 [--device cpu]
@@ -36,6 +36,7 @@ class BatchedServer:
         self.eos_id = eos_id
         self.device = params.embed.device
 
+    @torch.no_grad()
     def generate(self, prompts: List[np.ndarray], max_new: int
                  ) -> List[List[int]]:
         """Greedy-decode every prompt; prompts are padded to a common length

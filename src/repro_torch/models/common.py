@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng, resolve_device
 from repro_torch.kernels import ops
@@ -237,10 +238,58 @@ def norm_spec(cfg: ModelConfig, dim: int, stacked: int = 0) -> Dict[str, Spec]:
     return out
 
 
-def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding: a plain gather (the reference's forward; its
-    sharding-aware backward comes with training)."""
-    return embed[tokens.long()]
+class _EmbedLookup(torch.autograd.Function):
+    """The reference's ``custom_vjp``: a gather forward, and a backward of
+    chunked one-hot products accumulated in a float32 (V, d) buffer, then
+    cast to the parameter's dtype (not autograd's default index-put with
+    atomic adds, whose sums land in no fixed order on the card)."""
+
+    @staticmethod
+    def forward(ctx, embed, tokens, grad_chunk):
+        ctx.save_for_backward(tokens)
+        ctx.vocab, ctx.dtype, ctx.grad_chunk = (embed.shape[0], embed.dtype,
+                                                grad_chunk)
+        return embed[tokens.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        return (embed_grad(tokens, g, ctx.vocab, ctx.dtype, ctx.grad_chunk),
+                None, None)
+
+
+def embed_grad(tokens: torch.Tensor, g: torch.Tensor, vocab: int,
+               dtype: torch.dtype, grad_chunk: int = 512) -> torch.Tensor:
+    """d(embed) of a lookup of ``tokens`` (B, S) with cotangent g (B, S, d):
+    per sequence chunk of ``grad_chunk`` (the last right-padded with token
+    0 and a zero cotangent), the one-hot (B, cs, V) in g's dtype times g,
+    a product in g's dtype, added into a float32 (V, d) buffer; then the
+    buffer in ``dtype``."""
+    b, s = tokens.shape
+    cs = min(grad_chunk, s)
+    n_chunks = -(-s // cs)
+    pad = n_chunks * cs - s
+    tokens = tokens.long()
+    if pad:
+        tokens = F.pad(tokens, (0, pad))
+        g = F.pad(g, (0, 0, 0, pad))
+    acc = torch.zeros((vocab, g.shape[-1]), dtype=torch.float32,
+                      device=g.device)
+    for i in range(n_chunks):
+        tk = tokens[:, i * cs:(i + 1) * cs].reshape(-1)
+        gk = g[:, i * cs:(i + 1) * cs].reshape(-1, g.shape[-1])
+        onehot = torch.zeros((tk.shape[0], vocab), dtype=g.dtype,
+                             device=g.device)
+        onehot.scatter_(1, tk[:, None], 1)
+        acc += onehot.T @ gk
+    return acc.to(dtype)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
+                 grad_chunk: int = 512) -> torch.Tensor:
+    """Token embedding: a plain gather forward; under autograd, the
+    reference's chunked one-hot backward (``embed_grad``)."""
+    return _EmbedLookup.apply(embed, tokens, grad_chunk)
 
 
 def sinusoidal_positions(num: int, dim: int, dtype=torch.float32,
@@ -313,3 +362,118 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0:
         return logits
     return cap * torch.tanh(logits / cap)
+
+
+# ------------------------------------------------------------------ losses ---
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """Mean token NLL.  logits (B, S, V) any float dtype; labels (B, S)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return (((lse - gold) * mask).sum() /
+            torch.clamp(mask.sum(), min=1.0))
+
+
+def dynamic_slice(x: torch.Tensor, start: int, size: int,
+                  dim: int) -> torch.Tensor:
+    """``jax.lax.dynamic_slice_in_dim``: ``size`` entries from ``start``,
+    the start clamped so the slice stays inside x."""
+    n = x.shape[dim]
+    if size > n:
+        raise ValueError(f"slice of {size} from a dimension of {n}")
+    start = min(max(start, 0), n - size)
+    return x.narrow(dim, start, size)
+
+
+def _ce_chunk(h_blk: torch.Tensor, head: torch.Tensor, l_blk: torch.Tensor,
+              transpose_head: bool, ignore_id: int):
+    """One chunk's (NLL sum, unmasked count), both float32 0-d."""
+    logits = (h_blk @ (head.T if transpose_head else head)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, l_blk.long().clamp_min(0)[..., None])[..., 0]
+    mask = (l_blk != ignore_id).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def chunked_cross_entropy(h: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor, *,
+                          transpose_head: bool = False, chunk: int = 1024,
+                          ignore_id: int = -1) -> torch.Tensor:
+    """Mean token NLL with the vocab projection fused per sequence chunk,
+    the reference's loop: h (B, S, d) right-padded to whole chunks of
+    ``chunk`` (labels padded with ``ignore_id``), each chunk's logits in
+    float32, each chunk rematerialized in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), so
+    the (B, S, V) logits never live whole.
+
+    head (d, V), or (V, d) with ``transpose_head`` (tied).
+    """
+    s = h.shape[1]
+    n_chunks = -(-s // chunk)
+    pad = n_chunks * chunk - s
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=ignore_id)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        part, n = checkpoint(_ce_chunk, dynamic_slice(h, i * chunk, chunk, 1),
+                             head, dynamic_slice(labels, i * chunk, chunk, 1),
+                             transpose_head, ignore_id, use_reentrant=False)
+        nll_sum = nll_sum + part
+        count = count + n
+    return nll_sum / torch.clamp(count, min=1.0)
+
+
+# --------------------------------------------------- training's parameters ---
+def abstract(specs: Pytree, dtype: torch.dtype) -> Pytree:
+    """Meta tensors (``device="meta"``) of each spec's shape in ``dtype``:
+    the dry run's stand-in for the parameters, with no allocation."""
+    return unflatten([(path, torch.empty(s.shape, dtype=dtype,
+                                         device="meta"))
+                      for path, s in flatten(specs)])
+
+
+def spec_axes(specs: Pytree) -> Pytree:
+    """Tree of logical-axis tuples, aligned with the param tree."""
+    return unflatten([(path, s.axes) for path, s in flatten(specs)])
+
+
+def leaf_views(model: nn.Module) -> List[Tuple[str, Optional[int],
+                                               nn.Parameter]]:
+    """(leaf path, layer index or None, parameter) of every parameter of
+    a model built from a tree in the reference's layout: each parameter is
+    its tree leaf (``model.tree``), or the view of one layer of a stacked
+    (L, ...) leaf.  Found by storage."""
+    leaves = {leaf.untyped_storage().data_ptr(): (path, leaf)
+              for path, leaf in flatten(model.tree)}
+    views = []
+    for p in model.parameters():
+        path, leaf = leaves[p.untyped_storage().data_ptr()]
+        if p.shape == leaf.shape:
+            views.append((path, None, p))
+        else:
+            step = leaf[0].numel()
+            views.append((path, (p.storage_offset() - leaf.storage_offset())
+                          // step, p))
+    return views
+
+
+def zero_grads(model: nn.Module, grads: Optional[Pytree] = None) -> Pytree:
+    """A gradient tree in the reference's layout for ``model.tree`` (new
+    zeros, or ``grads`` zeroed), with every parameter's ``.grad`` set to its
+    view: a backward pass then adds each layer's gradient in place into
+    its slot of the stacked leaf."""
+    if grads is None:
+        grads = unflatten([(path, torch.zeros_like(leaf))
+                           for path, leaf in flatten(model.tree)])
+    else:
+        for _, g in flatten(grads):
+            g.zero_()
+    by_path = dict(flatten(grads))
+    for path, i, p in leaf_views(model):
+        g = by_path[path]
+        p.grad = g if i is None else g[i]
+    return grads

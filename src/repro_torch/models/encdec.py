@@ -20,6 +20,7 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, Params, Spec
+from repro_torch.models.transformer import _two_level
 
 Pytree = Any
 
@@ -76,6 +77,7 @@ class EncDecLM(nn.Module):
     def __init__(self, cfg: ModelConfig, tree: Pytree):
         super().__init__()
         self.cfg = cfg
+        self.tree = tree          # the reference's leaves, stacked layers
         self.embed = nn.Parameter(tree["embed"], requires_grad=False)
         self.pos_dec = nn.Parameter(tree["pos_dec"], requires_grad=False)
         self.enc = common.stack_layers(tree["enc"], cfg.encoder_layers)
@@ -85,31 +87,71 @@ class EncDecLM(nn.Module):
 
 
 # ---------------------------------------------------------------- passes -----
-def encode(cfg: ModelConfig, params: EncDecLM,
-           frame_embeds: torch.Tensor) -> torch.Tensor:
-    """(B, T_enc, d) precomputed frontend embeddings -> encoder memory."""
+def encode(cfg: ModelConfig, params: EncDecLM, frame_embeds: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
+    """(B, T_enc, d) precomputed frontend embeddings -> encoder memory.
+    With ``remat``, the layers rematerialized in the backward as the
+    reference's training pass does (``transformer._two_level``)."""
     h = frame_embeds.to(cfg.compute_dtype)
     h = h + common.sinusoidal_positions(h.shape[1], cfg.d_model, h.dtype,
                                         h.device)[None]
-    for lp in params.enc:
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def body(i, h):
+        lp = params.enc[i]
         x = common.apply_norm(cfg, h, lp.ln1)
         q, k, v = attn.project_qkv(cfg, lp.attn, x)
         o = attn.chunked_attention(q, k, v, causal=False, window=None,
                                    chunk=cfg.attn_chunk)
         h = h + attn.out_proj(lp.attn, o)
         x = common.apply_norm(cfg, h, lp.ln2)
-        h = h + _gelu_mlp(lp.ffn, x)
+        return h + _gelu_mlp(lp.ffn, x), zero
+    h = _layers(body, h, cfg.encoder_layers, remat)
     return common.apply_norm(cfg, h, params.enc_norm)
+
+
+def _layers(body, h: torch.Tensor, n: int, remat: bool) -> torch.Tensor:
+    """body(i, h) -> (h, aux) over layers 0 .. n - 1: in a loop, or with
+    ``remat`` by ``transformer._two_level``."""
+    if remat:
+        return _two_level(body, h, n)[0]
+    for i in range(n):
+        h = body(i, h)[0]
+    return h
+
+
+def _decoder_layer(cfg: ModelConfig, lp, h: torch.Tensor,
+                   memory: torch.Tensor) -> torch.Tensor:
+    """One decoder layer over the full sequence, no cache: causal
+    self-attention, cross-attention to ``memory``, the gelu MLP."""
+    x = common.apply_norm(cfg, h, lp.ln1)
+    q, k, v = attn.project_qkv(cfg, lp.self_attn, x)
+    o = attn.chunked_attention(q, k, v, causal=True, window=None,
+                               chunk=cfg.attn_chunk)
+    h = h + attn.out_proj(lp.self_attn, o)
+    x = common.apply_norm(cfg, h, lp.ln_x)
+    qx, mk, mv = attn.project_qkv(cfg, lp.cross_attn, x, memory)
+    ox = attn.chunked_attention(qx, mk, mv, causal=False, window=None)
+    h = h + attn.out_proj(lp.cross_attn, ox)
+    x = common.apply_norm(cfg, h, lp.ln2)
+    return h + _gelu_mlp(lp.ffn, x)
 
 
 def _decoder_pass(cfg: ModelConfig, params: EncDecLM, h: torch.Tensor,
                   memory: Optional[torch.Tensor], cache: Optional[Pytree] = None,
-                  pos: Optional[int] = None) -> torch.Tensor:
-    """The decoder stack: the full sequence when ``cache`` is None, a
-    cache-filling prefill from ``memory`` when ``pos`` is None, else one
-    token's decode step at ``pos`` against the cached memory K/V.  The
-    cache is written in place."""
+                  pos: Optional[int] = None, remat: bool = False
+                  ) -> torch.Tensor:
+    """The decoder stack: the full sequence when ``cache`` is None (with
+    ``remat``, rematerialized as ``encode``), a cache-filling prefill from
+    ``memory`` when ``pos`` is None, else one token's decode step at
+    ``pos`` against the cached memory K/V.  The cache is written in
+    place."""
     decoding = cache is not None and pos is not None and h.shape[1] == 1
+    if cache is None:
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        return _layers(lambda i, hc: (_decoder_layer(
+            cfg, params.dec[i], hc, memory), zero), h, cfg.num_layers,
+            remat)
     for i, lp in enumerate(params.dec):
         x = common.apply_norm(cfg, h, lp.ln1)
         q, k, v = attn.project_qkv(cfg, lp.self_attn, x)
@@ -117,8 +159,7 @@ def _decoder_pass(cfg: ModelConfig, params: EncDecLM, h: torch.Tensor,
             attn.update_cache(cache["k"][i], cache["v"][i], k, v, pos)
             o = attn.decode_attention(q, cache["k"][i], cache["v"][i], pos)
         else:
-            if cache is not None:
-                attn.update_cache(cache["k"][i], cache["v"][i], k, v, 0)
+            attn.update_cache(cache["k"][i], cache["v"][i], k, v, 0)
             o = attn.chunked_attention(q, k, v, causal=True, window=None,
                                        chunk=cfg.attn_chunk)
         h = h + attn.out_proj(lp.self_attn, o)
@@ -129,10 +170,9 @@ def _decoder_pass(cfg: ModelConfig, params: EncDecLM, h: torch.Tensor,
             mk, mv = cache["mk"][i], cache["mv"][i]
         else:
             qx, mk, mv = attn.project_qkv(cfg, lp.cross_attn, x, memory)
-            if cache is not None:
-                cache["mk"][i].copy_(mk)
-                cache["mv"][i].copy_(mv)
-                mk, mv = cache["mk"][i], cache["mv"][i]
+            cache["mk"][i].copy_(mk)
+            cache["mv"][i].copy_(mv)
+            mk, mv = cache["mk"][i], cache["mv"][i]
         ox = attn.chunked_attention(qx, mk, mv, causal=False, window=None)
         h = h + attn.out_proj(lp.cross_attn, ox)
         x = common.apply_norm(cfg, h, lp.ln2)
@@ -161,6 +201,20 @@ def forward(cfg: ModelConfig, params: EncDecLM, tokens: torch.Tensor,
                       memory)
     return _logits(cfg, params, h), torch.zeros((), dtype=torch.float32,
                                                 device=h.device)
+
+
+def loss_fn(cfg: ModelConfig, params: EncDecLM,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Train loss: the encoder over ``frame_embeds``, the decoder over the
+    tokens, the tied head fused chunk by chunk
+    (``common.chunked_cross_entropy``)."""
+    memory = encode(cfg, params, batch["frame_embeds"], remat=True)
+    h = _decoder_pass(cfg, params, _embed_dec(cfg, params, batch["tokens"],
+                                              0), memory, remat=True)
+    h = common.apply_norm(cfg, h, params.final_norm)
+    return common.chunked_cross_entropy(h, params.embed, batch["labels"],
+                                        transpose_head=True,
+                                        chunk=cfg.ce_chunk)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,

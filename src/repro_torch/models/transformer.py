@@ -4,7 +4,10 @@ VLM-backbone families (the counterpart of ``repro/models/transformer.py``).
 The reference scans one body over stacked (L, ...) parameters; here each
 layer is its own ``nn.Module`` (``common.Layer``) with the reference's
 parameter names, and the layers run in a plain loop, which is the
-reference's ``forward`` with ``remat=False``.  Per-layer scalars (sliding
+reference's ``forward`` with ``remat=False``;
+``forward_hidden(remat=True)`` (the training loss's) rematerializes them
+as the reference does, in groups of ~sqrt(L) layers with
+``torch.utils.checkpoint`` at both levels.  Per-layer scalars (sliding
 window, rope theta) come from ``layer_schedule`` as in the reference.
 Caches are dicts of tensors updated in place, with ``pos`` a Python int.
 
@@ -22,17 +25,20 @@ module-level store as the reference keeps it.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe, rglru, ssd
 from repro_torch.models.common import ModelConfig, Params, Spec
 
 Pytree = Any
+MOE_AUX_WEIGHT = 0.01
 
 
 # ------------------------------------------------------------------ specs ----
@@ -133,6 +139,7 @@ class _LM(nn.Module):
     def __init__(self, cfg: ModelConfig, tree: Pytree):
         super().__init__()
         self.cfg = cfg
+        self.tree = tree          # the reference's leaves, stacked layers
         self.embed = nn.Parameter(tree["embed"], requires_grad=False)
         self.final_norm = Params(tree["final_norm"])
         if not cfg.tie_embeddings:
@@ -257,22 +264,68 @@ def _uniform_block(cfg: ModelConfig, lp, h: torch.Tensor,
 
 
 def forward_hidden(cfg: ModelConfig, params: _LM, tokens: torch.Tensor,
-                   extra_embeds: Optional[torch.Tensor] = None
+                   extra_embeds: Optional[torch.Tensor] = None, *,
+                   remat: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence pass -> (hidden (B,S,d), moe_aux scalar: the MoE
-    layers' aux losses summed, 0 for the other families): the
-    reference's with ``remat=False`` (rematerialization, its training
-    switch, changes no value)."""
+    layers' aux losses summed, 0 for the other families).  With
+    ``remat``, the reference's training form: the layers rematerialized
+    in the backward (``_two_level``; the hybrid's groups once); it
+    changes no value."""
     h = embed_tokens(cfg, params, tokens, extra_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "hybrid":
-        return _hybrid_forward(cfg, params, h, positions), aux_total
+        return _hybrid_forward(cfg, params, h, positions,
+                               remat=remat), aux_total
     windows, thetas = layer_schedule(cfg)
+    if remat:
+        def body(i, hc):
+            out, aux = _uniform_block(cfg, params.layers[i], hc, positions,
+                                      int(windows[i]), float(thetas[i]))
+            return out, aux_total if aux is None else aux
+        return _two_level(body, h, cfg.num_layers)
     for lp, w, th in zip(params.layers, windows, thetas):
         h, aux = _uniform_block(cfg, lp, h, positions, int(w), float(th))
         if aux is not None:
             aux_total = aux_total + aux
+    return h, aux_total
+
+
+def _two_level(body, h: torch.Tensor, num_layers: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sqrt(L) rematerialization, the reference's ``_two_level_scan``:
+    groups of k = ceil(sqrt(L)) layers, each group checkpointed and each
+    layer in it checkpointed again, then the L - (L // k) k remaining
+    layers one checkpoint each.  ``body(i, h)`` runs layer i -> (h, aux);
+    the auxes are summed per group, then over the groups, as the
+    reference's scans sum them."""
+    k = max(1, int(math.ceil(math.sqrt(num_layers))))
+    g = num_layers // k
+
+    def layer(i, hc):
+        return checkpoint(body, i, hc, use_reentrant=False)
+
+    def group(start, hc):
+        auxes = []
+        for i in range(start, start + k):
+            hc, aux = layer(i, hc)
+            auxes.append(aux)
+        return hc, torch.stack(auxes).sum()
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    if g > 0:
+        auxes = []
+        for j in range(g):
+            h, aux = checkpoint(group, j * k, h, use_reentrant=False)
+            auxes.append(aux)
+        aux_total = aux_total + torch.stack(auxes).sum()
+    if num_layers > g * k:
+        auxes = []
+        for i in range(g * k, num_layers):
+            h, aux = layer(i, h)
+            auxes.append(aux)
+        aux_total = aux_total + torch.stack(auxes).sum()
     return h, aux_total
 
 
@@ -282,6 +335,25 @@ def forward(cfg: ModelConfig, params: _LM, tokens: torch.Tensor,
     """Full-sequence pass -> (logits (B,S,V), moe_aux scalar)."""
     h, aux = forward_hidden(cfg, params, tokens, extra_embeds)
     return lm_logits(cfg, params, h), aux
+
+
+def loss_fn(cfg: ModelConfig, params: _LM, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """Train loss; the vocab projection is fused chunk by chunk
+    (``common.chunked_cross_entropy``), so the (B,S,V) logits never live
+    whole; plus ``MOE_AUX_WEIGHT`` times the MoE's aux loss."""
+    h, aux = forward_hidden(cfg, params, batch["tokens"],
+                            batch.get("patch_embeds"), remat=True)
+    h = common.apply_norm(cfg, h, params.final_norm)
+    if cfg.tie_embeddings:
+        ce = common.chunked_cross_entropy(h, params.embed, batch["labels"],
+                                          transpose_head=True,
+                                          chunk=cfg.ce_chunk)
+    else:
+        ce = common.chunked_cross_entropy(h, params.lm_head,
+                                          batch["labels"],
+                                          chunk=cfg.ce_chunk)
+    return ce + MOE_AUX_WEIGHT * aux
 
 
 # ------------------------------------------------------------------- hybrid --
@@ -313,13 +385,33 @@ def _attn_finish(cfg: ModelConfig, lp, h: torch.Tensor,
 
 
 def _hybrid_forward(cfg: ModelConfig, params: HybridLM, h: torch.Tensor,
-                    positions: torch.Tensor, cache: Optional[Pytree] = None
-                    ) -> torch.Tensor:
+                    positions: torch.Tensor, cache: Optional[Pytree] = None,
+                    remat: bool = False) -> torch.Tensor:
     """The hybrid stack over a sequence; with ``cache``, the prefill: each
     recurrent layer's final state and each attention layer's last
-    ``window`` keys and values written into it."""
+    ``window`` keys and values written into it.  With ``remat``, the
+    reference's training form: each (rec, ..., attn) group, and each
+    trailing recurrent layer, one checkpoint."""
+    slots = _hybrid_slots(cfg)
+    if remat:
+        per = cfg.attn_every
+        n_attn = _hybrid_counts(cfg)[1]
+        units = [slots[i * per:(i + 1) * per] for i in range(n_attn)]
+        units += [[slot] for slot in slots[n_attn * per:]]
+        for unit in units:
+            h = checkpoint(_hybrid_layers, cfg, params, h, positions, unit,
+                           use_reentrant=False)
+        return h
+    return _hybrid_layers(cfg, params, h, positions, slots, cache)
+
+
+def _hybrid_layers(cfg: ModelConfig, params: HybridLM, h: torch.Tensor,
+                   positions: torch.Tensor, slots, cache=None
+                   ) -> torch.Tensor:
+    """The hybrid layers of ``slots`` ((attention, index) pairs) in
+    order."""
     s = h.shape[1]
-    for is_attn, j in _hybrid_slots(cfg):
+    for is_attn, j in slots:
         if is_attn:
             lp = params.attn_layers[j]
             q, k, v = _attend(cfg, lp.attn, lp.attn_ln, h, positions,

@@ -39,6 +39,9 @@ CPU float32 exp in the same manner; the fleet's lognormal factor takes it.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 import math
 from typing import Sequence, Tuple, Union
 
@@ -342,6 +345,24 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
     out = (y.double() * torch.pow(2.0, n.double())).float()
     out = torch.where(out < _MIN_NORMAL, 0.0, out)
     return torch.where(x.isnan(), x, out)
+
+
+@functools.lru_cache(maxsize=None)
+def _cosf():
+    libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    libm.cosf.restype = ctypes.c_float
+    libm.cosf.argtypes = [ctypes.c_float]
+    return libm.cosf
+
+
+def cos_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 cos as XLA's CPU backend computes it: the C library's
+    ``cosf`` (glibc's, equal to jax's bit for bit over [0, pi]), element
+    by element on the host, for the few scalars of a schedule."""
+    cosf = _cosf()
+    vals = [cosf(v) for v in x.detach().float().cpu().reshape(-1).tolist()]
+    return torch.tensor(vals, dtype=torch.float32).reshape(x.shape).to(
+        x.device)
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:

@@ -22,11 +22,12 @@ from repro_torch.models import transformer
 from repro_torch.models.registry import ModelBundle
 
 
+@torch.no_grad()
 def extract_features(bundle: ModelBundle, params, tokens: torch.Tensor,
                      extra=None) -> torch.Tensor:
     """Frozen-backbone features: mean-pooled final hidden states (B, d),
     the mean in float32 rounded to the compute dtype (as jnp.mean of a
-    bfloat16 array), then float32.  No final norm."""
+    bfloat16 array), then float32.  No final norm; no autograd."""
     h, _ = transformer.forward_hidden(bundle.cfg, params, tokens, extra)
     return (h.float().sum(dim=1) / h.shape[1]).to(h.dtype).float()
 

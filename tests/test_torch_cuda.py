@@ -1130,3 +1130,112 @@ def test_osn_head_with_the_fused_kernel_matches_the_cpu(cuda):
                               use_kernels=True)
     assert card["time"] == plain["time"] and card["cost"] == plain["cost"]
     np.testing.assert_allclose(card["fval"], plain["fval"], rtol=1e-4)
+
+
+# ------------------------------------------------------------ training ----
+def test_embed_lookup_backward_on_the_card(cuda):
+    """The one-hot backward on the card against the CPU's (float32 within
+    1e-6 of max |CPU|, bfloat16 within 1e-2), and the card's twice, bit
+    for bit: no atomics."""
+    from repro_torch.models import common
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 64, (3, 700), generator=g)
+    for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 1e-2)):
+        grad = torch.randn(3, 700, 32, generator=g).to(dtype)
+        want = common.embed_grad(toks, grad, 300, dtype)
+        got = common.embed_grad(toks.to(cuda), grad.to(cuda), 300, dtype)
+        assert torch.equal(got, common.embed_grad(toks.to(cuda),
+                                                  grad.to(cuda), 300, dtype))
+        assert _rel_err(got.float().cpu(), want.float()) <= tol
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_chunked_cross_entropy_on_the_card(cuda, tied):
+    """Value and gradients with chunk < S on the card against the CPU,
+    within 1e-5 of max |CPU|."""
+    from repro_torch.models import common
+    g = torch.Generator().manual_seed(2)
+    h = torch.randn(2, 40, 16, generator=g)
+    head = torch.randn(*((50, 16) if tied else (16, 50)), generator=g)
+    labels = torch.randint(0, 50, (2, 40), generator=g)
+    labels[0, 5] = -1
+    out = []
+    for device in ("cpu", cuda):
+        hh = h.detach().to(device).requires_grad_(True)
+        hd = head.detach().to(device).requires_grad_(True)
+        loss = common.chunked_cross_entropy(hh, hd, labels.to(device),
+                                            transpose_head=tied, chunk=16)
+        loss.backward()
+        out.append((loss.detach().cpu(), hh.grad.cpu(), hd.grad.cpu()))
+    for got, want in zip(out[1], out[0]):
+        assert _rel_err(got.reshape(-1), want.reshape(-1)) <= 1e-5
+
+
+def test_adamw_bf16_step_on_the_card_is_the_cpus(cuda):
+    """One bf16 AdamW step (unclipped) on the card and on the CPU from one
+    state: parameters and moments bit for bit; a clipped step (the scale
+    from the card's own norm) within one bf16 ulp."""
+    from repro_torch.optim import adamw
+    g = torch.Generator().manual_seed(3)
+
+    def tree(scale, dtype=torch.bfloat16):
+        return {"a": (torch.randn(40, 16, generator=g) * scale).to(dtype),
+                "b": {"c": (torch.randn(3, 7, 9, generator=g) * scale
+                            ).to(dtype)}}
+    params, mu = tree(1.0), tree(0.01)
+    nu = {k: v for k, v in tree(1e-2, torch.float32).items()}
+    nu = {"a": nu["a"].abs(), "b": {"c": nu["b"]["c"].abs()}}
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=10)
+
+    def to(t, device):
+        """A copy on ``device`` (apply updates its inputs in place)."""
+        if isinstance(t, dict):
+            return {k: to(v, device) for k, v in t.items()}
+        return t.clone().to(device)
+    for scale, exact in ((0.01, True), (5.0, False)):
+        grads = tree(scale)
+        out = []
+        for device in ("cpu", cuda):
+            st = adamw.AdamWState(torch.tensor(3, dtype=torch.int32),
+                                  to(mu, device), to(nu, device))
+            p, st = adamw.apply(cfg, to(grads, device), st,
+                                to(params, device))
+            out.append([t.cpu() for _, t in common_flat((p, st.mu,
+                                                         st.nu))])
+        for a, b in zip(*out):
+            if exact:
+                assert torch.equal(a, b)
+            elif a.dtype == torch.bfloat16:
+                diff = (a.view(torch.int16).long() -
+                        b.view(torch.int16).long()).abs()
+                assert int(diff.max()) <= 1
+            else:
+                assert _rel_err(b, a) <= 1e-5
+
+
+def common_flat(trees):
+    from repro_torch.models import common
+    return [pair for t in trees for pair in common.flatten(t)]
+
+
+def test_trainer_on_the_card_is_deterministic(cuda):
+    """Three float32 trainer steps at smoke width on the card, twice: the
+    losses and norms bit for bit; and within 1e-4 of the CPU's."""
+    from repro_torch import configs
+    from repro_torch.training import trainer as tr
+    base = configs.smoke_config
+    configs.smoke_config = lambda name: base(name).scaled(dtype="float32")
+    try:
+        runs = []
+        for device in (cuda, cuda, "cpu"):
+            t = tr.Trainer(tr.TrainerConfig(arch="qwen3-4b", steps=3,
+                                            batch=4, seq=64, lr=1e-3),
+                           device=device)
+            runs.append([(h["loss"], h["grad_norm"])
+                         for h in t.run(*t.init_state())[2]])
+    finally:
+        configs.smoke_config = base
+    assert runs[0] == runs[1]
+    for (la, ga), (lb, gb) in zip(runs[0], runs[2]):
+        assert abs(la - lb) <= 1e-4 * abs(lb)
+        assert abs(ga - gb) <= 1e-4 * abs(gb)

@@ -54,7 +54,10 @@ def test_port_imports_neither_jax_nor_repro():
                  "configs.mamba2_780m", "configs.qwen3_moe_30b_a3b",
                  "configs.qwen3_moe_235b_a22b", "configs.recurrentgemma_2b",
                  "configs.whisper_large_v3", "launch", "launch.serve",
-                 "launch.analytic", "training", "training.osn_head"):
+                 "launch.analytic", "training", "training.osn_head",
+                 "training.trainer", "optim.adamw", "data.pipeline",
+                 "checkpoint", "checkpoint.manager", "distributed",
+                 "distributed.collectives", "launch.train"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
@@ -83,6 +86,8 @@ def test_entry_points_raise_without_a_device():
     from repro_torch.models import get_bundle
     from repro_torch.optim import (FirstOrderConfig, GiantConfig,
                                    exact_newton, first_order, giant)
+    from repro_torch.launch import train
+    from repro_torch.training import Trainer, TrainerConfig
     key = prng.PRNGKey(0)
     cfg = OverSketchConfig(64, 32)
     data = Dataset(x=torch.zeros(8, 2), y=torch.ones(8))
@@ -126,6 +131,8 @@ def test_entry_points_raise_without_a_device():
                             "recurrentgemma-2b", "whisper-large-v3")
           for call in (lambda a=arch: get_bundle(a).init(key),
                        lambda a=arch: get_bundle(a).init_cache(1, 8))),
+        lambda: Trainer(TrainerConfig(arch="qwen3-4b")),
+        lambda: train.main(["--steps", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
