@@ -213,6 +213,41 @@ with its seconds:
            the steps after the restore bit for bit, save and restore
            seconds
 
+  distributed_paths
+           after the modes, the three distributed functions
+           (core/sketch.py::distributed_sketched_gram, core/coded.py::
+           distributed_coded_matvec, core/linesearch.py::
+           distributed_f_trials) on a one-rank NCCL group at full width
+           (OverSketchConfig(30720, 256, 0.25), 30 of 150 blocks masked;
+           the X encode's 1,296 workers, 5% erased; six trial steps)
+           against the local sketched_gram, coded_matvec and objective
+           values, within 1e-4 of max |local|, with their ms and their
+           launches (the count-sketch kernel once, the coded mat-vec once)
+  mesh_train
+           after the training path, qwen3-4b at its published width on a
+           1 x 1 ("data", "model") mesh over NCCL (a file store, no
+           environment variable), 4 steps of 4 x 128 tokens against the
+           unsharded trainer's from the same key, losses and norms equal
+           (largest relative gap printed), step ms, tokens a second and
+           peak GiB beside the unsharded run's step ms in this run, one
+           more step of each under torch.profiler (kernels, device ms,
+           host ms); then at 2 layers the mesh run's checkpoint at step 2
+           restored onto the unsharded trainer, whose steps 2-3 must equal
+           the mesh run's bit for bit
+  kernels_bench
+           at the end, kernels_bench's rows (its bench_rows format) from
+           this run's own kernel timings, written through kernels_bench's
+           writer to a temporary file: every kernel's ms, plain ms and
+           library ms at the kernel table's shapes beside PERF.md's (no
+           kernel timed twice; no gate on speed)
+  dryrun_16x16, dryrun_2x16x16
+           python -m repro_torch.launch.dryrun --arch qwen3-4b --shape
+           train_4k on the 16 x 16 fake mesh and with --multi-pod, each a
+           host process started after the build: every field present, the
+           counted flops per chip within 1 -+ dryrun.FLOPS_TOL (0.2) of
+           dryrun.expected_flops_per_chip (launch/analytic.py's parts
+           under the port's rules), host seconds printed
+
 Every Newton run on the card (exact Newton's included) computes its coded
 gradient with the coded mat-vec kernel: two launches per iteration, as
 the default fleet's coded_decode policy waits for a peelable set and no
@@ -437,22 +472,10 @@ def phase_times(h, sigma, a, b, reps: int = 3) -> dict:
             "launches_traced": t["gather_launches_traced"]}
 
 
-def sketch_matrix(h, sigma, live, b: int, n: int):
-    """The live blocks' count sketches as one sparse (live*b, n) matrix."""
-    import torch
-    hl, sl = h[live].long(), sigma[live]
-    rows = (torch.arange(hl.shape[0], device=h.device)[:, None] * b
-            + hl).reshape(-1)
-    cols = torch.arange(n, device=h.device).repeat(hl.shape[0])
-    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), sl.reshape(-1),
-                                  (hl.shape[0] * b, n),
-                                  check_invariants=False)
-    return coo.coalesce().to_sparse_csr()
-
-
 def check_kernels(ops, ref, h, sigma, a, mask, b) -> dict:
     """Each kernel against its plain version at the main path's inputs."""
     import torch
+    from repro_torch.benchmarks.kernels_bench import sparse_rows
     k, n = h.shape
     d = a.shape[1]
     live = mask.nonzero().squeeze(1)
@@ -470,7 +493,7 @@ def check_kernels(ops, ref, h, sigma, a, mask, b) -> dict:
     row["ms"] = cuda_ms(lambda: ops.count_sketch_apply(h, sigma, a, b), 3)
     row.update(phase_times(h, sigma, a, b))
     row["plain_ms"] = cuda_ms(lambda: ref.count_sketch_apply(h, sigma, a, b), 1)
-    s_all = sketch_matrix(h, sigma, torch.arange(k, device=h.device), b, n)
+    s_all = sparse_rows(h, sigma, torch.arange(k, device=h.device), b, n)
     row["library_ms"] = cuda_ms(lambda: torch.sparse.mm(s_all, a), 3)
     row["library_call"] = "torch.sparse.mm(CSR sketch (K*b, n), A)"
     del s_all
@@ -503,7 +526,7 @@ def check_kernels(ops, ref, h, sigma, a, mask, b) -> dict:
     row["ms"] = cuda_ms(lambda: ops.sketch_gram_count(h, sigma, a, b, mask), 3)
     row["plain_ms"] = cuda_ms(
         lambda: ref.sketch_gram_count(h, sigma, a, b, mask), 1)
-    s_live = sketch_matrix(h, sigma, live, b, n)
+    s_live = sparse_rows(h, sigma, live, b, n)
 
     def library():
         x = torch.sparse.mm(s_live, a)
@@ -542,33 +565,6 @@ def check_gram_at(ops, ref, state, a, b, masked: int, label: str) -> dict:
     row.update(K=k, masked=masked)
     return row
 
-def sjlt_matrix(h, sigma, live, b: int, n: int):
-    """The live blocks' SJLT sketches as one sparse (live*b, n) matrix, s
-    entries of +-1/sqrt(s) per column and block (repeats summed)."""
-    import torch
-    hl, sl = h[live].long(), sigma[live]
-    kl, s, _ = hl.shape
-    rows = (torch.arange(kl, device=h.device)[:, None, None] * b
-            + hl).reshape(-1)
-    cols = torch.arange(n, device=h.device).repeat(kl * s)
-    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]),
-                                  sl.reshape(-1) / math.sqrt(s),
-                                  (kl * b, n), check_invariants=False)
-    return coo.coalesce().to_sparse_csr()
-
-
-def srht_encode(rows_k, sigma_k, n: int):
-    """One block's dense (n, b) SRHT encode matrix, sigma_r (-1)^popcount(
-    r & rows_c) / sqrt(b), with the parity folded out of r & rows_c."""
-    import torch
-    v = torch.arange(n, dtype=torch.int32, device=rows_k.device)[:, None] \
-        & rows_k[None, :]
-    for sh in (16, 8, 4, 2, 1):
-        v = v ^ (v >> sh)
-    sign = 1.0 - 2.0 * (v & 1).float()
-    return sign * (sigma_k[:, None] / math.sqrt(rows_k.numel()))
-
-
 def srht_bound(n: int, d: int, b: int, k: int, kl: int) -> tuple:
     """The SRHT Gram's bound: (ms, by, P, additions).  Per live block the
     partial transform through panels of P rows, counted only over the
@@ -597,6 +593,7 @@ def check_family_kernels(ops, ref, a, sjlt, srht, mask, b) -> dict:
     """The fused SJLT and SRHT Grams against their plain versions at the
     main path's inputs (A, each family's first-iteration draw, the mask)."""
     import torch
+    from repro_torch.benchmarks.kernels_bench import sparse_rows, srht_encode
     n, d = a.shape
     k = mask.numel()
     live = mask.nonzero().squeeze(1)
@@ -616,7 +613,7 @@ def check_family_kernels(ops, ref, a, sjlt, srht, mask, b) -> dict:
     row["ms"] = cuda_ms(lambda: ops.sketch_gram_sjlt(h, sg, a, b, mask), 3,
                         warm=False)
     row["plain_ms"] = plain_ms
-    s_live = sjlt_matrix(h, sg, live, b, n)
+    s_live = sparse_rows(h, sg, live, b, n, 1 / math.sqrt(h.shape[1]))
 
     def library():
         x = torch.sparse.mm(s_live, a)
@@ -643,7 +640,7 @@ def check_family_kernels(ops, ref, a, sjlt, srht, mask, b) -> dict:
     app["ms"] = cuda_ms(lambda: ops.count_sketch_apply(hl, sl, a, b), 3)
     app.update(phase_times(hl, sl, a, b))
     app["plain_ms"] = plain_ms
-    s_live = sjlt_matrix(h, sg, live, b, n)
+    s_live = sparse_rows(h, sg, live, b, n, 1 / math.sqrt(h.shape[1]))
     app["library_ms"] = cuda_ms(lambda: torch.sparse.mm(s_live, a), 3)
     app["library_call"] = "torch.sparse.mm(CSR SJLT (K_live*b, n), A)"
     del s_live
@@ -843,6 +840,7 @@ def check_large_block(ops, ref, a, cs, sj, b) -> dict:
     the distributed-avg SJLT path applies it; the sort timed apart from the
     gather, and each kernel launched twice for the same bits."""
     import torch
+    from repro_torch.benchmarks.kernels_bench import sparse_rows
     n, d = a.shape
     out = {}
     h, sg = sj["h"], sj["sigma"]
@@ -859,7 +857,8 @@ def check_large_block(ops, ref, a, cs, sj, b) -> dict:
                         warm=False)
     row.update(phase_times(h, sg, a, b))
     row["plain_ms"] = plain_ms
-    s_all = sjlt_matrix(h, sg, torch.arange(k, device=h.device), b, n)
+    s_all = sparse_rows(h, sg, torch.arange(k, device=h.device), b, n,
+                        1 / math.sqrt(h.shape[1]))
     row["library_ms"] = cuda_ms(lambda: torch.sparse.mm(s_all, a), 3)
     row["library_call"] = "torch.sparse.mm(CSR SJLT (K*b, n), A)"
     del s_all
@@ -883,7 +882,7 @@ def check_large_block(ops, ref, a, cs, sj, b) -> dict:
                         warm=False)
     row.update(phase_times(h, sg, a, b))
     row["plain_ms"] = plain_ms
-    s_all = sketch_matrix(h, sg, torch.arange(k, device=h.device), b, n)
+    s_all = sparse_rows(h, sg, torch.arange(k, device=h.device), b, n)
     row["library_ms"] = cuda_ms(lambda: torch.sparse.mm(s_all, a), 3)
     row["library_call"] = "torch.sparse.mm(CSR sketch (K*b, n), A)"
     del s_all
@@ -891,7 +890,7 @@ def check_large_block(ops, ref, a, cs, sj, b) -> dict:
         2.0 * k * n * d, 4.0 * (n * d + 2 * k * n + k * b * d))
     row["shape"] = {"K": k, "n": n, "d": d, "b": b}
     out["count_sketch_apply"] = row
-    s_live = sketch_matrix(h, sg, mask.nonzero().squeeze(1), b, n)
+    s_live = sparse_rows(h, sg, mask.nonzero().squeeze(1), b, n)
 
     def library():
         x = torch.sparse.mm(s_live, a)
@@ -1443,10 +1442,11 @@ def check_softmax_kernels(ops, ref, solvers, a, h, sg, device) -> dict:
     the pinv solve of the first Gram, the direction solve's cuSOLVER call
     at the path's width, timed apart."""
     import torch
+    from repro_torch.benchmarks.kernels_bench import sparse_rows
     n, d = a.shape
 
     def library_of(h_, sg_, mask_):
-        s_live = sketch_matrix(h_, sg_, mask_.nonzero().squeeze(1), BLOCK, n)
+        s_live = sparse_rows(h_, sg_, mask_.nonzero().squeeze(1), BLOCK, n)
 
         def library():
             x = torch.sparse.mm(s_live, a)
@@ -2623,6 +2623,7 @@ def check_head_kernels(ops, ref, core, prng, sketching, feats, onehot,
     draw; the coded mat-vec at the features' two encodes, 5% of the
     workers erased."""
     import torch
+    from repro_torch.benchmarks.kernels_bench import sparse_rows
     k = LM_CLASSES
     data = core.Dataset(x=feats, y=onehot)
     objective = core.SoftmaxRegression(num_classes=k)
@@ -2651,7 +2652,7 @@ def check_head_kernels(ops, ref, core, prng, sketching, feats, onehot,
     row["ms"] = cuda_ms(lambda: ops.sketch_gram_count(
         state.h, state.sigma, a, b, mask), 2, warm=False)
     row["plain_ms"] = plain_ms
-    s_live = sketch_matrix(state.h, state.sigma, mask.nonzero().squeeze(1),
+    s_live = sparse_rows(state.h, state.sigma, mask.nonzero().squeeze(1),
                            b, n)
 
     def library():
@@ -3102,13 +3103,15 @@ def train_bound(analytic, registry, cfg) -> dict:
             "bound_by": "operations" if t_f >= t_b else "bytes"}
 
 
-def profile_train_step(trainer, params, opt, dev) -> tuple:
-    """torch.profiler over one more train step (step TRAIN_STEPS's batch):
-    device kernels, device ms beside the wall ms, the device's idle share
-    and the operators that took the most device time."""
+def profile_train_step(trainer, params, opt, dev,
+                       step: int = TRAIN_STEPS) -> tuple:
+    """torch.profiler over one more train step (step ``step``'s batch, laid
+    out as the trainer lays out its batches): device kernels, device ms
+    beside the wall ms, the device's idle share and the operators that
+    took the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    batch = trainer.pipeline.device_batch(TRAIN_STEPS)
+    batch = trainer.place_batch(trainer.pipeline.device_batch(step))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3372,6 +3375,341 @@ def run_training(ops, dev) -> dict:
 
 
 
+# ------------------------------------------------- mesh and distribution ---
+MESH_STEPS, MESH_RESTORE_LAYERS, MESH_CKPT_AT = 4, 2, 2
+DIST_TOL = 1e-4          # distributed vs local, relative to max |local|
+# PERF.md section 6's kernel times (rows 1-8, then normal, draw)
+TABLE_MS = {"sketch_gram_count": 89.15, "count_sketch_apply": 12.54,
+            "oversketch_gram": 7.45, "coded_block_matvec": 2.315,
+            "sketch_gram_sjlt": 339.08, "sketch_gram_srht": 155.71,
+            "fwht": 0.0544, "fwht_two_pass": 9.301, "normal": 0.860,
+            "draw": 0.436}
+
+
+class NcclGroup:
+    """A one-rank NCCL default group on an explicit file store in a
+    temporary directory (no environment variable read), destroyed on
+    exit."""
+
+    def __enter__(self):
+        import tempfile
+        import torch
+        import torch.distributed as dist
+        self.tmp = tempfile.mkdtemp(prefix="nccl-store-")
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(self.tmp, "store"), 1),
+            rank=0, world_size=1)
+        return self
+
+    def __exit__(self, *exc):
+        import shutil
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def start_dryruns() -> list:
+    """The dry run of qwen3-4b x train_4k on the 16 x 16 and 2 x 16 x 16
+    fake meshes, each a process of its own started now (host only):
+    [(label, Popen, json path)]."""
+    import tempfile
+    runs = []
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for label, extra in (("16x16", []), ("2x16x16", ["--multi-pod"])):
+        out = os.path.join(tempfile.mkdtemp(prefix="dryrun-"), "cell.json")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             LM_ARCH, "--shape", "train_4k", "--json-out", out, *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+        runs.append((label, proc, out, time.perf_counter()))
+    return runs
+
+
+def finish_dryruns(runs) -> None:
+    """Each dry run's cell: every field present, the counted flops per
+    chip within dryrun.expected_band of dryrun.expected_flops_per_chip
+    (1 -+ dryrun.FLOPS_TOL for a train step); printed with its host
+    seconds."""
+    import shutil
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import dryrun
+    for label, proc, out, t0 in runs:
+        stdout, stderr = proc.communicate(timeout=900)
+        read_after = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {label}: exit {proc.returncode}: "
+                                 f"{stderr[-2000:]}")
+        with open(out) as f:
+            cell = json.load(f)[0]
+        shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+        missing = [k for k in dryrun.FIELDS if k not in cell]
+        a = cell.get("analytic", {})
+        lo, hi = a.get("expected_band", (0, 0))
+        row = {"phase": f"dryrun_{label}", "arch": cell["arch"],
+               "shape": cell["shape"], "mesh": cell["mesh"],
+               "chips": cell.get("chips"),
+               "flops_per_chip": cell.get("flops_per_chip"),
+               "bytes_per_chip_unfused": cell.get("bytes_per_chip"),
+               "collective_bytes_per_chip":
+                   cell.get("collective_bytes_per_chip"),
+               "collectives": cell.get("collectives"),
+               "memory": cell.get("memory"),
+               "roofline_seconds": cell.get("roofline_seconds"),
+               "bottleneck": cell.get("bottleneck"),
+               "useful_flop_fraction": cell.get("useful_flop_fraction"),
+               "analytic": a, "host_seconds_step":
+                   cell.get("host_seconds"),
+               "cell_seconds": cell.get("cell_seconds"),
+               "read_after_s": read_after}
+        emit(row)
+        if missing:
+            raise AssertionError(f"dryrun {label}: fields missing: "
+                                 f"{missing}")
+        if not lo <= a["counted_over_expected"] <= hi:
+            raise AssertionError(f"dryrun {label}: counted / expected "
+                                 f"flops {a['counted_over_expected']} "
+                                 f"outside [{lo}, {hi}]")
+
+
+def run_mesh_train(ops, dev) -> dict:
+    """qwen3-4b at its published width on a 1 x 1 ("data", "model") mesh
+    over NCCL: MESH_STEPS steps against the unsharded trainer's from the
+    same key, which must be equal (a size-1 mesh dim splits nothing, so
+    the same kernels run); step ms against the unsharded run's in this
+    run, and one more step of each under torch.profiler (kernels, device
+    ms, the host's share); then at MESH_RESTORE_LAYERS layers, the mesh
+    trainer's checkpoint at step MESH_CKPT_AT restored onto the unsharded
+    trainer, whose steps after it must equal the mesh run's bit for bit.
+    Returns the full-width mesh run's launches."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.training import trainer as tr
+    t_all = time.perf_counter()
+
+    def cfg(arch=LM_ARCH, **kw):
+        return tr.TrainerConfig(arch=arch, smoke=False, steps=MESH_STEPS,
+                                batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                lr=TRAIN_LR, **kw)
+
+    def history(hist):
+        return [(h["loss"], h["grad_norm"]) for h in hist]
+
+    def median_ms(hist):
+        ms = sorted(h["step_time"] * 1e3 for h in hist[1:])
+        return ms[len(ms) // 2]
+    fresh_peak()
+    plain = tr.Trainer(cfg(), device=dev)
+    params, opt, want = plain.run(*plain.init_state())
+    # (the profiled step's AdamW state is dropped with the rest: the mesh
+    # run needs the card the unsharded state holds)
+    plain_prof = profile_train_step(plain, params, opt, dev, MESH_STEPS)[1]
+    del plain, params, opt
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    with NcclGroup():
+        fresh_peak()
+        t0 = time.perf_counter()
+        trainer = tr.Trainer(cfg(), device=dev, mesh=mesh)
+        ops.reset_launch_counts()
+        params, opt = trainer.init_state()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params, opt, got = trainer.run(params, opt)
+        launches = ops.launch_counts()
+        peak = peak_gib()
+        mesh_prof = profile_train_step(trainer, params, opt, dev,
+                                       MESH_STEPS)[1]
+        del trainer, params, opt
+        torch.cuda.empty_cache()
+        gap = max(abs(a - b) / abs(b) for pa, pb in zip(history(got),
+                                                        history(want))
+                  for a, b in zip(pa, pb))
+        median = median_ms(got)
+
+        # The restore onto another layout, at the same width cut in depth.
+        short = f"{LM_ARCH}-{MESH_RESTORE_LAYERS}l"
+        registry._REGISTRY[short] = lambda: registry.get_config(
+            LM_ARCH).scaled(num_layers=MESH_RESTORE_LAYERS)
+        directory = tempfile.mkdtemp(prefix="mesh_train-")
+        try:
+            t = tr.Trainer(cfg(short, ckpt_dir=directory,
+                               ckpt_every=MESH_CKPT_AT), device=dev,
+                           mesh=mesh)
+            mesh_hist = t.run(*t.init_state())[2]
+            del t
+            torch.cuda.empty_cache()
+            u = tr.Trainer(cfg(short, ckpt_dir=directory, ckpt_every=100),
+                           device=dev)
+            params, opt = u.init_state()
+            s0 = time.perf_counter()
+            opt = u.restore(MESH_CKPT_AT, params, opt)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - s0
+            replay = u.run(params, opt, MESH_CKPT_AT)[2]
+            del u, params, opt
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+            registry._REGISTRY.pop(short, None)
+            torch.cuda.empty_cache()
+    tail = history(mesh_hist)[MESH_CKPT_AT:]
+    plain_median = median_ms(want)
+
+    def brief(prof):
+        return {**{k: prof[k] for k in ("wall_ms", "device_ms",
+                                        "idle_share", "kernels")},
+                "host_ms": prof["wall_ms"] - prof["device_ms"],
+                "top": prof["top"][:5]}
+    row = {"phase": "mesh_train", "arch": LM_ARCH, "mesh": mesh.shape,
+           "steps": MESH_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "init_s": init_s, "loss": [h["loss"] for h in got],
+           "grad_norm": [h["grad_norm"] for h in got],
+           "unsharded": history(want), "largest_gap_rel": gap,
+           "step_ms": [h["step_time"] * 1e3 for h in got],
+           "step_ms_median_1_3": median,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+           "unsharded_step_ms": [h["step_time"] * 1e3 for h in want],
+           "unsharded_step_ms_median_1_3": plain_median,
+           "mesh_over_unsharded": median / plain_median,
+           "profiled_step": {"mesh": brief(mesh_prof),
+                             "unsharded": brief(plain_prof)},
+           "peak_gib": peak, "launches": launches,
+           "restore": {"layers": MESH_RESTORE_LAYERS, "ckpt_at":
+                       MESH_CKPT_AT, "mesh_run": history(mesh_hist),
+                       "unsharded_after_restore": history(replay),
+                       "bit_for_bit": history(replay) == tail,
+                       "restore_s": restore_s},
+           "seconds": time.perf_counter() - t_all}
+    emit(row)
+    if history(got) != history(want):
+        raise AssertionError(f"mesh_train: the 1 x 1 mesh's losses and "
+                             f"norms differ from the unsharded trainer's "
+                             f"(largest gap {gap})")
+    if not row["restore"]["bit_for_bit"]:
+        raise AssertionError("mesh_train: the unsharded replay after the "
+                             "mesh's checkpoint differs")
+    if not all(math.isfinite(v) for v in row["loss"] + row["grad_norm"]):
+        raise AssertionError("mesh_train: a loss or norm is not finite")
+    return launches
+
+
+def run_distributed_paths(ops, core, data, dev) -> dict:
+    """The three distributed functions on a one-rank NCCL group at the
+    synthetic profile's full width (OverSketchConfig(30720, 256, 0.25),
+    30 of 150 blocks masked; the X encode's 1,296 workers, 5% erased; six
+    trial steps) against their local counterparts, within DIST_TOL of max
+    |local|, each timed beside them.  Returns the distributed calls'
+    launches (counted from 0 just before each, read just after)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import coded, linesearch, sketch
+    t_all = time.perf_counter()
+    n, d = data.x.shape
+    objective = core.LogisticRegression()
+    w0 = torch.zeros(d, device=dev)
+    a = objective.hess_sqrt(w0, data)
+    cfg = core.OverSketchConfig(30720, BLOCK, 0.25)
+    cs = core.sample_countsketch(prng.PRNGKey(SEED), n, cfg, device=dev)
+    surv = drop_mask(cfg.total_blocks, 30, dev)
+    code = core.make_code(n, BLOCK)
+    enc = core.encode_2d(data.x, code)
+    g1 = code.grid + 1
+    enc_flat = enc.view(g1 * g1, BLOCK, d)
+    erased = drop_mask(g1 * g1, int(CODED_ERASED * g1 * g1), dev).logical_not()
+    vec = torch.randn(d, generator=torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    p = objective.gradient(w0, data)
+    cand = torch.tensor([4.0 ** -i for i in range(6)], device=dev)
+    out, launches = {}, {}
+    with NcclGroup():
+        cases = {
+            "sketched_gram": (
+                lambda: sketch.distributed_sketched_gram(a, cs, surv),
+                lambda: core.sketched_gram(core.apply_sketch(cs, a), surv)),
+            "coded_matvec": (
+                lambda: coded.distributed_coded_matvec(
+                    enc_flat, vec, erased, code, n)[0],
+                lambda: core.coded_matvec(enc, vec, code, n,
+                                          erased.view(g1, g1))[0]),
+            "f_trials": (
+                lambda: linesearch.distributed_f_trials(objective, data, w0,
+                                                        p, cand),
+                lambda: objective.value(w0[None] + cand[:, None] * p[None],
+                                        data))}
+        for name, (dist_fn, local_fn) in cases.items():
+            ops.reset_launch_counts()
+            got = dist_fn()
+            torch.cuda.synchronize()
+            launches[name] = {k: v for k, v in ops.launch_counts().items()
+                              if v}
+            want = local_fn()
+            row = compare(f"distributed {name}", got, want)
+            row["ms"] = cuda_ms(dist_fn, 3, warm=False)
+            row["local_ms"] = cuda_ms(local_fn, 1, warm=False)
+            row["launches"] = launches[name]
+            out[name] = row
+            del got, want
+    del a, enc, enc_flat
+    torch.cuda.empty_cache()
+    emit({"phase": "distributed_paths", "world": 1, "backend": "nccl",
+          "shapes": {"n": n, "d": d, "K": cfg.total_blocks, "b": BLOCK,
+                     "workers": g1 * g1, "trials": 6},
+          "rows": out, "tolerance_rel": DIST_TOL,
+          "seconds": time.perf_counter() - t_all})
+    if launches["sketched_gram"].get("count_sketch_apply") != 1:
+        raise AssertionError("distributed_paths: the count-sketch kernel "
+                             "did not launch once")
+    if launches["coded_matvec"].get("coded_block_matvec") != 1:
+        raise AssertionError("distributed_paths: the coded mat-vec kernel "
+                             "did not launch once")
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return {name: total.get(name, 0) for name in ops.KERNELS}
+
+
+def write_kernels_bench(summary: list, rows: dict, shapes: dict,
+                        smi: str) -> None:
+    """kernels_bench's rows (``kernels_bench.bench_rows``, the bench's own
+    format) from this run's kernel timings, at the shapes the bench takes
+    (no kernel is timed a second time), written through
+    ``kernels_bench.write`` to a temporary file and read back; each
+    kernel's ms beside PERF.md section 6's.  No gate on speed."""
+    import shutil
+    import tempfile
+    from repro_torch.benchmarks import kernels_bench
+    t0 = time.perf_counter()
+    bench = []
+    for e in summary:
+        shape = rows[e["name"]].get("shape") or shapes
+        bench += kernels_bench.bench_rows(
+            e["name"], shape, smi, e["plain_ms"], e["ms"], e["max_abs_err"],
+            e["library_ms"])
+    tmp = tempfile.mkdtemp(prefix="kernels_bench-")
+    try:
+        out = os.path.join(tmp, "kernels_bench.json")
+        kernels_bench.write(bench, out)
+        with open(out) as f:
+            bench = json.load(f)["rows"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    table = {}
+    for r in bench:
+        entry = table.setdefault(r["kernel"], {"perf_md_ms":
+                                               TABLE_MS[r["kernel"]]})
+        entry[f"{r['path']}_ms"] = r["ms"]
+        if r["path"] == "cuda":
+            entry["max_abs_err"] = r["max_abs_err"]
+        entry["device"] = r["device"]
+    emit({"phase": "kernels_bench", "kernels": table,
+          "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -3403,6 +3741,9 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln]
                     for s, log in _build.BUILD_LOGS.items()},
           "seconds": time.perf_counter() - t0})
+    # The dry runs are host work in processes of their own: started now,
+    # read at the end.
+    dryruns = start_dryruns()
 
     # The paper's synthetic workload at full width (Sec. 5.1).
     t0 = time.perf_counter()
@@ -3470,12 +3811,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     coded_rows = check_coded(ops, ref, data, b, dev)
     rows["coded_block_matvec"] = coded_rows["XT"]
-    emit({"phase": "kernels", "shapes": {"K": scfg.total_blocks, "n": n,
-                                         "d": d, "b": b, "masked": 30,
-                                         "sjlt_s": 4, "distavg_K":
-                                         dcfg.total_blocks, "distavg_b":
-                                         DISTAVG_BLOCK},
-          "rows": rows, "coded_X": coded_rows["X"],
+    kernel_shapes = {"K": scfg.total_blocks, "n": n, "d": d, "b": b,
+                     "masked": 30, "sjlt_s": 4,
+                     "distavg_K": dcfg.total_blocks,
+                     "distavg_b": DISTAVG_BLOCK}
+    emit({"phase": "kernels", "shapes": kernel_shapes, "rows": rows,
+          "coded_X": coded_rows["X"],
           "oversketch_gram_count_sketch": count_gram, "b4096": large,
           "small_cases_max_abs_err": small,
           "tolerance_rel": REL_TOL, "seconds": time.perf_counter() - t0})
@@ -3578,6 +3919,8 @@ def main() -> int:
     from repro_torch import obs
     paths.update(run_modes(core, ops, obs, prng, objective, data, w0, scfg,
                            b, dev))
+    # The three distributed paths on a one-rank NCCL group.
+    paths["distributed_paths"] = run_distributed_paths(ops, core, data, dev)
     del data
     torch.cuda.empty_cache()
 
@@ -3619,6 +3962,12 @@ def main() -> int:
     # The LM training path: the trainer at smoke width on the card against
     # the CPU, qwen3-4b training at full width, and its restart.
     paths.update(run_training(ops, dev))
+
+    # Mesh training on a 1 x 1 mesh over NCCL, its checkpoint restored
+    # onto the unsharded trainer; the dry runs' cells.
+    paths["mesh_train"] = run_mesh_train(ops, dev)
+    torch.cuda.empty_cache()
+    finish_dryruns(dryruns)
 
     # Each kernel's numbers at the shape its full-width path launches it:
     # count_sketch_apply at b = 4,096 (distributed-avg), the coded mat-vec
@@ -3701,6 +4050,7 @@ def main() -> int:
                                             "case")
                           if f in r})
         summary.append(entry)
+    write_kernels_bench(summary, rows, kernel_shapes, smi)
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -11,6 +11,15 @@ memory at once and writes on a thread.  numpy has no bfloat16: a bf16
 leaf is stored as its 16-bit patterns (uint16) with ``"bfloat16"`` in the
 manifest, as the reference stores it, so either package reads the
 other's files.
+
+Sharded state (DTensor leaves, ``Trainer(mesh=...)``): a save gathers
+each leaf whole (``full_tensor()``, a collective every rank joins) and
+rank 0 of the default group writes the same files and bits as an
+unsharded save; ``wait`` then holds every rank at a barrier until the
+files are in place.  ``restore(step, like, shardings)`` lays each leaf
+out by the given shardings (``distributed.sharding.NamedSharding``, on
+the mesh of ``like``'s DTensor leaf, else the sharding's own mesh), which
+may be another mesh than the one that saved: elastic restore.
 """
 from __future__ import annotations
 
@@ -22,6 +31,9 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import whole
 
 Pytree = Any
 
@@ -59,6 +71,16 @@ def _unflatten_like(like: Pytree, leaves: dict, prefix: str = "") -> Pytree:
     return leaves[prefix[:-1]]
 
 
+def _is_sharded(state: Pytree) -> bool:
+    return any(hasattr(leaf, "full_tensor")
+               for _, leaf in _flatten_with_names(state))
+
+
+def _writes() -> bool:
+    """Whether this process writes a sharded save (rank 0 alone)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as a savable numpy array and its logical dtype name."""
     t = torch.as_tensor(leaf).detach()
@@ -81,13 +103,21 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._sharded = False     # a sharded save is in flight or done
 
     # ------------------------------------------------------------- saving --
     def save(self, step: int, state: Pytree) -> str:
+        final = os.path.join(self.directory, f"step-{step:08d}")
+        if _is_sharded(state):
+            self._sharded = True
+            state = _unflatten_like(state, {
+                name: whole(torch.as_tensor(leaf).detach()).cpu()
+                for name, leaf in _flatten_with_names(state)})
+            if not _writes():
+                return final
         leaves = [(name, _to_host(leaf))
                   for name, leaf in _flatten_with_names(state)]
         tmp = os.path.join(self.directory, f".tmp-{step}")
-        final = os.path.join(self.directory, f"step-{step:08d}")
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
@@ -107,19 +137,28 @@ class CheckpointManager:
         return final
 
     def async_save(self, step: int, state: Pytree) -> None:
-        """Snapshot to host memory now (device -> host copies), write on a
-        thread."""
+        """Snapshot to host memory now (device -> host copies; DTensor
+        leaves gathered whole), write on a thread (rank 0 alone for a
+        sharded state)."""
         self.wait()
+        sharded = _is_sharded(state)
         snap = _unflatten_like(state, {
-            name: torch.as_tensor(leaf).detach().to("cpu", copy=True)
+            name: whole(torch.as_tensor(leaf).detach()).to("cpu", copy=True)
             for name, leaf in _flatten_with_names(state)})
+        self._sharded = self._sharded or sharded
+        if sharded and not _writes():
+            return
         self._thread = threading.Thread(target=self.save, args=(step, snap))
         self._thread.start()
 
     def wait(self) -> None:
+        """Until the save in flight is written (every rank, after a
+        sharded save)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded and dist.is_initialized():
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -139,11 +178,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Pytree, device=None) -> Pytree:
-        """Load ``step`` shaped like ``like`` (tensors or meta tensors):
-        each leaf in like's dtype, on ``device`` (else like's own device;
-        the CPU for a meta tensor).  A leaf count or shape that differs
-        raises AssertionError, as the reference's checks do."""
+    def restore(self, step: int, like: Pytree,
+                shardings: Optional[Pytree] = None, device=None) -> Pytree:
+        """Load ``step`` shaped like ``like`` (tensors, DTensors or meta
+        tensors): each leaf in like's dtype, on ``device`` (else like's
+        own device; the CPU for a meta tensor), laid out by ``shardings``
+        (a tree of ``NamedSharding`` like ``like``) when given.  A leaf
+        count or shape that differs raises AssertionError, as the
+        reference's checks do."""
         path = os.path.join(self.directory, f"step-{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -152,6 +194,7 @@ class CheckpointManager:
             raise AssertionError(f"checkpoint has {len(manifest['leaves'])} "
                                  f"leaves, state needs {len(names)}")
         by_name = {rec["name"]: rec for rec in manifest["leaves"]}
+        placed = dict(_flatten_with_names(shardings)) if shardings else {}
         out = {}
         for name, like_leaf in names:
             rec = by_name[name]
@@ -164,10 +207,26 @@ class CheckpointManager:
             dev = device if device is not None else (
                 "cpu" if like_t.device.type == "meta" else like_t.device)
             out[name] = t.to(device=dev, dtype=like_t.dtype)
+            if name in placed:
+                out[name] = _place(out[name], placed[name], like_t)
         return _unflatten_like(like, out)
 
-    def restore_latest(self, like: Pytree, device=None) -> Optional[Pytree]:
+    def restore_latest(self, like: Pytree, shardings: Optional[Pytree] = None,
+                       device=None) -> Optional[Pytree]:
         step = self.latest_step()
         if step is None:
             return None
-        return self.restore(step, like, device)
+        return self.restore(step, like, shardings, device)
+
+
+def _place(t: torch.Tensor, sharding, like_t: torch.Tensor):
+    """The whole tensor ``t`` laid out by ``sharding`` (every rank keeps
+    its shard; no communication), on like's mesh when like is a DTensor.
+    A 0-d leaf (the AdamW step) stays a plain tensor."""
+    from repro_torch.distributed.sharding import distribute
+    if t.dim() == 0:
+        return t
+    mesh = getattr(like_t, "device_mesh", None)
+    if mesh is None:
+        mesh = sharding.mesh.device_mesh(t.device.type)
+    return distribute(t, sharding, mesh)

@@ -190,3 +190,41 @@ def coded_matvec(enc: torch.Tensor, x: torch.Tensor, code: ProductCode,
     else:
         known = ~erased
     return decode_matvec(prods, known, code, out_rows)
+
+
+# ---------------------------------------------------------------------------
+# Distributed path: the worker tasks spread over the ranks of a group.
+# ---------------------------------------------------------------------------
+
+def distributed_coded_matvec(enc_flat: torch.Tensor, x: torch.Tensor,
+                             erased_flat: torch.Tensor, code: ProductCode,
+                             out_rows: int, *, group=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coded mat-vec with the worker tasks split over the ranks of
+    ``group`` (the reference's ``mesh`` and ``worker_axis``).
+
+    enc_flat: (W_pad, b, s) encoded blocks flattened row-major and
+       zero-padded to a multiple of the world size (W_pad >= (g+1)^2),
+       whole on every rank; each rank multiplies its W_pad / world.
+    erased_flat: (W_pad,) straggler erasures.  An erased worker's product
+       is zero before the gather ("the master never saw it"); the coded
+       block mat-vec kernel skips it on the card.
+    The products are all-gathered, then peeled (``decode_matvec``).
+    """
+    from repro_torch.distributed.collectives import (all_gather_rows,
+                                                     rank_and_world)
+    rank, world = rank_and_world(group)
+    w_pad = enc_flat.shape[0]
+    if w_pad % world:
+        raise ValueError(f"{w_pad} worker tasks do not split over {world} "
+                         "ranks")
+    per = w_pad // world
+    sl = slice(rank * per, (rank + 1) * per)
+    erased_flat = erased_flat.to(enc_flat.device)
+    prod = kops.coded_block_matvec(enc_flat[sl].contiguous(), x,
+                                   erased_flat[sl].contiguous())
+    prods_flat = all_gather_rows(prod, group)
+    w, g1 = code.num_workers, code.grid + 1
+    prods = prods_flat[:w].reshape(g1, g1, code.block_rows)
+    known = (~erased_flat[:w]).reshape(g1, g1)
+    return decode_matvec(prods, known, code, out_rows)

@@ -63,3 +63,20 @@ def linesearch_weakly_convex(objective, data, w: torch.Tensor,
         trials.append(gt @ gt)
     return gradnorm_select(torch.stack(trials), g @ g, p @ h_hat_g, cand,
                            beta)
+
+
+def distributed_f_trials(objective, data_local, w: torch.Tensor,
+                         p: torch.Tensor, candidates: torch.Tensor,
+                         group=None) -> torch.Tensor:
+    """Per-rank partial objective values at the trial points, summed over
+    the ranks of ``group`` (the reference's ``axis``).  The objective
+    must be a mean over samples plus a replicated regularizer: each
+    rank's value is weighted by its shard size, and the sum divided by the
+    summed count."""
+    from repro_torch.distributed.collectives import psum_
+    n_local = data_local.x.shape[0]
+    trials = objective.value(w[None] + candidates[:, None] * p[None],
+                             data_local) * n_local
+    n = psum_(torch.tensor(float(n_local), dtype=torch.float32,
+                           device=trials.device), group)
+    return psum_(trials, group) / n

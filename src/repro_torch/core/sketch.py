@@ -136,3 +136,40 @@ def oversketched_gram(key: torch.Tensor, a: torch.Tensor,
         return kops.sketch_gram_count(cs.h, cs.sigma, a, cfg.block_size,
                                       survivors)
     return sketched_gram(apply_sketch(cs, a), survivors)
+
+
+# ---------------------------------------------------------------------------
+# Distributed path: sketch blocks spread over the ranks of a process group.
+# ---------------------------------------------------------------------------
+
+def distributed_sketched_gram(a: torch.Tensor, cs: CountSketch,
+                              survivors: torch.Tensor, *,
+                              group=None) -> torch.Tensor:
+    """H_hat over the ranks of ``group`` (the reference's ``mesh`` and
+    ``block_axis``): each rank owns total_blocks / world consecutive
+    sketch blocks, sketches A with them (``kops.count_sketch_apply``, the
+    count-sketch kernel on the card), forms its survivor-masked Gram sum
+    and its live count; both are summed over the ranks and the sum is
+    divided by max(n_avail, 1), a straggler-masked all-reduce.
+
+    a is whole on every rank; h, sigma and survivors are the whole
+    (total_blocks, ...) arrays, of which each rank reads its slice.  The
+    local Gram is a plain product: the masked-Gram kernel divides by the
+    local survivor count, another function.
+    """
+    from repro_torch.distributed.collectives import psum_, rank_and_world
+    rank, world = rank_and_world(group)
+    k = cs.total_blocks
+    if k % world:
+        raise ValueError(f"{k} sketch blocks do not split over {world} "
+                         "ranks")
+    per = k // world
+    sl = slice(rank * per, (rank + 1) * per)
+    a_t = kops.count_sketch_apply(cs.h[sl].contiguous(),
+                                  cs.sigma[sl].contiguous(), a,
+                                  cs.block_size)
+    mf = survivors[sl].to(device=a_t.device, dtype=a_t.dtype)
+    flat = a_t.reshape(-1, a_t.shape[-1])
+    gram = (flat * mf.repeat_interleave(cs.block_size)[:, None]).T @ flat
+    n_avail = psum_(mf.sum(), group)
+    return psum_(gram, group) / torch.clamp(n_avail, min=1.0)

@@ -21,10 +21,35 @@ import torch.distributed as dist
 Pytree = Any
 
 
-def _world(group) -> int:
+def rank_and_world(group=None) -> Tuple[int, int]:
+    """(this rank, the group's size); (0, 1) with no group initialized."""
     if group is None and not dist.is_initialized():
-        return 1
-    return dist.get_world_size(group)
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def psum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over the group's ranks in place (a collective on any
+    initialized group, one rank included; the identity with none)."""
+    if group is not None or dist.is_initialized():
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The ranks' ``t`` (rows, ...) concatenated along rows in rank order
+    (``lax.all_gather(..., tiled=True)``)."""
+    _, n = rank_and_world(group)
+    if group is None and not dist.is_initialized():
+        return t
+    out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out
+
+
+def _world(group) -> int:
+    return rank_and_world(group)[1]
 
 
 def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:

@@ -111,3 +111,17 @@ def coded_block_matvec(enc: torch.Tensor, x: torch.Tensor,
     """Per-worker coded block products with the erasure mask: (W, b, s),
     (s,), (W,) bool -> (W, b), 0 where erased."""
     return torch.einsum("wbs,s->wb", enc, x).masked_fill(erased[:, None], 0.0)
+
+
+def normal(key: torch.Tensor, shape, device) -> torch.Tensor:
+    """The normal kernel's plain version: ``prng.normal_plain`` on any
+    device (the kernels bench times it on the card)."""
+    from repro_torch import prng
+    return prng.normal_plain(key, shape, device)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            device) -> torch.Tensor:
+    """The draw kernel's plain randint: ``prng.randint`` on any device."""
+    from repro_torch import prng
+    return prng.randint(key, shape, minval, maxval, device=device)

@@ -1,3 +1,3 @@
-"""Launchers: the trainer (``train``), the batched server (``serve``) and
-the analytic cost model (``analytic``); the dry run and the mesh are not
-ported yet (ROADMAP Queue 1 item 12)."""
+"""Launchers: the trainer (``train``, ``--mesh`` included), the batched
+server (``serve``), the analytic cost model (``analytic``), the meshes
+(``mesh``) and the dry run (``dryrun``)."""

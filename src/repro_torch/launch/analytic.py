@@ -1,14 +1,10 @@
 """Analytic cost model: flops, HBM bytes and collective bytes of one step
 of a cell from the architecture config alone (the counterpart of
-``repro/launch/analytic.py``, copied; the roofline and the serving phases
-divide by it).
-
-One difference until the dry run and the mesh are ported (ROADMAP Queue 1
-item 13): the parameter bytes per chip are always the reference's policy
-estimate, ``param_count * 2 / mesh_model`` (its fallback when no mesh can
-be built), never a sharded count over a production mesh.  Flops and
-collective bytes are the reference's.  Only ported families have a
-parameter count (``registry.ModelBundle``).
+``repro/launch/analytic.py``, copied; the roofline, the dry run and the
+serving phases divide by it).  The parameter bytes per chip are the
+sharding policy's count over the given mesh, else the production mesh
+of ``chips`` (``distributed.sharding.sharded_param_bytes``), as the
+reference's dry run computes them.
 
 Conventions:
   * flops count multiply-adds as 2 ops; attention counts QK^T + PV.
@@ -18,7 +14,7 @@ Conventions:
   * collective model (per chip): Megatron-SP pattern per layer =
     all-gather(h_full) + reduce-scatter(h_full) per matmul block pair, plus
     the DP gradient all-reduce (2x param bytes, ring), plus MoE
-    dispatch/return gathers.  ICI time = bytes / 50 GB/s.
+    dispatch/return gathers.
 """
 from __future__ import annotations
 
@@ -26,11 +22,20 @@ import dataclasses
 import math
 from typing import Dict
 
+from repro_torch.distributed.sharding import sharded_param_bytes
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import ModelBundle, ShapeSpec
 
 BF16 = 2
 F32 = 4
+
+# Roofline denominators: the H100 SXM's data-sheet figures, per card.
+PEAK_FLOPS = 989e12          # dense bf16 FLOP/s
+HBM_BW = 3.35e12             # HBM3 bytes/s
+NVLINK_BW = 450e9            # NVLink bytes/s each way (a lower bound on a
+                             # collective's time: one card has no link to
+                             # measure, and a 16-wide axis spans two hosts)
 
 
 @dataclasses.dataclass
@@ -147,7 +152,9 @@ def cell_costs(cfg: ModelConfig, shape: ShapeSpec, chips: int,
     flops_per_chip = total / chips
 
     # -------------------------------------------------- HBM bytes per chip --
-    param_bytes_chip = ModelBundle(cfg).param_count() * BF16 / mesh_model
+    m = mesh if mesh is not None else \
+        make_production_mesh(multi_pod=(chips == 512))
+    param_bytes_chip = sharded_param_bytes(ModelBundle(cfg), m)
 
     if shape.kind == "train":
         # fwd+bwd read params twice, opt reads/writes moments + params

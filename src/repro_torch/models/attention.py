@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import shard_ops
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, Spec
 
@@ -57,8 +58,14 @@ def attn_specs(cfg: ModelConfig, stacked: int = 0, *,
 
 # ------------------------------------------------------------- projections ---
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum('btd,dhk->bthk') as one matmul."""
+    """einsum('btd,dhk->bthk') as one matmul.  A weight split along
+    head_dim (the policy's fallback where the heads do not divide) is
+    flattened head_dim first: DTensor flattens dims only with the split on
+    the leading one."""
     d, h, k = w.shape
+    if shard_ops.split_on(w, 2):
+        y = x @ w.transpose(1, 2).reshape(d, k * h)
+        return y.unflatten(-1, (k, h)).transpose(-1, -2)
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
@@ -85,6 +92,10 @@ def project_qkv(cfg: ModelConfig, p: common.Params, xq: torch.Tensor,
 def out_proj(p: common.Params, attn: torch.Tensor) -> torch.Tensor:
     """einsum('bshk,hkd->bsd')."""
     h, k, d = p.wo.shape
+    if shard_ops.split_on(p.wo, 1) or shard_ops.split_on(attn, 3):
+        # as in _proj
+        return attn.transpose(-1, -2).flatten(-2) @ \
+            p.wo.transpose(0, 1).reshape(k * h, d)
     return attn.flatten(-2) @ p.wo.reshape(h * k, d)
 
 
@@ -114,6 +125,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     of q[0].  kv_len: optional valid-length bound.  Returns (B, Sq, H, hd).
     """
     b, sq, h, hd = q.shape
+    if shard_ops.is_sharded(q):
+        return shard_ops.attention(chunked_attention, q, k, v,
+                                   causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset,
+                                   kv_len=kv_len, chunk=chunk)
     if repeat_kv and k.shape[2] != h:
         rep = h // k.shape[2]
         k = k.repeat_interleave(rep, dim=2)

@@ -26,6 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng, resolve_device
+from repro_torch.distributed import shard_ops
 from repro_torch.kernels import ops
 
 Pytree = Any
@@ -249,11 +250,18 @@ class _EmbedLookup(torch.autograd.Function):
         ctx.save_for_backward(tokens)
         ctx.vocab, ctx.dtype, ctx.grad_chunk = (embed.shape[0], embed.dtype,
                                                 grad_chunk)
+        ctx.placements = getattr(embed, "placements", None)
+        if ctx.placements is not None:
+            return shard_ops.embed_lookup(embed, tokens)
         return embed[tokens.long()]
 
     @staticmethod
     def backward(ctx, g):
         tokens, = ctx.saved_tensors
+        if ctx.placements is not None:
+            return (shard_ops.embed_grad(embed_grad, tokens, g, ctx.vocab,
+                                         ctx.placements, ctx.dtype,
+                                         ctx.grad_chunk), None, None)
         return (embed_grad(tokens, g, ctx.vocab, ctx.dtype, ctx.grad_chunk),
                 None, None)
 
@@ -351,10 +359,10 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv, x (B, S, C), w (K, C): the taps summed in the
     reference's order (``sum`` of the shifted products), then the bias."""
     k, s = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, k - 1, 0))
-    out = pad[:, 0:s] * w[0]
+    xp = shard_ops.pad(x, (0, 0, k - 1, 0))
+    out = xp[:, 0:s] * w[0]
     for i in range(1, k):
-        out = out + pad[:, i:i + s] * w[i]
+        out = out + xp[:, i:i + s] * w[i]
     return out + b
 
 
@@ -389,10 +397,27 @@ def dynamic_slice(x: torch.Tensor, start: int, size: int,
 
 def _ce_chunk(h_blk: torch.Tensor, head: torch.Tensor, l_blk: torch.Tensor,
               transpose_head: bool, ignore_id: int):
-    """One chunk's (NLL sum, unmasked count), both float32 0-d."""
-    logits = (h_blk @ (head.T if transpose_head else head)).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, l_blk.long().clamp_min(0)[..., None])[..., 0]
+    """One chunk's (NLL sum, unmasked count), both float32 0-d.
+
+    Vocab-sharded logits (on a mesh, ``shard_ops.vocab_logits``): the
+    log-sum-exp from a max and a sum over the vocab shards (two small
+    all-reduces, not a gather of the chunk's logits), and the gold logit
+    as h . head[label] through the vocab-parallel embedding rule, its rows
+    reduced at once (DTensor's gather along a vocab-sharded dim, and a
+    masked partial carried through a reshape, fail in its masked-partial
+    rule)."""
+    w = head.T if transpose_head else head
+    logits = shard_ops.vocab_logits(h_blk, w).float()
+    labels = l_blk.long().clamp_min(0)
+    if shard_ops.vocab_sharded(logits):
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        rows = shard_ops.whole_last_dim(F.embedding(labels, w.T))
+        gold = torch.einsum("bcd,bcd->bc", h_blk, rows).float()
+    else:
+        logits = shard_ops.whole_last_dim(logits)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None])[..., 0]
     mask = (l_blk != ignore_id).float()
     return ((lse - gold) * mask).sum(), mask.sum()
 
@@ -412,10 +437,10 @@ def chunked_cross_entropy(h: torch.Tensor, head: torch.Tensor,
     """
     s = h.shape[1]
     n_chunks = -(-s // chunk)
-    pad = n_chunks * chunk - s
-    if pad:
-        h = F.pad(h, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad), value=ignore_id)
+    extra = n_chunks * chunk - s
+    if extra:
+        h = shard_ops.pad(h, (0, 0, 0, extra))
+        labels = shard_ops.pad(labels, (0, extra), value=ignore_id)
     nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_chunks):
@@ -446,17 +471,21 @@ def leaf_views(model: nn.Module) -> List[Tuple[str, Optional[int],
     """(leaf path, layer index or None, parameter) of every parameter of
     a model built from a tree in the reference's layout: each parameter is
     its tree leaf (``model.tree``), or the view of one layer of a stacked
-    (L, ...) leaf.  Found by storage."""
-    leaves = {leaf.untyped_storage().data_ptr(): (path, leaf)
+    (L, ...) leaf.  Found by storage (not its address: a meta tensor has
+    none; a DTensor's by its local shard's:
+    ``"layers"`` is never sharded, so a layer's view stays local)."""
+    leaves = {shard_ops.shard_of(leaf).untyped_storage()._cdata: (path, leaf)
               for path, leaf in flatten(model.tree)}
     views = []
     for p in model.parameters():
-        path, leaf = leaves[p.untyped_storage().data_ptr()]
+        lp = shard_ops.shard_of(p)
+        path, leaf = leaves[lp.untyped_storage()._cdata]
         if p.shape == leaf.shape:
             views.append((path, None, p))
         else:
-            step = leaf[0].numel()
-            views.append((path, (p.storage_offset() - leaf.storage_offset())
+            local = shard_ops.shard_of(leaf)
+            step = local[0].numel()
+            views.append((path, (lp.storage_offset() - local.storage_offset())
                           // step, p))
     return views
 

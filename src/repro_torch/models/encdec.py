@@ -204,10 +204,12 @@ def forward(cfg: ModelConfig, params: EncDecLM, tokens: torch.Tensor,
 
 
 def loss_fn(cfg: ModelConfig, params: EncDecLM,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            batch: Dict[str, torch.Tensor], constrain=None) -> torch.Tensor:
     """Train loss: the encoder over ``frame_embeds``, the decoder over the
     tokens, the tied head fused chunk by chunk
-    (``common.chunked_cross_entropy``)."""
+    (``common.chunked_cross_entropy``).  ``constrain`` is accepted and
+    unused, as the reference's encoder-decoder loss leaves it: its
+    activations take whatever layout DTensor propagates."""
     memory = encode(cfg, params, batch["frame_embeds"], remat=True)
     h = _decoder_pass(cfg, params, _embed_dec(cfg, params, batch["tokens"],
                                               0), memory, remat=True)

@@ -29,6 +29,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import shard_ops
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, Spec
 
@@ -112,45 +113,61 @@ def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor,
 def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor,
             group_size: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux_loss scalar).  ``p`` holds one
-    layer's router (d, E) and w_gate, w_up (E, d, f), w_down (E, f, d)."""
+    layer's router (d, E) and w_gate, w_up (E, d, f), w_down (E, f, d).
+    On a mesh (x a DTensor) the routing, dispatch and combine run on each
+    rank's own batch rows (``distributed.shard_ops.moe_ffn``)."""
     b, s, d = x.shape
     g = min(group_size or cfg.moe_group_size, s)
     n_groups = -(-s // g)
-    pad = n_groups * g - s
-    if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-    rows = b * n_groups
-    xg = x.reshape(rows, g, d)
     cap = _capacity(g, cfg)
     k, e = cfg.experts_per_token, cfg.num_experts
-    r = route(cfg, p.router, xg, cap)
 
-    # --- dispatch: slot (e, r, c) of an (E, R, C) buffer ----------------
-    row = torch.arange(rows, device=x.device)[:, None, None]
-    slot = (r.expert * rows + row) * cap + r.pos.clamp(max=cap - 1)
-    n_slots = e * rows * cap
-    token = (row * g + torch.arange(g, device=x.device)[None, :, None]
-             ).expand(rows, g, k)
-    src = torch.full((n_slots + 1,), rows * g, dtype=torch.int64,
-                     device=x.device)           # rows * g: the zero token
-    src[torch.where(r.keep, slot, n_slots).reshape(-1)] = token.reshape(-1)
-    xz = torch.cat([xg.reshape(rows * g, d), xg.new_zeros((1, d))])
-    xe = xz[src[:n_slots]].view(e, rows * cap, d)
+    def experts(xe):
+        """The expert products, one batched product a weight."""
+        hidden = common.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
+        return torch.bmm(hidden, p.w_down)
 
-    # --- expert compute (one batched product a weight) -------------------
-    hidden = common.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
-    ye = torch.bmm(hidden, p.w_down).view(n_slots, d)
+    def body(x, router, experts):
+        """Routing, dispatch and combine of x (b, S, d) -> (y, probs,
+        counts)."""
+        b_rows = x.shape[0]
+        pad = n_groups * g - s
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+        rows = b_rows * n_groups
+        xg = x.reshape(rows, g, d)
+        r = route(cfg, router, xg, cap)
 
-    # --- combine: each token's kept slots weighted by its gates ---------
-    w = (r.gate * r.keep).to(x.dtype).float().reshape(rows * g, k)
-    flat = slot.reshape(rows * g, k)
-    y = ye[flat[:, 0]].float() * w[:, :1]
-    for j in range(1, k):
-        y = y + ye[flat[:, j]].float() * w[:, j:j + 1]
-    y = y.to(x.dtype).view(b, n_groups * g, d)[:, :s]
+        # --- dispatch: slot (e, r, c) of an (E, R, C) buffer ------------
+        row = torch.arange(rows, device=x.device)[:, None, None]
+        slot = (r.expert * rows + row) * cap + r.pos.clamp(max=cap - 1)
+        n_slots = e * rows * cap
+        token = (row * g + torch.arange(g, device=x.device)[None, :, None]
+                 ).expand(rows, g, k)
+        src = torch.full((n_slots + 1,), rows * g, dtype=torch.int64,
+                         device=x.device)       # rows * g: the zero token
+        src[torch.where(r.keep, slot, n_slots).reshape(-1)] = \
+            token.reshape(-1)
+        xz = torch.cat([xg.reshape(rows * g, d), xg.new_zeros((1, d))])
+        xe = xz[src[:n_slots]].view(e, rows * cap, d)
+        ye = experts(xe).reshape(n_slots, d)
+
+        # --- combine: each token's kept slots weighted by its gates -----
+        w = (r.gate * r.keep).to(x.dtype).float().reshape(rows * g, k)
+        flat = slot.reshape(rows * g, k)
+        y = ye[flat[:, 0]].float() * w[:, :1]
+        for j in range(1, k):
+            y = y + ye[flat[:, j]].float() * w[:, j:j + 1]
+        y = y.to(x.dtype).view(b_rows, n_groups * g, d)[:, :s]
+        return y, r.probs, r.counts
+
+    if shard_ops.is_sharded(x):
+        y, probs, counts = shard_ops.moe_ffn(body, experts, x, p.router)
+    else:
+        y, probs, counts = body(x, p.router, experts)
 
     # --- load-balance auxiliary loss (Switch style), per group ----------
-    prob_mean = r.probs.view(b, n_groups, g, e).mean(dim=(0, 2))  # (G, E)
-    density = r.counts.view(b, n_groups, e).sum(0).float() / (b * g)
+    prob_mean = probs.view(b, n_groups, g, e).mean(dim=(0, 2))  # (G, E)
+    density = counts.view(b, n_groups, e).sum(0).float() / (b * g)
     aux = (e * (prob_mean * density).mean(-1) * k).sum() / n_groups
     return y, aux

@@ -8,7 +8,7 @@ A bundle exposes:
   abstract()                 -> meta-tensor params (no allocation)
   logical_axes()             -> the specs' logical axes
   param_count()              -> parameters in the spec tree
-  loss(params, batch)        -> scalar train loss
+  loss(params, batch, constrain) -> scalar train loss
   init_cache(batch, s)       -> serving cache
   prefill(params, ...)       -> (logits, cache)
   decode(params, cache, tok) -> (logits, cache)
@@ -93,11 +93,12 @@ class ModelBundle:
         return common.param_count(self.specs())
 
     # --------------------------------------------------------------- steps --
-    def loss(self, params: nn.Module,
-             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def loss(self, params: nn.Module, batch: Dict[str, torch.Tensor],
+             constrain=None) -> torch.Tensor:
         """The scalar train loss of ``batch`` (tokens, labels, and the
-        family's frame or patch embeddings)."""
-        return self._mod.loss_fn(self.cfg, params, batch)
+        family's frame or patch embeddings); ``constrain``: the sharding
+        hook of ``distributed.activation_constraint``."""
+        return self._mod.loss_fn(self.cfg, params, batch, constrain)
 
     def init_cache(self, batch: int, max_seq: int, dtype=None,
                    device=None) -> Pytree:

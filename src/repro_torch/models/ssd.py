@@ -15,9 +15,9 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import prng
+from repro_torch.distributed import shard_ops
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, Spec
 
@@ -85,7 +85,7 @@ def ssd_forward(cfg: ModelConfig, p, x_in: torch.Tensor) -> torch.Tensor:
     q = min(cfg.ssm_chunk, s_orig)
     s_pad = (-s_orig) % q
     if s_pad:   # causal => zero right-padding never affects real positions
-        x_in = F.pad(x_in, (0, 0, 0, s_pad))
+        x_in = shard_ops.pad(x_in, (0, 0, 0, s_pad))
     s = s_orig + s_pad
     nc = s // q
 

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import shard_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe, rglru, ssd
 from repro_torch.models.common import ModelConfig, Params, Spec
@@ -219,11 +220,15 @@ def lm_logits(cfg: ModelConfig, params: _LM,
 
 
 # -------------------------------------------------------------- full pass ----
+def _identity(h: torch.Tensor, kind: str = "carry") -> torch.Tensor:
+    return h
+
+
 def _attend(cfg: ModelConfig, p, ln, h: torch.Tensor,
-            positions: torch.Tensor, theta: float):
+            positions: torch.Tensor, theta: float, constrain=_identity):
     """The norm ``ln`` and the projections of attention ``p``: (x's q, k,
     v) with rope applied."""
-    x = common.apply_norm(cfg, h, ln)
+    x = constrain(common.apply_norm(cfg, h, ln), "inner")
     q, k, v = attn.project_qkv(cfg, p, x)
     if cfg.pos_embed == "rope":
         q = common.rope(q, positions, theta)
@@ -238,12 +243,14 @@ def _ffn(cfg: ModelConfig, p, x: torch.Tensor):
     return mlp_forward(cfg, p, x), None
 
 
-def _finish(cfg: ModelConfig, lp, h: torch.Tensor, o: torch.Tensor):
+def _finish(cfg: ModelConfig, lp, h: torch.Tensor, o: torch.Tensor,
+            constrain=_identity):
     """The attention output's projection and residual, then the MLP or the
     MoE -> (h, aux or None)."""
-    h = h + attn.out_proj(lp.attn, o)
-    y, aux = _ffn(cfg, lp.ffn, common.apply_norm(cfg, h, lp.ln2))
-    return h + y, aux
+    h = h + shard_ops.like(attn.out_proj(lp.attn, o), h)
+    y, aux = _ffn(cfg, lp.ffn, constrain(common.apply_norm(cfg, h, lp.ln2),
+                                         "inner"))
+    return h + shard_ops.like(y, h), aux
 
 
 def _full_attention(cfg, q, k, v, window):
@@ -254,39 +261,51 @@ def _full_attention(cfg, q, k, v, window):
 
 
 def _uniform_block(cfg: ModelConfig, lp, h: torch.Tensor,
-                   positions: torch.Tensor, window: int, theta: float):
-    """One layer of the uniform stack -> (h, aux or None)."""
+                   positions: torch.Tensor, window: int, theta: float,
+                   constrain=_identity):
+    """One layer of the uniform stack -> (h, aux or None).  ``constrain``
+    is the sharding hook of ``distributed.activation_constraint``, applied
+    to each norm's output ("inner")."""
     if cfg.family == "ssm":
-        return h + ssd.ssd_forward(cfg, lp.mix, common.apply_norm(
-            cfg, h, lp.ln1)), None
-    q, k, v = _attend(cfg, lp.attn, lp.ln1, h, positions, theta)
-    return _finish(cfg, lp, h, _full_attention(cfg, q, k, v, window))
+        return h + shard_ops.like(ssd.ssd_forward(cfg, lp.mix, constrain(
+            common.apply_norm(cfg, h, lp.ln1), "inner")), h), None
+    q, k, v = _attend(cfg, lp.attn, lp.ln1, h, positions, theta, constrain)
+    return _finish(cfg, lp, h, _full_attention(cfg, q, k, v, window),
+                   constrain)
 
 
 def forward_hidden(cfg: ModelConfig, params: _LM, tokens: torch.Tensor,
                    extra_embeds: Optional[torch.Tensor] = None, *,
-                   remat: bool = False
+                   remat: bool = False, constrain=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence pass -> (hidden (B,S,d), moe_aux scalar: the MoE
     layers' aux losses summed, 0 for the other families).  With
     ``remat``, the reference's training form: the layers rematerialized
     in the backward (``_two_level``; the hybrid's groups once); it
-    changes no value."""
-    h = embed_tokens(cfg, params, tokens, extra_embeds)
+    changes no value.  ``constrain`` is an optional sharding hook
+    (``distributed.activation_constraint``) applied to the residual
+    stream after the embedding and after every layer ("carry") and to
+    each norm's output ("inner")."""
+    constrain = constrain or _identity
+    h = constrain(embed_tokens(cfg, params, tokens, extra_embeds), "carry")
     positions = torch.arange(h.shape[1], device=h.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "hybrid":
-        return _hybrid_forward(cfg, params, h, positions,
-                               remat=remat), aux_total
+        return _hybrid_forward(cfg, params, h, positions, remat=remat,
+                               constrain=constrain), aux_total
     windows, thetas = layer_schedule(cfg)
     if remat:
         def body(i, hc):
             out, aux = _uniform_block(cfg, params.layers[i], hc, positions,
-                                      int(windows[i]), float(thetas[i]))
-            return out, aux_total if aux is None else aux
+                                      int(windows[i]), float(thetas[i]),
+                                      constrain)
+            return (constrain(out, "carry"),
+                    aux_total if aux is None else aux)
         return _two_level(body, h, cfg.num_layers)
     for lp, w, th in zip(params.layers, windows, thetas):
-        h, aux = _uniform_block(cfg, lp, h, positions, int(w), float(th))
+        h, aux = _uniform_block(cfg, lp, h, positions, int(w), float(th),
+                                constrain)
+        h = constrain(h, "carry")
         if aux is not None:
             aux_total = aux_total + aux
     return h, aux_total
@@ -337,14 +356,18 @@ def forward(cfg: ModelConfig, params: _LM, tokens: torch.Tensor,
     return lm_logits(cfg, params, h), aux
 
 
-def loss_fn(cfg: ModelConfig, params: _LM, batch: Dict[str, torch.Tensor]
-            ) -> torch.Tensor:
+def loss_fn(cfg: ModelConfig, params: _LM, batch: Dict[str, torch.Tensor],
+            constrain=None) -> torch.Tensor:
     """Train loss; the vocab projection is fused chunk by chunk
     (``common.chunked_cross_entropy``), so the (B,S,V) logits never live
-    whole; plus ``MOE_AUX_WEIGHT`` times the MoE's aux loss."""
+    whole; plus ``MOE_AUX_WEIGHT`` times the MoE's aux loss.
+    ``constrain``: the sharding hook of ``forward_hidden``."""
     h, aux = forward_hidden(cfg, params, batch["tokens"],
-                            batch.get("patch_embeds"), remat=True)
+                            batch.get("patch_embeds"), remat=True,
+                            constrain=constrain)
     h = common.apply_norm(cfg, h, params.final_norm)
+    if constrain is not None:     # the head's product wants whole rows
+        h = constrain(h, "inner")
     if cfg.tie_embeddings:
         ce = common.chunked_cross_entropy(h, params.embed, batch["labels"],
                                           transpose_head=True,
@@ -372,21 +395,22 @@ def _hybrid_slots(cfg: ModelConfig) -> List[Tuple[bool, int]]:
     return out
 
 
-def _rec_mlp(cfg: ModelConfig, lp, h: torch.Tensor) -> torch.Tensor:
-    return h + mlp_forward(cfg, lp.rec_mlp,
-                           common.apply_norm(cfg, h, lp.rec_mlp_ln))
+def _rec_mlp(cfg: ModelConfig, lp, h: torch.Tensor,
+             constrain=_identity) -> torch.Tensor:
+    return h + shard_ops.like(mlp_forward(cfg, lp.rec_mlp, constrain(
+        common.apply_norm(cfg, h, lp.rec_mlp_ln), "inner")), h)
 
 
 def _attn_finish(cfg: ModelConfig, lp, h: torch.Tensor,
-                 o: torch.Tensor) -> torch.Tensor:
-    h = h + attn.out_proj(lp.attn, o)
-    return h + mlp_forward(cfg, lp.attn_mlp,
-                           common.apply_norm(cfg, h, lp.attn_mlp_ln))
+                 o: torch.Tensor, constrain=_identity) -> torch.Tensor:
+    h = h + shard_ops.like(attn.out_proj(lp.attn, o), h)
+    return h + shard_ops.like(mlp_forward(cfg, lp.attn_mlp, constrain(
+        common.apply_norm(cfg, h, lp.attn_mlp_ln), "inner")), h)
 
 
 def _hybrid_forward(cfg: ModelConfig, params: HybridLM, h: torch.Tensor,
                     positions: torch.Tensor, cache: Optional[Pytree] = None,
-                    remat: bool = False) -> torch.Tensor:
+                    remat: bool = False, constrain=_identity) -> torch.Tensor:
     """The hybrid stack over a sequence; with ``cache``, the prefill: each
     recurrent layer's final state and each attention layer's last
     ``window`` keys and values written into it.  With ``remat``, the
@@ -400,36 +424,37 @@ def _hybrid_forward(cfg: ModelConfig, params: HybridLM, h: torch.Tensor,
         units += [[slot] for slot in slots[n_attn * per:]]
         for unit in units:
             h = checkpoint(_hybrid_layers, cfg, params, h, positions, unit,
-                           use_reentrant=False)
+                           None, constrain, use_reentrant=False)
         return h
-    return _hybrid_layers(cfg, params, h, positions, slots, cache)
+    return _hybrid_layers(cfg, params, h, positions, slots, cache, constrain)
 
 
 def _hybrid_layers(cfg: ModelConfig, params: HybridLM, h: torch.Tensor,
-                   positions: torch.Tensor, slots, cache=None
-                   ) -> torch.Tensor:
+                   positions: torch.Tensor, slots, cache=None,
+                   constrain=_identity) -> torch.Tensor:
     """The hybrid layers of ``slots`` ((attention, index) pairs) in
-    order."""
+    order; ``constrain`` as in ``forward_hidden``."""
     s = h.shape[1]
     for is_attn, j in slots:
         if is_attn:
             lp = params.attn_layers[j]
             q, k, v = _attend(cfg, lp.attn, lp.attn_ln, h, positions,
-                              cfg.rope_theta)
+                              cfg.rope_theta, constrain)
             if cache is not None:
                 _write_ring(cache["k"][j], k, s)
                 _write_ring(cache["v"][j], v, s)
             h = _attn_finish(cfg, lp, h, attn.chunked_attention(
                 q, k, v, causal=True, window=cfg.window_size,
-                chunk=cfg.attn_chunk, repeat_kv=cfg.repeat_kv))
+                chunk=cfg.attn_chunk, repeat_kv=cfg.repeat_kv), constrain)
         else:
             lp = params.rec_layers[j]
-            x = common.apply_norm(cfg, h, lp.rec_ln)
+            x = constrain(common.apply_norm(cfg, h, lp.rec_ln), "inner")
             y, hseq, u_raw = rglru.rglru_sequence(cfg, lp.rec, x)
             if cache is not None:
                 cache["rec"]["h"][j].copy_(hseq[:, -1])
                 cache["rec"]["conv"][j].copy_(u_raw[:, -3:])
-            h = _rec_mlp(cfg, lp, h + y)
+            h = _rec_mlp(cfg, lp, h + shard_ops.like(y, h), constrain)
+        h = constrain(h, "carry")
     return h
 
 

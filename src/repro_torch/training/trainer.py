@@ -12,15 +12,25 @@ of ``repro/training/trainer.py``):
     the k-of-n mean (``distributed.resilient_psum``, or its int8 form),
     the paper's termination rule applied to data-parallel training.
 
-The reference's ``mesh`` maps to ``group`` (a ``torch.distributed``
-process group).  Its tensor- and fully-sharded layouts, activation
-sharding and elastic restore onto another mesh wait for ROADMAP Queue 1
-item 12: every rank here holds the whole model.  ``step_time`` brackets
-the device work (the device is synchronized before the clock is read);
-the reference reads its clock before jax's asynchronous result arrives.
+With ``mesh`` (a ``launch.mesh.Mesh`` whose size is the default
+group's world size), the reference's mesh training: the parameters are
+DTensors laid out by ``distributed.param_shardings`` (tensor parallel on
+"model"), the batch by ``batch_shardings``, the residual stream
+redistributed between layers by ``activation_constraint`` (batch over
+("pod","data"), sequence over "model"), and AdamW's moments laid out by
+``opt_state_shardings`` with ZeRO-1 over "data": each rank updates its
+slice of the moments and parameters, then the parameters are gathered
+back to their layout.  A checkpoint holds whole tensors, so it restores
+onto another mesh, or onto no mesh (elastic restore).  The
+straggler-resilient path takes ``group`` instead, every rank holding the
+whole model, as the reference's replicates its parameters there.
+``step_time`` brackets the device work (the device is synchronized
+before the clock is read); the reference reads its clock before jax's
+asynchronous result arrives.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -33,10 +43,16 @@ from repro_torch import prng, resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.straggler import StragglerModel
 from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.distributed import shard_ops
 from repro_torch.distributed.collectives import (compressed_resilient_psum,
                                                  resilient_psum)
+from repro_torch.distributed.sharding import (activation_constraint,
+                                              batch_shardings, distribute,
+                                              opt_state_shardings,
+                                              param_shardings, placements,
+                                              whole)
 from repro_torch.models import common
-from repro_torch.models.registry import ModelBundle, ShapeSpec
+from repro_torch.models.registry import ModelBundle, ShapeSpec, build
 from repro_torch.optim import adamw
 
 Pytree = Any
@@ -70,11 +86,54 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.no_grad()
+def zero1_apply(ocfg: adamw.AdamWConfig, grads: Pytree,
+                opt_state: adamw.AdamWState, params: Pytree,
+                gnorm: torch.Tensor) -> adamw.AdamWState:
+    """AdamW on DTensor leaves, ZeRO-1: each leaf's gradient and parameter
+    taken to its moments' layout (a local slice: the moments only add a
+    "data" split to the parameter's layout), ``adamw.apply`` on the local
+    slices with the whole gradients' global norm ``gnorm`` (a plain
+    tensor), then each updated slice gathered back into its parameter's
+    layout, in place.  -> the new state (the moments updated in place)."""
+    from torch.distributed.tensor import DTensor
+    mus, nus = dict(common.flatten(opt_state.mu)), \
+        dict(common.flatten(opt_state.nu))
+    local = {"g": [], "p": [], "mu": [], "nu": []}
+    for (path, g), (_, p) in zip(common.flatten(grads),
+                                 common.flatten(params)):
+        m = mus[path]
+        local["g"].append((path, g.redistribute(
+            m.device_mesh, m.placements).to_local()))
+        local["p"].append((path, p.redistribute(
+            m.device_mesh, m.placements).to_local()))
+        local["mu"].append((path, m.to_local()))
+        local["nu"].append((path, nus[path].to_local()))
+    tree = {k: common.unflatten(v) for k, v in local.items()}
+    new_p, st = adamw.apply(
+        ocfg, tree["g"], adamw.AdamWState(opt_state.step, tree["mu"],
+                                          tree["nu"]), tree["p"], gnorm)
+    updated = dict(common.flatten(new_p))
+    for path, p in common.flatten(params):
+        m = mus[path]
+        whole = DTensor.from_local(updated[path], m.device_mesh,
+                                   m.placements, run_check=False,
+                                   shape=p.shape, stride=p.stride())
+        p.to_local().copy_(whole.redistribute(p.device_mesh,
+                                              p.placements).to_local())
+    return adamw.AdamWState(st.step, opt_state.mu, opt_state.nu)
+
+
 class Trainer:
-    def __init__(self, cfg: TrainerConfig, device=None, group=None):
+    def __init__(self, cfg: TrainerConfig, device=None, group=None,
+                 mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.group = group
+        if mesh is not None and cfg.resilient_grads:
+            raise ValueError("resilient_grads takes a group, not a mesh: "
+                             "its ranks hold the whole model")
+        self.mesh = mesh
         from repro_torch.configs import smoke_config
         from repro_torch.models.registry import get_config
         mcfg = smoke_config(cfg.arch) if cfg.smoke else get_config(cfg.arch)
@@ -97,6 +156,24 @@ class Trainer:
             self.rank = dist.get_rank(group)
         # The gradient tree the backward pass fills (reused between steps).
         self.grad_tree: Optional[Pytree] = None
+        self.constrain = None
+        if mesh is not None:
+            self.device_mesh = mesh.device_mesh(self.device.type)
+            self.p_shard = param_shardings(self.bundle, mesh)
+            self.b_shard = batch_shardings(self.bundle, mesh, ins)
+            self.opt_shard = opt_state_shardings(self.p_shard,
+                                                 self.bundle.abstract())
+            self.constrain = activation_constraint(
+                mesh, cfg.seq_shard_activations)
+
+    def _sharded(self):
+        """DTensor's implicit replication of plain tensors (positions,
+        masks, constants) while the mesh runs; nothing without one."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
 
     # ------------------------------------------------------------ stepping --
     def _loss_and_grads(self, params: nn.Module, batch: Dict[str, torch.Tensor]
@@ -104,8 +181,9 @@ class Trainer:
         """The loss of ``batch`` and its gradient tree in the reference's
         layout (stacked layers), filled in place by the backward pass."""
         self.grad_tree = common.zero_grads(params, self.grad_tree)
-        loss = self.bundle.loss(params, batch)
-        loss.backward()
+        with self._sharded():
+            loss = self.bundle.loss(params, batch, self.constrain)
+            loss.backward()
         return loss.detach(), self.grad_tree
 
     def grads(self, params: nn.Module, batch: Dict[str, torch.Tensor],
@@ -135,6 +213,12 @@ class Trainer:
         """One train step (``grads``, then AdamW), the parameters updated
         in place -> (the new AdamW state, loss and grad norm)."""
         loss, grads = self.grads(params, batch, live)
+        if self.mesh is not None:
+            with self._sharded():
+                gnorm = whole(adamw.global_norm(grads))
+            opt_state = zero1_apply(self.ocfg, grads, opt_state, params.tree,
+                                    gnorm)
+            return opt_state, {"loss": whole(loss), "grad_norm": gnorm}
         gnorm = adamw.global_norm(grads)
         _, opt_state = adamw.apply(self.ocfg, grads, opt_state, params.tree,
                                    gnorm)
@@ -145,8 +229,45 @@ class Trainer:
         and a fresh AdamW state."""
         params = self.bundle.init(prng.PRNGKey(self.cfg.seed),
                                   device=self.device)
+        if self.mesh is not None:
+            return self._shard_state(params.tree)
         params.requires_grad_(True)
         return params, adamw.init(params.tree)
+
+    def _shard_state(self, tree: Pytree
+                     ) -> Tuple[nn.Module, adamw.AdamWState]:
+        """The model of a whole parameter tree (the same on every rank)
+        laid out on the mesh, and a zero AdamW state in the moments'
+        layout."""
+        from torch.distributed.tensor import zeros as dzeros
+        dm = self.device_mesh
+        shard = dict(common.flatten(self.p_shard))
+        dtree = common.unflatten([
+            (path, distribute(leaf.detach(), shard[path], dm))
+            for path, leaf in common.flatten(tree)])
+        params = build(self.mcfg, dtree)
+        params.requires_grad_(True)
+
+        def moments(shardings, dtype=None):
+            return common.unflatten([
+                (path, dzeros(leaf.shape, dtype=dtype or leaf.dtype,
+                              device_mesh=dm,
+                              placements=placements(sh.spec, dm)))
+                for (path, leaf), (_, sh) in zip(common.flatten(dtree),
+                                                 common.flatten(shardings))])
+        opt = adamw.AdamWState(step=torch.zeros((), dtype=torch.int32),
+                               mu=moments(self.opt_shard.mu),
+                               nu=moments(self.opt_shard.nu, torch.float32))
+        return params, opt
+
+    def place_batch(self, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """A whole batch (the same on every rank) laid out by the batch
+        shardings; as it is without a mesh."""
+        if self.mesh is None:
+            return batch
+        return {k: distribute(v, self.b_shard[k], self.device_mesh)
+                for k, v in batch.items()}
 
     def _live(self, key: torch.Tensor) -> torch.Tensor:
         """The (n,) live mask of one step: the k = max(1, int(0.9 n))
@@ -169,7 +290,7 @@ class Trainer:
         for step in range(start_step, cfg.steps):
             if fail_at is not None and step == fail_at:
                 raise SimulatedFailure(f"chip lost at step {step}")
-            batch = self.pipeline.device_batch(step)
+            batch = self.place_batch(self.pipeline.device_batch(step))
             _sync(self.device)
             t0 = time.perf_counter()
             live = None
@@ -192,13 +313,18 @@ class Trainer:
     def restore(self, step: int, params: nn.Module,
                 opt_state: adamw.AdamWState) -> adamw.AdamWState:
         """Checkpoint ``step`` into ``params`` (in place, through its
-        stacked leaves) -> the restored AdamW state."""
+        stacked leaves) -> the restored AdamW state; on a mesh, each leaf
+        laid out by this trainer's shardings, whatever mesh saved it."""
+        shardings = None
+        if self.mesh is not None:
+            shardings = {"params": self.p_shard, "opt": self.opt_shard}
         state = self.ckpt.restore(step, {"params": params.tree,
-                                         "opt": opt_state})
+                                         "opt": opt_state}, shardings)
         with torch.no_grad():
             restored = dict(common.flatten(state["params"]))
             for path, leaf in common.flatten(params.tree):
-                leaf.copy_(restored[path])
+                shard_ops.shard_of(leaf).copy_(
+                    shard_ops.shard_of(restored[path]))
         return state["opt"]
 
     def run_with_restarts(self, fail_at: Optional[int] = None,

@@ -1239,3 +1239,77 @@ def test_trainer_on_the_card_is_deterministic(cuda):
     for (la, ga), (lb, gb) in zip(runs[0], runs[2]):
         assert abs(la - lb) <= 1e-4 * abs(lb)
         assert abs(ga - gb) <= 1e-4 * abs(gb)
+
+
+@pytest.fixture
+def nccl_world_one(cuda, tmp_path):
+    """A one-rank NCCL default group on a file store, destroyed after."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    yield cuda
+    dist.destroy_process_group()
+
+
+def test_distributed_paths_on_nccl_world_one(nccl_world_one):
+    """The three distributed functions on one NCCL rank against their
+    local counterparts on the card; the count-sketch and coded mat-vec
+    kernels launched once each."""
+    from repro_torch.core import coded, linesearch, objectives, sketch
+    dev = nccl_world_one
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn(700, 23, generator=g).to(dev)
+    cfg = sketch.OverSketchConfig(256, 32, 0.25)
+    cs = sketch.sample_countsketch(prng.PRNGKey(4), 700, cfg, device=dev)
+    surv = torch.ones(cfg.total_blocks, dtype=torch.bool, device=dev)
+    surv[1] = False
+    ops.reset_launch_counts()
+    got = sketch.distributed_sketched_gram(a, cs, surv)
+    assert ops.launch_counts()["count_sketch_apply"] == 1
+    want = sketch.sketched_gram(sketch.apply_sketch(cs, a), surv)
+    assert _rel_err(got, want) < REL_TOL
+    m = torch.randn(640, 17, generator=g).to(dev)
+    v = torch.randn(17, generator=g).to(dev)
+    code = coded.make_code(640, 64)
+    enc = coded.encode_2d(m, code)
+    g1 = code.grid + 1
+    erased = torch.zeros(g1 * g1, dtype=torch.bool, device=dev)
+    erased[2] = True
+    ops.reset_launch_counts()
+    y, ok = coded.distributed_coded_matvec(
+        enc.view(g1 * g1, 64, 17), v, erased, code, 640)
+    assert ops.launch_counts()["coded_block_matvec"] == 1
+    y_local, ok_local = coded.coded_matvec(enc, v, code, 640,
+                                           erased.view(g1, g1))
+    assert bool(ok) and bool(ok_local)
+    assert _rel_err(y, y_local) < REL_TOL
+    obj = objectives.LogisticRegression()
+    data = objectives.Dataset(m, torch.sign(torch.randn(640, generator=g))
+                              .to(dev))
+    cand = torch.tensor([4.0 ** -i for i in range(6)], device=dev)
+    w, p = torch.zeros(17, device=dev), v
+    f = linesearch.distributed_f_trials(obj, data, w, p, cand)
+    assert _rel_err(f, obj.value(w[None] + cand[:, None] * p[None], data)) \
+        < REL_TOL
+
+
+def test_mesh_trainer_on_nccl_world_one(nccl_world_one):
+    """The float32 smoke trainer on a 1 x 1 mesh over NCCL: 3 steps equal
+    to the unsharded trainer's on the card, bit for bit."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import trainer as tr
+    base = configs.smoke_config
+    configs.smoke_config = lambda name: base(name).scaled(dtype="float32")
+    try:
+        runs = []
+        for mesh in (make_mesh((1, 1), ("data", "model")), None):
+            t = tr.Trainer(tr.TrainerConfig(arch="qwen3-4b", steps=3,
+                                            batch=4, seq=64, lr=1e-3),
+                           device=nccl_world_one, mesh=mesh)
+            runs.append([(h["loss"], h["grad_norm"])
+                         for h in t.run(*t.init_state())[2]])
+    finally:
+        configs.smoke_config = base
+    assert runs[0] == runs[1]

@@ -57,7 +57,10 @@ def test_port_imports_neither_jax_nor_repro():
                  "launch.analytic", "training", "training.osn_head",
                  "training.trainer", "optim.adamw", "data.pipeline",
                  "checkpoint", "checkpoint.manager", "distributed",
-                 "distributed.collectives", "launch.train"):
+                 "distributed.collectives", "launch.train",
+                 "distributed.sharding", "distributed.shard_ops",
+                 "launch.mesh", "launch.dryrun", "benchmarks.roofline",
+                 "benchmarks.kernels_bench", "benchmarks.make_report"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
@@ -157,6 +160,29 @@ def test_kernel_build_needs_nvcc():
 
 PLAIN_DRAWS = {"randint", "rademacher", "uniform", "bernoulli", "gumbel",
                "categorical"}
+
+
+def test_mesh_modules_touch_no_group_or_environment():
+    """Importing the dry run, the meshes and the sharding policy (and
+    building a production mesh's arithmetic) creates no process group and
+    changes no environment variable: the dry run's fake group is made in
+    the process that runs the cells."""
+    code = (
+        "import json, os\n"
+        "before = dict(os.environ)\n"
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+        "import repro_torch.distributed.sharding\n"
+        "import repro_torch.distributed.shard_ops\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "m = make_production_mesh(multi_pod=True)\n"
+        "print(json.dumps([dist.is_initialized(), dict(os.environ) == before,"
+        " m.size]))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=str(SRC),
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [False, True,
+                                                               512]
 
 
 def _prng_calls(names):

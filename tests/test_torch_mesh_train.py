@@ -1,0 +1,178 @@
+"""Mesh training against the JAX package: the reference's
+``tests/test_trainer_integration.py`` elastic case in both packages.
+
+The smoke qwen3-4b trainer at float32 (``smoke_config`` patched in both
+packages, in the worker processes and the reference's subprocess) trains
+6 steps on a 4x2 ("data", "model") mesh (8 gloo ranks here, 8 forced host
+devices there), checkpointing every 3; then a trainer of 8 steps on a
+2x2 mesh (4 ranks) restores the step-6 checkpoint and runs steps 6-7.
+The losses and grad norms are held within 1e-5 relative to the
+reference's same run, and to the port's unsharded trainer doing the same
+(6 steps, then the step-6 checkpoint restored onto no mesh: elastic
+restore onto another layout).  Also the launcher's ``--mesh`` on a
+one-rank mesh, and the mesh trainer's init's limit: every rank builds
+the whole model before it keeps its shards.
+"""
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from repro_torch import configs as tconfigs
+from repro_torch.training import trainer as ttrainer
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_dist  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RTOL = 1e-5
+
+_REFERENCE = """
+import json, tempfile
+from repro import configs
+base = configs.smoke_config
+configs.smoke_config = lambda name: base(name).scaled(dtype="float32")
+from repro.launch.mesh import make_mesh
+from repro.distributed import opt_state_shardings
+from repro.training.trainer import Trainer, TrainerConfig
+import jax
+d = tempfile.mkdtemp()
+cfg = TrainerConfig(arch="qwen3-4b", steps=6, batch=8, seq=64,
+                    ckpt_dir=d, ckpt_every=3, lr=1e-3)
+tr = Trainer(cfg, make_mesh((4, 2), ("data", "model")))
+p, o = tr.init_state()
+p, o, hist = tr.run(p, o)
+cfg2 = TrainerConfig(arch="qwen3-4b", steps=8, batch=8, seq=64,
+                     ckpt_dir=d, ckpt_every=100, lr=1e-3)
+tr2 = Trainer(cfg2, make_mesh((2, 2), ("data", "model")))
+p2, o2 = tr2.init_state()
+state = tr2.ckpt.restore(
+    tr2.ckpt.latest_step(),
+    {"params": jax.eval_shape(lambda: p2), "opt": jax.eval_shape(lambda: o2)},
+    {"params": tr2.p_shard, "opt": opt_state_shardings(tr2.p_shard, None)})
+p2, o2, hist2 = tr2.run(state["params"], state["opt"],
+                        start_step=tr2.ckpt.latest_step())
+print(json.dumps([hist, hist2]))
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_mesh(world, shape, steps, ckpt, restore, out):
+    os.makedirs(out, exist_ok=True)
+    mp.spawn(_torch_dist.mesh_train,
+             args=(world, _free_port(), out, shape, steps, ckpt, 3, restore),
+             nprocs=world, join=True)
+    return torch.load(os.path.join(out, "rank0.pt"))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The reference's elastic run (a subprocess, started first and read
+    last) and the port's: 4x2 then 2x2 on gloo, and the unsharded
+    trainer restoring the same checkpoint."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    ref = subprocess.Popen([sys.executable, "-c", _REFERENCE], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    root = tmp_path_factory.mktemp("mesh")
+    ckpt = str(root / "ckpt")
+    rank0 = _spawn_mesh(8, (4, 2), 6, ckpt, False, str(root / "a"))
+    mesh1 = rank0["hist"]
+    mesh2 = _spawn_mesh(4, (2, 2), 8, ckpt, True, str(root / "b"))["hist"]
+    steps = sorted(int(d.split("-")[1]) for d in os.listdir(ckpt)
+                   if d.startswith("step-"))
+
+    base = tconfigs.smoke_config
+    tconfigs.smoke_config = lambda name: base(name).scaled(dtype="float32")
+    try:
+        cfg = dict(arch="qwen3-4b", batch=8, seq=64, lr=1e-3)
+        t1 = ttrainer.Trainer(ttrainer.TrainerConfig(steps=6, **cfg),
+                              device="cpu")
+        _, _, plain1 = t1.run(*t1.init_state())
+        t2 = ttrainer.Trainer(ttrainer.TrainerConfig(
+            steps=8, ckpt_dir=ckpt, ckpt_every=100, **cfg), device="cpu")
+        params, opt = t2.init_state()
+        opt = t2.restore(6, params, opt)
+        _, _, plain2 = t2.run(params, opt, 6)
+    finally:
+        tconfigs.smoke_config = base
+    out, err = ref.communicate(timeout=600)
+    assert ref.returncode == 0, err[-3000:]
+    ref1, ref2 = json.loads(out.strip().splitlines()[-1])
+    return {"mesh": (mesh1, mesh2), "plain": (plain1, plain2),
+            "ref": (ref1, ref2), "ckpt_steps": steps, "rank0": rank0}
+
+
+def _close(have, want, what):
+    assert [h["step"] for h in have] == [w["step"] for w in want], what
+    for h, w in zip(have, want):
+        for k in ("loss", "grad_norm"):
+            assert abs(h[k] - w[k]) <= RTOL * abs(w[k]), (what, h["step"],
+                                                         k, h[k], w[k])
+
+
+def test_mesh_run_matches_the_reference(runs):
+    """4x2 for 6 steps, then 2x2 from the step-6 checkpoint."""
+    (m1, m2), (r1, r2) = runs["mesh"], runs["ref"]
+    assert [h["step"] for h in m1] == list(range(6))
+    assert [h["step"] for h in m2] == [6, 7]
+    _close(m1, r1, "4x2")
+    _close(m2, r2, "2x2 elastic")
+    assert m2[-1]["loss"] < m1[0]["loss"]
+    assert runs["ckpt_steps"] == [3, 6]
+
+
+def test_mesh_run_matches_the_unsharded_trainer(runs):
+    """The same runs without a mesh; the second restores the checkpoint
+    the 4x2 mesh wrote."""
+    (m1, m2), (p1, p2) = runs["mesh"], runs["plain"]
+    _close(m1, p1, "4x2 vs unsharded")
+    _close(m2, p2, "2x2 vs unsharded restore")
+
+
+def test_mesh_init_builds_the_whole_model_on_each_rank(runs):
+    """The limit this states (ROADMAP Queue 3): ``init_state`` on a mesh
+    draws every leaf whole on every rank (``bundle.init``), then keeps its
+    shards; the reference's jitted init with ``out_shardings`` builds
+    only each device's shards.  So the mesh trainer starts only a model
+    that fits one device whole, 235B-class models not at all."""
+    r0 = runs["rank0"]
+    assert r0["init_whole"] and r0["kept_shards"]
+
+
+def test_launch_train_mesh_one_rank(capsys, tmp_path):
+    """``--mesh 1x1`` makes and ends a group of its own; the loss falls."""
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    rc = train.main(["--steps", "4", "--mesh", "1x1", "--device", "cpu",
+                     "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"])
+    out = capsys.readouterr().out
+    assert rc == 0 and not dist.is_initialized()
+    assert "mesh={'data': 1, 'model': 1}" in out
+    assert "over 4 logged steps" in out
+    mesh = train.parse_mesh("2x2x2")
+    assert mesh.shape == {"pod": 2, "data": 2, "model": 2}
+    assert train.parse_mesh("8").shape == {"data": 8}
+
+
+def test_resilient_grads_refuse_a_mesh():
+    """The straggler-resilient path takes a group (its ranks hold the
+    whole model, as the reference replicates its parameters there), not
+    a mesh; the refusal comes before any group is needed."""
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(ValueError, match="resilient_grads"):
+        ttrainer.Trainer(ttrainer.TrainerConfig(
+            arch="qwen3-4b", resilient_grads=True), device="cpu",
+            mesh=make_mesh((1, 1), ("data", "model")))

@@ -313,20 +313,27 @@ def test_windowed_ring_wraps():
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("arch", DENSE)
 def test_analytic_costs(arch, shape):
-    """Flops and collective bytes are the reference's; HBM bytes are too
-    once the parameter bytes (the port's policy estimate; the reference's
-    sharded count over its production mesh) are taken out."""
+    """Flops are the reference's; HBM and collective bytes are too once
+    the parameter bytes are taken out: the port's are the sharding
+    policy's count over the production mesh, as the reference's dry run
+    computes them, and the reference in this one-device process falls
+    back to its policy estimate (the two against the reference under 512
+    forced host devices: ``tests/test_torch_sharding.py``)."""
+    from repro_torch.distributed.sharding import sharded_param_bytes
+    from repro_torch.launch.mesh import make_production_mesh
     jc, tc = jregistry.get_config(arch), tregistry.get_config(arch)
     js, ts = jregistry.SHAPES[shape], tregistry.SHAPES[shape]
     assert dataclasses.asdict(js) == dataclasses.asdict(ts)
     j = janalytic.cell_costs(jc, js, 256)
     t = tanalytic.cell_costs(tc, ts, 256)
     assert t.flops_per_chip == j.flops_per_chip
-    assert t.coll_bytes_per_chip == j.coll_bytes_per_chip
     assert t.detail["tokens"] == j.detail["tokens"]
+    tp, jp = t.detail["param_bytes_per_chip"], j.detail["param_bytes_per_chip"]
+    coll = 2 if ts.kind == "train" else 0
+    assert t.coll_bytes_per_chip - coll * tp == \
+        pytest.approx(j.coll_bytes_per_chip - coll * jp, rel=1e-12)
     mult = {"train": 8, "prefill": 1, "decode": 1}[ts.kind]
-    assert t.hbm_bytes_per_chip - mult * t.detail["param_bytes_per_chip"] == \
-        pytest.approx(j.hbm_bytes_per_chip -
-                      mult * j.detail["param_bytes_per_chip"], rel=1e-12)
-    assert t.detail["param_bytes_per_chip"] == \
-        tregistry.get_bundle(arch).param_count() * 2 / 16
+    assert t.hbm_bytes_per_chip - mult * tp == \
+        pytest.approx(j.hbm_bytes_per_chip - mult * jp, rel=1e-12)
+    assert tp == sharded_param_bytes(tregistry.get_bundle(arch),
+                                     make_production_mesh())

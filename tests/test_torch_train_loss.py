@@ -237,7 +237,8 @@ def test_remat_changes_no_bit():
         lt_r = {k: v.clone() for k, v in tcommon.flatten(grads)}
         plain = tt.forward_hidden
         try:
-            tt.forward_hidden = lambda *a, remat=False: plain(*a)
+            tt.forward_hidden = lambda *a, remat=False, **kw: plain(*a,
+                                                                    **kw)
             lp, gp = _port_loss_and_grads(tb, tp, tbatch)
         finally:
             tt.forward_hidden = plain
