@@ -226,7 +226,9 @@ with its seconds:
   mesh_train
            after the training path, qwen3-4b at its published width on a
            1 x 1 ("data", "model") mesh over NCCL (a file store, no
-           environment variable), 4 steps of 4 x 128 tokens against the
+           environment variable), its init drawn by the normal kernel's
+           window mode (9 launches, no whole draw: every box is the whole
+           leaf on a 1 x 1 mesh), 4 steps of 4 x 128 tokens against the
            unsharded trainer's from the same key, losses and norms equal
            (largest relative gap printed), step ms, tokens a second and
            peak GiB beside the unsharded run's step ms in this run, one
@@ -234,19 +236,39 @@ with its seconds:
            host ms); then at 2 layers the mesh run's checkpoint at step 2
            restored onto the unsharded trainer, whose steps 2-3 must equal
            the mesh run's bit for bit
+  mesh_init_30b, normal_window, mesh_init_235b_<data>_<model>
+           after mesh_train, the sharded init (Trainer.init_state's on a
+           mesh: each rank's boxes, sharding.param_boxes, drawn alone by
+           the normal kernel's window mode): qwen3-moe-30b-a3b at a 4 x 2
+           ("data", "model") mesh, leaf by leaf, each drawn leaf whole by
+           the whole draw's launch and each of the 8 ranks' boxes by the
+           window mode, every box equal to its slice bit for bit (each
+           rank's bytes, 8.79 GB; each mode's ms and launches); the
+           window mode against its plain version at the expert leaf
+           w_gate's box of rank (3, 1), (48, 64, 2,048, 192) bf16, and a
+           float32 box past counter 2^32; then qwen3-moe-235b-a22b at
+           4 x 8, the whole parameter shards of ranks (0, 0) and (3, 7)
+           through bundle.init_local (16.19 GB each, peak printed and
+           gated under a tenth of the whole model's 470.19 GB), sub-boxes
+           of each expert leaf at counters past 2^32 against
+           prng.normal_window on the CPU, bit for bit
   kernels_bench
            at the end, kernels_bench's rows (its bench_rows format) from
            this run's own kernel timings, written through kernels_bench's
            writer to a temporary file: every kernel's ms, plain ms and
            library ms at the kernel table's shapes beside PERF.md's (no
            kernel timed twice; no gate on speed)
-  dryrun_16x16, dryrun_2x16x16
+  dryrun_16x16, dryrun_2x16x16, dryrun_smoke_<arch>_<shape>_<mesh>
            python -m repro_torch.launch.dryrun --arch qwen3-4b --shape
-           train_4k on the 16 x 16 fake mesh and with --multi-pod, each a
-           host process started after the build: every field present, the
-           counted flops per chip within 1 -+ dryrun.FLOPS_TOL (0.2) of
-           dryrun.expected_flops_per_chip (launch/analytic.py's parts
-           under the port's rules), host seconds printed
+           train_4k on the 16 x 16 fake mesh and with --multi-pod, and
+           with --smoke the reduced cells of tests/test_torch_dryrun.py
+           at 4 x 2 (qwen3-4b train_4k, the MoE's decode_32k, mamba2's
+           long_500k, recurrentgemma's prefill_32k) and mamba2 train_4k
+           at 2 x 2 x 2, each a host process started after the build:
+           every field present, the counted flops per chip within 1 -+
+           dryrun.FLOPS_TOL (0.2) of dryrun.expected_flops_per_chip
+           (launch/analytic.py's parts under the port's rules; prefill
+           and decode pinned as the train step is), host seconds printed
 
 Every Newton run on the card (exact Newton's included) computes its coded
 gradient with the coded mat-vec kernel: two launches per iteration, as
@@ -2822,7 +2844,8 @@ def check_moe_leaf_window(prng, bundle, params, dev) -> dict:
     around = min(1 << 32, size - MOE_WINDOW // 2)
     for start in (around - MOE_WINDOW // 2, size - MOE_WINDOW):
         got = stacked_window(layers, start, MOE_WINDOW)
-        want = prng.normal_bf16_window(key, start, MOE_WINDOW, dev) * scale
+        want = prng.normal_window(key, (size,), ((start, MOE_WINDOW),),
+                                  torch.bfloat16, dev) * scale
         differing = int((got.view(torch.int16) !=
                          want.view(torch.int16)).sum())
         row["windows"].append({"start": start, "count": MOE_WINDOW,
@@ -3383,7 +3406,7 @@ TABLE_MS = {"sketch_gram_count": 89.15, "count_sketch_apply": 12.54,
             "oversketch_gram": 7.45, "coded_block_matvec": 2.315,
             "sketch_gram_sjlt": 339.08, "sketch_gram_srht": 155.71,
             "fwht": 0.0544, "fwht_two_pass": 9.301, "normal": 0.860,
-            "draw": 0.436}
+            "normal_window": None, "draw": 0.436}
 
 
 class NcclGroup:
@@ -3409,18 +3432,34 @@ class NcclGroup:
         shutil.rmtree(self.tmp, ignore_errors=True)
 
 
+# The dry run's reduced cells at smoke width (tests/test_torch_dryrun.py's
+# CELLS at 4 x 2, the serving ones pinned since PR 26) and mamba2's train
+# cell on a 2 x 2 x 2 ("pod", "data", "model") mesh: the card's torch
+# checks the serving layouts and the local-shard forms there.
+DRYRUN_SMOKE_CELLS = (("qwen3-4b", "train_4k", "4x2"),
+                      ("qwen3-moe-30b-a3b", "decode_32k", "4x2"),
+                      ("mamba2-780m", "long_500k", "4x2"),
+                      ("recurrentgemma-2b", "prefill_32k", "4x2"),
+                      ("mamba2-780m", "train_4k", "2x2x2"))
+
+
 def start_dryruns() -> list:
     """The dry run of qwen3-4b x train_4k on the 16 x 16 and 2 x 16 x 16
-    fake meshes, each a process of its own started now (host only):
-    [(label, Popen, json path)]."""
+    fake meshes and of DRYRUN_SMOKE_CELLS, each a process of its own
+    started now (host only): [(label, Popen, json path, start)]."""
     import tempfile
     runs = []
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    for label, extra in (("16x16", []), ("2x16x16", ["--multi-pod"])):
+    cells = [("16x16", [LM_ARCH, "train_4k"], []),
+             ("2x16x16", [LM_ARCH, "train_4k"], ["--multi-pod"])]
+    cells += [(f"smoke_{arch}_{shape}_{mesh}", [arch, shape],
+               ["--smoke", "--mesh", mesh])
+              for arch, shape, mesh in DRYRUN_SMOKE_CELLS]
+    for label, (arch, shape), extra in cells:
         out = os.path.join(tempfile.mkdtemp(prefix="dryrun-"), "cell.json")
         proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             LM_ARCH, "--shape", "train_4k", "--json-out", out, *extra],
+             arch, "--shape", shape, "--json-out", out, *extra],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env)
         runs.append((label, proc, out, time.perf_counter()))
@@ -3430,7 +3469,7 @@ def start_dryruns() -> list:
 def finish_dryruns(runs) -> None:
     """Each dry run's cell: every field present, the counted flops per
     chip within dryrun.expected_band of dryrun.expected_flops_per_chip
-    (1 -+ dryrun.FLOPS_TOL for a train step); printed with its host
+    (1 -+ dryrun.FLOPS_TOL for every step); printed with its host
     seconds."""
     import shutil
     sys.path.insert(0, str(SRC))
@@ -3488,6 +3527,7 @@ def run_mesh_train(ops, dev) -> dict:
     import torch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import registry
+    from repro_torch.models.common import flatten
     from repro_torch.training import trainer as tr
     t_all = time.perf_counter()
 
@@ -3585,6 +3625,14 @@ def run_mesh_train(ops, dev) -> dict:
                        "restore_s": restore_s},
            "seconds": time.perf_counter() - t_all}
     emit(row)
+    drawn = sum(1 for _, spec in flatten(registry.get_bundle(
+        LM_ARCH).specs()) if spec.init == "normal")
+    if launches["normal_window"] != drawn or launches["normal"]:
+        raise AssertionError(f"mesh_train: the sharded init launched the "
+                             f"window mode {launches['normal_window']} "
+                             f"times and the whole draw "
+                             f"{launches['normal']} for {drawn} drawn "
+                             "leaves")
     if history(got) != history(want):
         raise AssertionError(f"mesh_train: the 1 x 1 mesh's losses and "
                              f"norms differ from the unsharded trainer's "
@@ -3671,6 +3719,213 @@ def run_distributed_paths(ops, core, data, dev) -> dict:
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     return {name: total.get(name, 0) for name in ops.KERNELS}
+
+
+MESH_30B = (4, 2)              # ("data", "model") of the 30B mesh_init
+MESH_235B = (4, 8)
+MESH_235B_RANKS = ((0, 0), (3, 7))
+MESH_235B_PEAK_SHARE = 0.1     # a rank's peak, at most this of the whole
+# The window mode's kernel row: the expert leaf w_gate's box of rank
+# (data 3, model 1) at 4 x 2, (48, 64, 2,048, 192) bf16 draws.
+WINDOW_LEAF = "layers/ffn/w_gate"
+WINDOW_COORDS = {"data": 3, "model": 1}
+# bf16 sub-boxes of each 235B expert leaf (local offsets in the rank's
+# box, at its last layer: counters past 2^32), checked on the CPU.
+SUB_BOX = ((-1, 1), (0, 2), (-2, 2), (0, 64))
+
+
+def check_normal_window(ops, prng, dev, bundle, keys) -> dict:
+    """The window mode against its plain version on the card, every bit,
+    at WINDOW_LEAF's box of WINDOW_COORDS (the main path's largest
+    window), with one float32 box of the 235B expert leaf past counter
+    2^32 beside it; ms, plain ms, the hash's bound."""
+    import torch
+    from repro_torch.distributed.sharding import param_boxes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import flatten
+    names = [p for p, _ in flatten(bundle.specs())]
+    i = names.index(WINDOW_LEAF)
+    shape = flatten(bundle.specs())[i][1].shape
+    box = param_boxes(bundle, make_mesh(MESH_30B, ("data", "model")),
+                      WINDOW_COORDS)[WINDOW_LEAF]
+    bf = torch.bfloat16
+    got = ops.normal_window(keys[i], shape, box, dev, dtype=bf)
+    want, plain_ms = timed_once(lambda: prng.normal_window(
+        keys[i], shape, box, bf, dev))
+    differing = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    if differing:
+        raise AssertionError(f"normal_window: {differing} draws differ from "
+                             "the plain version")
+    row = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+           "entries_differing": 0, "leaf": WINDOW_LEAF,
+           "shape": list(shape), "box": [list(b) for b in box]}
+    del got, want
+    row["ms"] = cuda_ms(lambda: ops.normal_window(keys[i], shape, box, dev,
+                                                  dtype=bf), 5)
+    row["plain_ms"] = plain_ms
+    row["library_ms"] = None
+    row["library_call"] = "none: no PyTorch call draws jax's bits"
+    count = math.prod(n for _, n in box)
+    row["bound_ms"], row["bound_by"] = bound(float(HASH_INT_OPS) * count,
+                                             2.0 * count, INT32_OPS)
+    row["bound_rate"] = "INT32_OPS"
+    big = (94, 128, 4096, 1536)
+    far = ((93, 1), (112, 16), (0, 1024), (1152, 384))
+    got = ops.normal_window(keys[i], big, far, dev)
+    want, f32_plain_ms = timed_once(lambda: prng.normal_window(
+        keys[i], big, far, torch.float32, dev))
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("normal_window: a float32 box past 2^32 "
+                             "differs from the plain version")
+    count = math.prod(n for _, n in far)
+    row["float32_past_2_32"] = {
+        "shape": list(big), "box": [list(b) for b in far],
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": cuda_ms(lambda: ops.normal_window(keys[i], big, far, dev), 5),
+        "plain_ms": f32_plain_ms, "library_ms": None,
+        "bound_ms": bound(float(HASH_INT_OPS) * count, 4.0 * count,
+                          INT32_OPS)[0], "bound_by": "operations"}
+    return row
+
+
+def run_mesh_init(ops, prng, dev) -> tuple:
+    """The sharded init (Trainer.init_state's on a mesh: each rank's
+    boxes by ``sharding.param_boxes``, drawn alone by the normal kernel's
+    window mode).  mesh_init_30b: qwen3-moe-30b-a3b at 4 x 2, leaf by
+    leaf: each drawn leaf whole by the whole draw's launch, then each of
+    the 8 ranks' boxes by the window mode, every box equal to its slice
+    of the whole leaf bit for bit; each rank's bytes, each mode's ms
+    (CUDA events around each launch) and launches.  mesh_init_235b:
+    qwen3-moe-235b-a22b (470.19 GB, past any card) at 4 x 8, ranks
+    MESH_235B_RANKS' whole parameter shards drawn on the card through
+    ``bundle.init_local`` (the function init_state calls), their peak
+    memory gated far below the whole model's, and SUB_BOX of each expert
+    leaf against ``prng.normal_window`` on the CPU, bit for bit.
+    Returns ({run: launches}, the window mode's kernel row)."""
+    import torch
+    from repro_torch.distributed.sharding import (local_shape, param_boxes,
+                                                  resolve_pspec,
+                                                  sharded_param_bytes)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.common import flatten
+    t_all = time.perf_counter()
+    fresh_peak()
+    bundle = registry.get_bundle(MOE_ARCH)
+    mesh = make_mesh(MESH_30B, ("data", "model"))
+    coords = [{"data": d, "model": m} for d in range(MESH_30B[0])
+              for m in range(MESH_30B[1])]
+    boxes = [param_boxes(bundle, mesh, c) for c in coords]
+    leaves = flatten(bundle.specs())
+    keys = prng.split(prng.PRNGKey(SEED), len(leaves))
+    bf = torch.bfloat16
+    rank_bytes = [0] * len(coords)
+    ms = {"whole": 0.0, "window": 0.0}
+    paths = {}
+    ops.reset_launch_counts()
+    for (path, spec), key in zip(leaves, keys):
+        for r, b in enumerate(boxes):
+            rank_bytes[r] += math.prod(n for _, n in b[path]) * 2
+        if spec.init != "normal":
+            continue
+        leaf, t = timed_once(lambda: ops.normal(key, spec.shape, dev,
+                                                dtype=bf))
+        ms["whole"] += t
+        for b in boxes:
+            got, t = timed_once(lambda: ops.normal_window(
+                key, spec.shape, b[path], dev, dtype=bf))
+            ms["window"] += t
+            want = leaf[tuple(slice(s0, s0 + n) for s0, n in b[path])]
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"mesh_init_30b: a box of {path} "
+                                     "differs from the whole leaf's slice")
+            del got, want
+        del leaf
+    paths["mesh_init_30b"] = ops.launch_counts()
+    drawn = sum(1 for _, spec in leaves if spec.init == "normal")
+    row = {"phase": "mesh_init_30b", "arch": MOE_ARCH, "mesh": mesh.shape,
+           "ranks": len(coords), "rank_bytes": rank_bytes,
+           "rank_gb": [b / 1e9 for b in rank_bytes],
+           "whole_gb": bundle.param_count() * 2 / 1e9, "drawn_leaves": drawn,
+           "boxes_bit_for_bit": drawn * len(coords), "ms": ms,
+           "launches": {k: paths["mesh_init_30b"][k]
+                        for k in ("normal", "normal_window")},
+           "peak_gib": peak_gib(), "seconds": time.perf_counter() - t_all}
+    emit(row)
+    if paths["mesh_init_30b"]["normal"] != drawn or \
+            paths["mesh_init_30b"]["normal_window"] != drawn * len(coords):
+        raise AssertionError(f"mesh_init_30b: launches {row['launches']} "
+                             f"for {drawn} leaves on {len(coords)} ranks")
+    if any(b != sharded_param_bytes(bundle, mesh) for b in rank_bytes):
+        raise AssertionError(f"mesh_init_30b: a rank's boxes hold "
+                             f"{rank_bytes} bytes, the policy "
+                             f"{sharded_param_bytes(bundle, mesh)}")
+    t0 = time.perf_counter()
+    kernel_row = check_normal_window(ops, prng, dev, bundle, keys)
+    emit({"phase": "normal_window", **kernel_row,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    big = registry.get_bundle(MOE_235B)
+    mesh = make_mesh(MESH_235B, ("data", "model"))
+    leaves = flatten(big.specs())
+    keys = prng.split(prng.PRNGKey(SEED), len(leaves))
+    whole = big.param_count() * 2
+    for d, m in MESH_235B_RANKS:
+        t0 = time.perf_counter()
+        fresh_peak()
+        coords = {"data": d, "model": m}
+        b = param_boxes(big, mesh, coords)
+        ops.reset_launch_counts()
+        tree = dict(flatten(big.init_local(prng.PRNGKey(SEED), b, dev)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        label = f"mesh_init_235b_{d}_{m}"
+        paths[label] = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        nbytes = sum(t.numel() * t.element_size() for t in tree.values())
+        checked = []
+        for i, (path, spec) in enumerate(leaves):
+            want_shape = local_shape(spec.shape, resolve_pspec(
+                spec.shape, spec.axes, mesh), mesh)
+            if tuple(tree[path].shape) != want_shape:
+                raise AssertionError(f"{label}: {path} drawn at "
+                                     f"{tuple(tree[path].shape)}")
+            if "expert_ffn" not in spec.axes:
+                continue
+            sub = tuple(((o % n) if o < 0 else o, k) for (o, k), (_, n) in
+                        zip(SUB_BOX, b[path]))
+            gbox = tuple((s0 + o, k) for (o, k), (s0, _) in zip(sub,
+                                                                 b[path]))
+            scale = torch.tensor(1.0 / math.sqrt(math.prod(
+                spec.shape[j] for j in spec.fan_in_dims)), dtype=bf,
+                device=dev)
+            want = prng.normal_window(keys[i], spec.shape, gbox, bf,
+                                      "cpu").to(dev) * scale
+            got = tree[path][tuple(slice(o, o + k) for o, k in sub)]
+            counter = int(prng.box_counters(spec.shape, gbox, 0, 1, "cpu"))
+            same = torch.equal(got.contiguous().view(torch.int16),
+                               want.view(torch.int16))
+            checked.append({"leaf": path, "box": [list(x) for x in gbox],
+                            "first_counter": counter, "bit_for_bit": same})
+            del got, want     # a view of the leaf: it would outlive tree
+            if not same or counter < 1 << 32:
+                raise AssertionError(f"{label}: {path}'s box {gbox} "
+                                     f"(counter {counter}) differs")
+        emit({"phase": label, "arch": MOE_235B, "mesh": mesh.shape,
+              "coords": coords, "bytes": nbytes, "gb": nbytes / 1e9,
+              "whole_gb": whole / 1e9, "peak_gib": peak / 2**30,
+              "launches": {k: paths[label][k]
+                           for k in ("normal", "normal_window")},
+              "sub_boxes": checked, "seconds": seconds})
+        if peak > MESH_235B_PEAK_SHARE * whole or \
+                paths[label]["normal_window"] != sum(
+                    1 for _, spec in leaves if spec.init == "normal"):
+            raise AssertionError(f"{label}: peak {peak / 2**30:.2f} GiB, "
+                                 f"launches {paths[label]}")
+        del tree
+        torch.cuda.empty_cache()
+    return paths, kernel_row
 
 
 def write_kernels_bench(summary: list, rows: dict, shapes: dict,
@@ -3967,6 +4222,11 @@ def main() -> int:
     # onto the unsharded trainer; the dry runs' cells.
     paths["mesh_train"] = run_mesh_train(ops, dev)
     torch.cuda.empty_cache()
+    # The sharded init at the MoE configs' widths: every 4 x 2 rank's
+    # boxes of qwen3-moe-30b-a3b against its whole leaves, two 4 x 8
+    # ranks' shards of qwen3-moe-235b-a22b.
+    init_paths, rows["normal_window"] = run_mesh_init(ops, prng, dev)
+    paths.update(init_paths)
     finish_dryruns(dryruns)
 
     # Each kernel's numbers at the shape its full-width path launches it:
@@ -4006,6 +4266,9 @@ def main() -> int:
                    lm_rows["normal_bf16"],
                    "bf16 mode, lm_moe_init's embed (151,936 x 2,048)":
                    moe_rows["normal_bf16"]},
+        "normal_window": {
+            "float32, qwen3-moe-235b-a22b's w_gate past counter 2^32":
+                rows["normal_window"]["float32_past_2_32"]},
         "fwht": rows["fwht_lengths"],
         "oversketch_gram": {"count-sketch A_tilde (no path)": count_gram},
         "sketch_gram_sjlt": {
@@ -4044,7 +4307,7 @@ def main() -> int:
                 for k, v in other[name].items()}
         entry.update({f: r[f] for f in PHASES + FWHT_PASSES + ("copy_ms",)
                       if f in r})
-        if name in ("normal", "draw"):
+        if name in ("normal", "normal_window", "draw"):
             entry.update({f: r[f] for f in ("yardstick_ms", "yardstick",
                                             "bound_rate", "table_build_ms",
                                             "case")

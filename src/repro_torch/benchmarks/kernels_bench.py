@@ -1,12 +1,14 @@
 """Kernel microbenchmarks of the port (the counterpart of
 ``benchmarks/kernels_bench.py``): every CUDA kernel of ``kernels/`` (the
-eight that replace a Pallas kernel, then ``normal`` and ``draw``) timed
+eight that replace a Pallas kernel, then ``normal``, its window mode
+``normal_window`` and ``draw``) timed
 against its plain PyTorch version and, where PyTorch has one, the
 library call that computes the same function, at the shapes of the
 kernel table in PERF.md (the synthetic profile: n = 300,000, d = 3,000,
 b = 256, K = 150 with 30 blocks masked; distributed-avg's b = 4,096,
 K = 10; one padded (2^19, 3,000) FWHT block; the X^T product-code
-encode).
+encode; the window mode at qwen3-moe-30b-a3b's expert leaf's shard at
+a 4 x 2 mesh, bfloat16).
 
   python -m repro_torch.benchmarks.kernels_bench [--out FILE] [--device cpu]
 
@@ -39,9 +41,12 @@ DEFAULT_OUT = REPO_ROOT / "artifacts" / "kernels_bench.json"
 
 REPS = 3                 # timed launches a kernel and library call
 FULL = dict(n=300_000, d=3_000, b=256, k=150, masked=30, s=4,
-            b_avg=4_096, k_avg=10, n_fwht=4_096, n_pad=1 << 19, w_xt=25)
+            b_avg=4_096, k_avg=10, n_fwht=4_096, n_pad=1 << 19, w_xt=25,
+            leaf=(48, 128, 2048, 768),
+            box=((0, 48), (64, 64), (0, 2048), (576, 192)))
 SMALL = dict(n=500, d=16, b=16, k=8, masked=2, s=4, b_avg=32, k_avg=2,
-             n_fwht=64, n_pad=1 << 9, w_xt=9)
+             n_fwht=64, n_pad=1 << 9, w_xt=9, leaf=(4, 8, 16, 12),
+             box=((0, 4), (4, 4), (0, 16), (3, 3)))
 
 
 # Each kernel's row of PERF.md's kernel table (None: the port's own draws)
@@ -58,6 +63,7 @@ KERNELS = {
     "fwht": (7, None),
     "fwht_two_pass": (8, None),
     "normal": (None, None),
+    "normal_window": (None, None),
     "draw": (None, None),
 }
 
@@ -211,6 +217,15 @@ def cases(device: torch.device, sz: Dict[str, int]) -> List[dict]:
         dict(name="normal", shape=dict(n=n, b=b),
              kernel=lambda: ops.normal(key, (n, b), device),
              plain=lambda: ref.normal(key, (n, b), device),
+             library=None),
+        dict(name="normal_window",
+             shape=dict(leaf=list(sz["leaf"]), box=[list(x)
+                                                    for x in sz["box"]],
+                        dtype="bfloat16"),
+             kernel=lambda: ops.normal_window(key, sz["leaf"], sz["box"],
+                                              device, dtype=torch.bfloat16),
+             plain=lambda: ref.normal_window(key, sz["leaf"], sz["box"],
+                                             device, torch.bfloat16),
              library=None),
         dict(name="draw", shape=dict(K=k, n=n, span=b),
              kernel=lambda: ops.randint(key, (k, n), 0, b, device=device),

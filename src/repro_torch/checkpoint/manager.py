@@ -19,7 +19,9 @@ unsharded save; ``wait`` then holds every rank at a barrier until the
 files are in place.  ``restore(step, like, shardings)`` lays each leaf
 out by the given shardings (``distributed.sharding.NamedSharding``, on
 the mesh of ``like``'s DTensor leaf, else the sharding's own mesh), which
-may be another mesh than the one that saved: elastic restore.
+may be another mesh than the one that saved: elastic restore.  Each rank
+reads only its shard's box of each file (memory-mapped).  A save still
+gathers each leaf whole on every rank, one leaf at a time.
 """
 from __future__ import annotations
 
@@ -198,17 +200,19 @@ class CheckpointManager:
         out = {}
         for name, like_leaf in names:
             rec = by_name[name]
-            t = _from_saved(np.load(os.path.join(path, rec["file"])),
-                            rec["dtype"])
+            file = os.path.join(path, rec["file"])
             like_t = torch.as_tensor(like_leaf)
-            if tuple(t.shape) != tuple(like_t.shape):
-                raise AssertionError(f"{name}: ckpt {tuple(t.shape)} != "
-                                     f"state {tuple(like_t.shape)}")
+            if tuple(rec["shape"]) != tuple(like_t.shape):
+                raise AssertionError(f"{name}: ckpt {tuple(rec['shape'])} "
+                                     f"!= state {tuple(like_t.shape)}")
             dev = device if device is not None else (
                 "cpu" if like_t.device.type == "meta" else like_t.device)
-            out[name] = t.to(device=dev, dtype=like_t.dtype)
-            if name in placed:
-                out[name] = _place(out[name], placed[name], like_t)
+            if name in placed and like_t.dim():
+                out[name] = _read_shard(file, rec["dtype"], placed[name],
+                                        like_t, dev)
+            else:
+                out[name] = _from_saved(np.load(file), rec["dtype"]).to(
+                    device=dev, dtype=like_t.dtype)
         return _unflatten_like(like, out)
 
     def restore_latest(self, like: Pytree, shardings: Optional[Pytree] = None,
@@ -219,14 +223,19 @@ class CheckpointManager:
         return self.restore(step, like, shardings, device)
 
 
-def _place(t: torch.Tensor, sharding, like_t: torch.Tensor):
-    """The whole tensor ``t`` laid out by ``sharding`` (every rank keeps
-    its shard; no communication), on like's mesh when like is a DTensor.
-    A 0-d leaf (the AdamW step) stays a plain tensor."""
-    from repro_torch.distributed.sharding import distribute
-    if t.dim() == 0:
-        return t
+def _read_shard(file: str, logical: str, sharding, like_t: torch.Tensor,
+                device):
+    """This rank's shard of a saved leaf laid out by ``sharding`` (on
+    like's mesh when like is a DTensor): only the shard's box is read from
+    the file (memory-mapped) and moved to ``device``; no communication."""
+    from repro_torch.distributed.sharding import (coordinates, from_local,
+                                                  local_box)
+    arr = np.load(file, mmap_mode="r")
     mesh = getattr(like_t, "device_mesh", None)
     if mesh is None:
-        mesh = sharding.mesh.device_mesh(t.device.type)
-    return distribute(t, sharding, mesh)
+        mesh = sharding.mesh.device_mesh(torch.device(device).type)
+    box = local_box(arr.shape, sharding.spec, sharding.mesh,
+                    coordinates(mesh))
+    part = np.array(arr[tuple(slice(s, s + n) for s, n in box)])  # a copy
+    local = _from_saved(part, logical).to(device=device, dtype=like_t.dtype)
+    return from_local(local, sharding, mesh, arr.shape)

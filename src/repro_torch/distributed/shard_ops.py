@@ -20,12 +20,16 @@ the reference; ``tests/test_torch_dryrun.py``: the fake 4 x 2 mesh).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import contiguous_stride
+
 __all__ = ["is_sharded", "shard_of", "split_on", "attention",
+           "decode_attention", "ssd_scan", "ssd_readout", "split_matmul",
            "embed_lookup", "embed_grad", "pad", "like", "vocab_sharded",
            "whole_last_dim", "vocab_logits", "moe_ffn"]
 
@@ -79,6 +83,69 @@ def attention(fn: Callable, q, k, v, **kw) -> torch.Tensor:
         k, v = _repeat_heads(k, rep, q), _repeat_heads(v, rep, q)
     k, v = k.redistribute(mesh, pl), v.redistribute(mesh, pl)
     out = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
+def decode_attention(plain: Callable, q, k_cache, v_cache, valid: int, *,
+                     pos: Optional[int] = None, window: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """One-token attention of DTensors (``models.attention``'s
+    ``decode_attention``, with ``pos``, or ``_ring_decode_attn``) on each
+    rank's own shards of the cache, whose first ``valid`` slots are read.
+    q (B, 1, H, hd) is laid out as the cache (B, S, KV, hd) is split: by
+    batch, and by heads where the cache splits its kv heads (a rank's q
+    heads are then its kv heads' groups), whole elsewhere.  Where no mesh
+    dim splits the cache's sequence, ``plain(q, k, v)`` runs on the local
+    shards; where one does, each rank attends its own slots and the
+    softmax is combined over the sequence's mesh dims (the running max,
+    then the rescaled sums and outputs, in float32).  The output keeps q's
+    layout.  DTensor would otherwise take q's heads split into the
+    (KV, G) view, which some torch releases (2.11) refuse."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = k_cache.device_mesh
+    kv_pl = list(k_cache.placements)
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else
+          Shard(2) if isinstance(p, Shard) and p.dim == 2 else Replicate()
+          for p in kv_pl]
+    seq_dims = [i for i, p in enumerate(kv_pl)
+                if isinstance(p, Shard) and p.dim == 1]
+    v_cache = v_cache.redistribute(mesh, kv_pl)
+    q_loc = q.redistribute(mesh, pl).to_local()
+    k_loc, v_loc = k_cache.to_local(), v_cache.to_local()
+    if not seq_dims:
+        out = plain(q_loc, k_loc, v_loc)
+        return DTensor.from_local(out, mesh, pl, run_check=False)
+    (_, slots, _, _), (_, lo, _, _) = compute_local_shape_and_global_offset(
+        k_cache.shape, mesh, kv_pl)
+    n = max(0, min(slots, valid - lo))
+    b, _, h, hd = q_loc.shape
+    kv = k_loc.shape[2]
+    k_loc, v_loc = k_loc[:, :n], v_loc[:, :n]
+    qg = q_loc.reshape(b, kv, h // kv, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qg, k_loc).float() / \
+        math.sqrt(hd)
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    if window and pos is not None:
+        k_pos = lo + torch.arange(n, device=scores.device)
+        scores = torch.where(pos - k_pos < window, scores, -1e30)
+    m = scores.amax(dim=-1) if n else torch.full(
+        scores.shape[:-1], -1e30, dtype=torch.float32, device=scores.device)
+
+    def over_seq(t, op):
+        red = [Partial(op) if i in seq_dims else Replicate()
+               for i in range(len(kv_pl))]
+        keep = [Replicate()] * len(kv_pl)
+        return DTensor.from_local(t, mesh, red, run_check=False).redistribute(
+            mesh, keep).to_local()
+    m_all = over_seq(m, "max")
+    prob = torch.exp(scores - m_all[..., None])
+    total = over_seq(prob.sum(dim=-1), "sum")
+    acc = over_seq(torch.einsum("bkgs,bskh->bkgh", prob, v_loc.float()),
+                   "sum")
+    out = (acc / total[..., None]).to(v_loc.dtype).reshape(b, 1, h, hd)
     return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
@@ -254,6 +321,125 @@ def vocab_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     if is_sharded(h) and vocab_sharded(head):
         return _VocabLogits.apply(h, head)
     return h @ head
+
+
+# ------------------------------------------------- row-parallel product --
+class _SplitMatmul(torch.autograd.Function):
+    """x (..., K) @ w (K, N) with K split the same way on both (x's last
+    dim and w's first over the same mesh dims): each rank's product of its
+    own shards, the partial sums reduce-scattered onto N over those mesh
+    dims (gathered where N does not divide); the backward on the local
+    shards too (dx from the gathered gradient, dw summed over x's other
+    splits).  DTensor's own rule for this product fails on some torch
+    releases (2.11: "redistribute from S(0) to P(sum)") for the RG-LRU's
+    gates."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, \
+            Shard
+        mesh = x.device_mesh
+        last = x.ndim - 1
+        split = [isinstance(p, Shard) and p.dim == last
+                 for p in x.placements]
+        w_pl = [Shard(0) if k else Replicate() for k in split]
+        x_loc = x.to_local()
+        w_loc = w.redistribute(mesh, w_pl).to_local()
+        out_pl = [(Shard(last) if w.shape[1] % mesh.size(i) == 0
+                   else Replicate()) if k else p
+                  for i, (k, p) in enumerate(zip(split, x.placements))]
+        ctx.save_for_backward(x_loc, w_loc)
+        ctx.layout = (mesh, split, tuple(x.placements),
+                      tuple(w.placements), w_pl, out_pl, x.shape, w.shape)
+        y = DTensor.from_local(
+            x_loc @ w_loc, mesh,
+            [Partial() if k else p for k, p in zip(split, x.placements)],
+            run_check=False, shape=torch.Size((*x.shape[:-1], w.shape[1])),
+            stride=contiguous_stride((*x.shape[:-1], w.shape[1])))
+        return y.redistribute(mesh, out_pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, \
+            Shard
+        x_loc, w_loc = ctx.saved_tensors
+        mesh, split, x_pl, w_orig, w_pl, out_pl, x_shape, w_shape = \
+            ctx.layout
+        g_loc = g.redistribute(mesh, [Replicate() if k else p for k, p in
+                                      zip(split, out_pl)]).to_local()
+        dx = DTensor.from_local(g_loc @ w_loc.T, mesh, list(x_pl),
+                                run_check=False, shape=x_shape,
+                                stride=contiguous_stride(x_shape))
+        dw_pl = [Shard(0) if k else Partial() if isinstance(p, Shard)
+                 else Replicate() for k, p in zip(split, x_pl)]
+        dw = DTensor.from_local(
+            x_loc.flatten(0, -2).T @ g_loc.flatten(0, -2), mesh, dw_pl,
+            run_check=False, shape=w_shape, stride=contiguous_stride(w_shape))
+        return dx, dw.redistribute(mesh, list(w_orig))
+
+
+def split_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w; on the local shards (``_SplitMatmul``) where both are
+    DTensors and x's last dim is split over some mesh dim."""
+    if is_sharded(x) and is_sharded(w) and split_on(x, x.ndim - 1):
+        return _SplitMatmul.apply(x, w)
+    return x @ w
+
+
+# ---------------------------------------------------------------------- SSD --
+def ssd_scan(plain: Callable, xh, dt, a, b_mat, c_mat, d_skip, q: int):
+    """``plain`` (``models.ssd._chunked_scan``) of DTensors on each rank's
+    own (batch, head) shards: the scan is independent across batch rows
+    and heads, so xh (B,S,H,P) and dt (B,S,H) are laid out by batch (as
+    xh is split) and by heads over "model" where they divide, a and
+    d_skip (H,) by the same heads, b_mat and c_mat (B,S,N) by batch alone,
+    and ``plain`` runs on the shards; y (B,S,H,P) keeps xh's layout.
+    DTensor's own rules would flatten the batch split over ("pod",
+    "data") into the scan's products as a strided shard, whose layout
+    they take minutes of host time to plan."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = xh.device_mesh
+    names = mesh.mesh_dim_names
+    heads = xh.shape[2]
+    batch = [isinstance(p, Shard) and p.dim == 0 for p in xh.placements]
+    split = [names[i] == "model" and not batch[i] and
+             heads % mesh.size(i) == 0 for i in range(mesh.ndim)]
+
+    def local(t, head_dim):
+        pl = [Shard(0) if batch[i] else
+              Shard(head_dim) if head_dim is not None and split[i] else
+              Replicate() for i in range(mesh.ndim)]
+        return t.redistribute(mesh, pl).to_local(), pl
+    xh_loc, pl = local(xh, 2)
+    y = plain(xh_loc, local(dt, 2)[0],
+              _head_shard(a, mesh, split), local(b_mat, None)[0],
+              local(c_mat, None)[0], _head_shard(d_skip, mesh, split), q)
+    return DTensor.from_local(y, mesh, pl, run_check=False)
+
+
+def ssd_readout(ssm, c):
+    """einsum('bhpn,bn->bhp', ssm, c) of DTensors (the SSD decode step's
+    readout) on the local shards: the state (B, H, P, N) keeps its layout
+    (``sharding.cache_shardings`` never splits N), c (B, N) is laid out by
+    the state's batch split and whole elsewhere.  Some torch releases
+    (2.11) refuse to flatten the state's split P into the product's
+    rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = ssm.device_mesh
+    c_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in ssm.placements]
+    y = torch.einsum("bhpn,bn->bhp", ssm.to_local(),
+                     c.redistribute(mesh, c_pl).to_local())
+    return DTensor.from_local(y, mesh, list(ssm.placements), run_check=False,
+                              shape=ssm.shape[:3],
+                              stride=contiguous_stride(ssm.shape[:3]))
+
+
+def _head_shard(t, mesh, split):
+    """A (H,) DTensor's shard split over the mesh dims ``split`` marks."""
+    from torch.distributed.tensor import Replicate, Shard
+    return t.redistribute(mesh, [Shard(0) if s else Replicate()
+                                 for s in split]).to_local()
 
 
 # ---------------------------------------------------------------------- MoE --

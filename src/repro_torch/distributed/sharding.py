@@ -159,11 +159,11 @@ def activation_constraint(mesh, seq_shard: bool = True):
     kind="inner": inside a block right before the TP matmuls, the full
       sequence (the per-layer gather / reduce-scatter pair).
 
-    The identity when ``mesh`` is None, and on anything but a 3-D
-    DTensor."""
+    A batch that does not divide over the batch axes stays whole (a
+    long-context decode's batch of 1).  The identity when ``mesh`` is
+    None, and on anything but a 3-D DTensor."""
     if mesh is None:
         return lambda h, kind="carry": h
-    b_ax = batch_axes(mesh)
 
     def constrain(h, kind: str = "carry"):
         from torch.distributed.tensor import DTensor
@@ -173,7 +173,7 @@ def activation_constraint(mesh, seq_shard: bool = True):
         if kind == "carry" and seq_shard and "model" in mesh.shape and \
                 h.shape[1] % mesh.shape["model"] == 0:
             seq_ax = "model"
-        spec = _trim([b_ax if b_ax else None, seq_ax])
+        spec = _trim([_batch_spec(mesh, h.shape[0]), seq_ax])
         return h.redistribute(h.device_mesh,
                               placements(spec, h.device_mesh))
 
@@ -304,6 +304,27 @@ def distribute(t: torch.Tensor, sharding: NamedSharding, device_mesh):
                              src_data_rank=None)
 
 
+def contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The row-major strides of a contiguous ``shape``."""
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def from_local(local: torch.Tensor, sharding: NamedSharding, device_mesh,
+               shape: Sequence[int]):
+    """The DTensor of global ``shape`` (contiguous) laid out by
+    ``sharding`` whose shard on this rank is ``local``, with no
+    communication."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, device_mesh,
+                              placements(sharding.spec, device_mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
 def whole(t: torch.Tensor) -> torch.Tensor:
     """A DTensor gathered whole (a collective every rank joins); any other
     tensor as it is."""
@@ -320,3 +341,38 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
         for a in (entry if isinstance(entry, tuple) else (entry,)):
             out[dim] //= mesh.shape[a]
     return tuple(out)
+
+
+def coordinates(device_mesh) -> Dict[str, int]:
+    """This rank's coordinate on each named dim of ``device_mesh``."""
+    return dict(zip(device_mesh.mesh_dim_names, device_mesh.get_coordinate()))
+
+
+def local_box(shape: Sequence[int], spec: Spec, mesh,
+              coords: Dict[str, int]) -> Tuple[Tuple[int, int], ...]:
+    """The (start, size) a dim of the shard of a ``shape`` tensor laid out
+    by ``spec`` held at mesh coordinates ``coords`` (axis name -> index):
+    a dim split over several axes is split major first in the mesh's
+    order, as ``placements`` lays it out; its size is ``local_shape``'s."""
+    box = []
+    for dim, n in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        index, parts = 0, 1
+        for a in mesh.shape:
+            if a in axes:
+                index = index * mesh.shape[a] + coords[a]
+                parts *= mesh.shape[a]
+        box.append((index * (n // parts), n // parts))
+    return tuple(box)
+
+
+def param_boxes(bundle, mesh, coords: Dict[str, int]) -> Dict[str, Any]:
+    """Each parameter's box ('/' path -> ``local_box``) at mesh
+    coordinates ``coords`` under the policy's shardings: the shards one
+    rank holds (``ModelBundle.init_local`` draws them alone)."""
+    from repro_torch.models.common import flatten
+    return {path: local_box(s.shape, resolve_pspec(s.shape, s.axes, mesh),
+                            mesh, coords)
+            for path, s in flatten(bundle.specs())}

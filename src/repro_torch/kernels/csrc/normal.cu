@@ -163,6 +163,91 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// The window mode: a box of a draw of a whole shape (a rank's shard of a
+// sharded leaf), each element hashing the 64-bit counter of its flat
+// index in the whole shape, so the box holds the same bits as the same
+// box of a whole draw.  A warp takes a chunk of the box at a time: up to
+// WINDOW_CHUNK elements of one row of the box's last dim (a long row is
+// cut into column blocks), or WINDOW_CHUNK / (row length) whole rows of a
+// short one (the 30B expert leaves' shards have rows of 192).  Its lanes
+// take neighbouring columns, so each store is coalesced, and the row's
+// first counter comes from its multi-index: decoded once a chunk (a
+// 64-bit division per box dim), then advanced row by row like an
+// odometer, with no division and no barrier.  Like the whole draw, it is
+// bound by the hash's integer instructions.
+constexpr int MAX_RANK = 8;
+constexpr int WINDOW_CHUNK = 2048;
+constexpr int WARPS = THREADS / 32;
+
+struct Box {
+  int rank;
+  int64_t stride[MAX_RANK];  // the whole shape's row-major strides
+  int64_t start[MAX_RANK];
+  int64_t size[MAX_RANK];
+  int64_t rows;              // the box's rows: all dims but the last
+  int64_t rows_per_chunk;    // 1 where a row is cut into column blocks
+  int64_t col_blocks;        // column blocks of a row
+  int64_t chunks;
+};
+
+template <typename T, int SHIFT, uint32_t MASK, bool SMEM_TABLE>
+__global__ void __launch_bounds__(THREADS)
+    normal_window_kernel(uint32_t k0, uint32_t k1, const T* __restrict__ table,
+                         T* __restrict__ out, const Box box) {
+  __shared__ T t[128];
+  if constexpr (SMEM_TABLE) {
+    if (threadIdx.x < 128) t[threadIdx.x] = table[threadIdx.x];
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * WARPS;
+  const int last = box.rank - 1;
+  const int64_t inner = box.size[last];
+  for (int64_t chunk = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
+       chunk < box.chunks; chunk += warps) {
+    const int64_t rb = chunk / box.col_blocks;
+    const int64_t c0 = (chunk - rb * box.col_blocks) * WINDOW_CHUNK;
+    const int64_t c1 = c0 + WINDOW_CHUNK < inner ? c0 + WINDOW_CHUNK : inner;
+    int64_t row = rb * box.rows_per_chunk;
+    const int64_t row_end = row + box.rows_per_chunk < box.rows
+                                ? row + box.rows_per_chunk : box.rows;
+    // The counter of the row's column 0, and the row's multi-index.
+    uint64_t c = (uint64_t)box.start[last];
+    int64_t idx[MAX_RANK];
+    int64_t rem = row;
+#pragma unroll
+    for (int d = MAX_RANK - 2; d >= 0; --d) {
+      if (d < last) {
+        const int64_t q = rem / box.size[d];
+        idx[d] = rem - q * box.size[d];
+        c += (uint64_t)(box.start[d] + idx[d]) * (uint64_t)box.stride[d];
+        rem = q;
+      }
+    }
+    for (; row < row_end; ++row) {
+      T* dst = out + row * inner;
+      for (int64_t col = c0 + lane; col < c1; col += 32) {
+        const uint32_t m =
+            (threefry::bits(k0, k1, c + (uint64_t)col) >> SHIFT) & MASK;
+        if constexpr (SMEM_TABLE) {
+          __stcs(dst + col, t[m]);
+        } else {
+          __stcs(dst + col, __ldg(table + m));
+        }
+      }
+#pragma unroll
+      for (int d = MAX_RANK - 2; d >= 0; --d) {  // the next row
+        if (d < last) {
+          c += (uint64_t)box.stride[d];
+          if (++idx[d] < box.size[d]) break;
+          idx[d] = 0;
+          c -= (uint64_t)box.size[d] * (uint64_t)box.stride[d];
+        }
+      }
+    }
+  }
+}
+
 int grid_blocks(long long size) {
   int sms = 0, dev = 0;
   cudaGetDevice(&dev);
@@ -205,5 +290,53 @@ extern "C" int normal_bf16_launch(uint32_t k0, uint32_t k1,
   normal_bf16_kernel<<<grid_blocks(size), THREADS, 0,
                        (cudaStream_t)stream>>>(k0, k1, table, out,
                                                (int64_t)size);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int normal_window_max_rank() { return MAX_RANK; }
+
+// out (the box's sizes, row-major) = the box (starts, sizes) of the
+// normal draw of key (k0, k1) of the whole shape, from the float32 table
+// (bf16 = 0) or the 128-entry bfloat16 table (bf16 = 1).  shape, starts
+// and sizes are host arrays of rank int64s; every size > 0 and the box
+// inside the shape, as kernels/normal.py checks.
+extern "C" int normal_window_launch(uint32_t k0, uint32_t k1,
+                                    const void* table, void* out, int bf16,
+                                    int rank, const long long* shape,
+                                    const long long* starts,
+                                    const long long* sizes, void* stream) {
+  if (rank < 1 || rank > MAX_RANK) return (int)cudaErrorInvalidValue;
+  Box box;
+  box.rank = rank;
+  long long stride = 1, rows = 1;
+  for (int d = rank - 1; d >= 0; --d) {
+    box.stride[d] = stride;
+    box.start[d] = starts[d];
+    box.size[d] = sizes[d];
+    if (sizes[d] <= 0) return 0;
+    stride *= shape[d];
+    if (d < rank - 1) rows *= sizes[d];
+  }
+  const long long inner = sizes[rank - 1];
+  box.rows = rows;
+  box.col_blocks = (inner + WINDOW_CHUNK - 1) / WINDOW_CHUNK;
+  box.rows_per_chunk = inner < WINDOW_CHUNK ? WINDOW_CHUNK / inner : 1;
+  box.chunks = (rows + box.rows_per_chunk - 1) / box.rows_per_chunk *
+               box.col_blocks;
+  int sms = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = (box.chunks + WARPS - 1) / WARPS;
+  const long long cap = (long long)(sms > 0 ? sms : 132) * 8;
+  const int grid = (int)(want < cap ? want : cap);
+  if (bf16) {
+    normal_window_kernel<uint16_t, 1, 127u, true>
+        <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+            k0, k1, (const uint16_t*)table, (uint16_t*)out, box);
+  } else {
+    normal_window_kernel<float, 9, 0x7FFFFFu, false>
+        <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+            k0, k1, (const float*)table, (float*)out, box);
+  }
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,12 @@ process, so that a draw on any stream reads a finished table.
 bfloat16 draws depend on 7 bits of the word (``prng.normal_bf16_plain``):
 the kernel's bfloat16 mode reads a table of 128 draws, made on the host by
 the plain steps and copied to the device once.
+
+``normal_window`` draws a box of a draw of a whole shape, in either dtype,
+bit for bit ``prng.normal_window``: each element hashes the counter of its
+flat index in the whole shape, so a rank's shard of a sharded leaf is drawn
+alone (``models.common.materialize`` with boxes).  Its launches are
+counted apart, by ``WINDOW_KERNEL``.
 """
 from __future__ import annotations
 
@@ -38,6 +44,14 @@ KERNEL = CudaKernel(
                                                      ctypes.c_void_p],
     replaces="none: port-only, jax.random.normal's bits "
              "(src/repro/sketching/gaussian.py:44)")
+
+WINDOW_KERNEL = CudaKernel(
+    "normal_window", "normal.cu", "normal_window_launch",
+    [ctypes.c_uint32] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 +
+    [ctypes.c_void_p] * 4,
+    replaces="none: port-only, a box of jax.random.normal's bits: a "
+             "rank's shard of jax.jit(init, out_shardings=...) "
+             "(src/repro/training/trainer.py:150)")
 
 TABLE_SIZE = 1 << 23     # one draw per 23-bit mantissa
 _TABLES: Dict[torch.device, torch.Tensor] = {}
@@ -134,4 +148,41 @@ def normal(key: torch.Tensor, shape: prng.Shape = (), device=None,
         KERNEL.launch(k0, k1, tab.data_ptr(), out.data_ptr(), out.numel(),
                       stream(out), symbol="normal_bf16_launch" if bf16
                       else "")
+    return out
+
+
+def normal_window(key: torch.Tensor, shape: prng.Shape, box: prng.Box,
+                  device=None, dtype: torch.dtype = torch.float32
+                  ) -> torch.Tensor:
+    """The box ((start, size) a dim) of the standard normal draw of
+    ``shape`` and ``dtype`` (float32 or bfloat16) from ``key``, alone, on
+    ``device`` (the CUDA device when none is given): the kernel's window
+    mode on a CUDA device, ``prng.normal_window`` on the CPU."""
+    device = resolve_device(device)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"normal_window: dtype must be float32 or "
+                         f"bfloat16, got {dtype}")
+    if device.type == "cpu":
+        return prng.normal_window(key, shape, box, dtype, device)
+    if device.type != "cuda":
+        raise ValueError(f"normal_window: device must be the CPU or a CUDA "
+                         f"device, got {device}")
+    shape = prng._shape(shape)
+    box = prng.check_box(shape, box)
+    out = torch.empty(tuple(n for _, n in box), dtype=dtype, device=device)
+    if out.numel():
+        rank = max(len(shape), 1)
+        most = WINDOW_KERNEL.host_function("normal_window_max_rank", [])()
+        if rank > most:
+            raise ValueError(f"normal_window: rank {rank} past the "
+                             f"kernel's {most}")
+        dims = np.array([shape or (1,), [s for s, _ in box] or [0],
+                         [n for _, n in box] or [1]], dtype=np.int64)
+        k0, k1 = prng._words(key)
+        bf16 = dtype == torch.bfloat16
+        tab = bf16_table(device) if bf16 else table(device)
+        WINDOW_KERNEL.launch(k0, k1, tab.data_ptr(), out.data_ptr(),
+                             int(bf16), rank, dims[0].ctypes.data,
+                             dims[1].ctypes.data, dims[2].ctypes.data,
+                             stream(out))
     return out

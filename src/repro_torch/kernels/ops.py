@@ -11,8 +11,9 @@ each call is then timed on the host clock into a ``kernel.<op>.us``
 histogram and a ``kernel.<op>.calls`` counter.  On CUDA tensors the
 device is synchronized before and after the call, so queued work is
 neither hidden nor charged to it.  With no profiler attached the cost is
-one ``is None`` check; the draws (``normal`` and the draw kernel's modes)
-are not wrapped, as the reference has no such metric.
+one ``is None`` check; the draws (``normal``, ``normal_window`` and the
+draw kernel's modes) are not wrapped, as the reference has no such
+metric.
 """
 from __future__ import annotations
 
@@ -72,6 +73,7 @@ def _timed(op: str, fn):
 coded_block_matvec = _timed("coded_block_matvec", _cm.coded_block_matvec)
 count_sketch_apply = _timed("count_sketch_apply", _cs.count_sketch_apply)
 normal = _normal.normal
+normal_window = _normal.normal_window
 oversketch_gram = _timed("oversketch_gram", _og.oversketch_gram)
 sketch_gram_count = _timed("sketch_gram_count", _sg.sketch_gram_count)
 sketch_gram_sjlt = _timed("sketch_gram_sjlt", _sg.sketch_gram_sjlt)
@@ -90,7 +92,7 @@ KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (_sg.KERNEL, _cs.KERNEL, _og.KERNEL, _cm.KERNEL,
                         _sg.SJLT_KERNEL, _sg.SRHT_KERNEL, _srht.FWHT_KERNEL,
                         _srht.TWO_PASS_KERNEL, _normal.KERNEL,
-                        _draw.KERNEL)}
+                        _normal.WINDOW_KERNEL, _draw.KERNEL)}
 
 
 def launch_counts() -> Dict[str, int]:

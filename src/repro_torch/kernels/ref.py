@@ -120,6 +120,14 @@ def normal(key: torch.Tensor, shape, device) -> torch.Tensor:
     return prng.normal_plain(key, shape, device)
 
 
+def normal_window(key: torch.Tensor, shape, box, device,
+                  dtype=torch.float32) -> torch.Tensor:
+    """The normal kernel's window mode's plain version:
+    ``prng.normal_window`` on any device."""
+    from repro_torch import prng
+    return prng.normal_window(key, shape, box, dtype, device)
+
+
 def randint(key: torch.Tensor, shape, minval: int, maxval: int,
             device) -> torch.Tensor:
     """The draw kernel's plain randint: ``prng.randint`` on any device."""

@@ -57,9 +57,10 @@ from torch.utils._pytree import tree_flatten
 
 from repro_torch.distributed.sharding import (activation_constraint,
                                               batch_shardings,
-                                              cache_shardings, local_shape,
+                                              cache_shardings, from_local,
+                                              local_shape,
                                               opt_state_shardings,
-                                              param_shardings, placements,
+                                              param_shardings,
                                               sharded_param_bytes)
 from repro_torch.launch.analytic import HBM_BW, NVLINK_BW, PEAK_FLOPS
 from repro_torch.launch.mesh import make_production_mesh
@@ -192,9 +193,9 @@ def active_param_count(bundle: ModelBundle) -> int:
     return total
 
 
-# A train step's counted flops per chip keep within this share of
+# A step's counted flops per chip keep within this share of
 # ``expected_flops_per_chip`` (``expected_band``): the reduced cells count
-# 0.997-1.031 of it, qwen3-4b x train_4k at 16 x 16 0.965 on torch 2.11.
+# 0.989-1.031 of it, qwen3-4b x train_4k at 16 x 16 0.965 on torch 2.11.
 FLOPS_TOL = 0.2
 
 
@@ -212,17 +213,14 @@ def _train_layer_passes(n: int) -> float:
     return (grouped * (4 + (k - 1) / k) + (n - grouped) * 4) / n
 
 
-def expected_band(shape, mesh) -> Tuple[float, float]:
-    """(low, high) of counted / ``expected_flops_per_chip``.  A train
-    step's layouts are pinned (the batch's, the parameters', the
-    activation constraint between layers), so its count keeps within
-    FLOPS_TOL.  A prefill's or a decode's ops take the strategy DTensor's
-    own cost model picks, op by op (no constraint runs there), and at
-    small widths it may gather a weight and compute a product whole on
-    every rank of "model": up to that axis's size more."""
-    if shape.kind == "train":
-        return 1 - FLOPS_TOL, 1 + FLOPS_TOL
-    return 1 - FLOPS_TOL, (1 + FLOPS_TOL) * mesh.shape.get("model", 1)
+def expected_band() -> Tuple[float, float]:
+    """(low, high) of counted / ``expected_flops_per_chip``: 1 -+
+    FLOPS_TOL for every step.  A train step's layouts are pinned (the
+    batch's, the parameters', the activation constraint between layers),
+    and a prefill's and a decode's the same way (the constraint threaded
+    through ``bundle.prefill``/``decode``, decode attention on local
+    shards), so no product runs whole on every rank of "model"."""
+    return 1 - FLOPS_TOL, 1 + FLOPS_TOL
 
 
 def expected_flops_per_chip(cfg, shape, mesh) -> float:
@@ -244,7 +242,9 @@ def expected_flops_per_chip(cfg, shape, mesh) -> float:
       * MoE: each expert computes its capacity's slots, E C / g a token
         (C at group g = the sequence, 1 in a decode), and the router;
       * the SSM's and RG-LRU's matrix products as the model counts them
-        (their convolution and elementwise terms are not products).
+        (their convolution and elementwise terms are not products); an
+        SSM decode's state terms at the split the cache policy gives the
+        state (``_state_split``);
     Elementwise work is no product and counted by neither."""
     from repro_torch.launch import analytic as A
     b, s = shape.global_batch, shape.seq_len
@@ -266,13 +266,26 @@ def expected_flops_per_chip(cfg, shape, mesh) -> float:
     if decode and ring:
         keys_l = min(cfg.window_size, s)
     attn_layers = (n_g + n_l) * proj + n_g * scores(s) + n_l * scores(keys_l)
+    state_terms = 0.0
     if cfg.family == "ssm":
         q, n, hh, p = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_heads, \
             cfg.ssm_head_dim
         din = cfg.ssm_inner
-        mix = 2 * d * (2 * din + 2 * n + hh) + 2 * din * d
-        mix += 2 * hh * p * n if decode else \
-            2 * q * n + 2 * q * hh * p + 4 * n * hh * p
+        mix = 2 * d * (2 * din + 2 * n + hh)
+        if decode:
+            # The state's product and the output projection of its heads
+            # run on the state's layout, which the cache policy may split
+            # over "data" too (a batch-1 state's heads over ("data",
+            # "model")): counted apart, at that layout's split.
+            state_terms = b * n_m * (2 * hh * p * n + 2 * din * d) / \
+                _state_split(cfg, b, mesh)
+        else:
+            mix += 2 * din * d + 2 * q * n + 2 * q * hh * p + \
+                4 * n * hh * p
+            if shape.kind == "prefill":
+                # the final state's recurrence projects the prompt again,
+                # as the reference's ``_ssd_final_state`` does
+                mix += 2 * d * (2 * din + 2 * n + hh)
         layers = n_m * mix
     elif cfg.family == "hybrid":
         r = cfg.rnn_width
@@ -312,7 +325,19 @@ def expected_flops_per_chip(cfg, shape, mesh) -> float:
     batch_n = math.prod(mesh.shape.get(a, 1) for a in ("pod", "data"))
     if b % batch_n:
         total *= batch_n
-    return total / mesh.size
+    return total / mesh.size + state_terms
+
+
+def _state_split(cfg, batch: int, mesh) -> int:
+    """The ranks over which ``sharding.cache_shardings`` splits an SSM
+    decode's state (L, B, H, P, N)."""
+    from repro_torch.models import ssd
+    st = ssd.ssd_init_state(cfg, batch, cfg.compute_dtype, "meta")["ssm"]
+    spec = cache_shardings(cfg, {"ssm": st.expand((cfg.num_layers,) +
+                                                  st.shape)}, mesh,
+                           long_context=batch == 1)["ssm"].spec
+    return math.prod(mesh.shape[a] for e in spec if e is not None
+                     for a in (e if isinstance(e, tuple) else (e,)))
 
 
 # ------------------------------------------------------------ fake state ----
@@ -328,24 +353,12 @@ def fake_group(world: int) -> None:
                             world_size=world)
 
 
-def _contiguous_stride(shape) -> Tuple[int, ...]:
-    stride, acc = [], 1
-    for n in reversed(tuple(shape)):
-        stride.append(acc)
-        acc *= n
-    return tuple(reversed(stride))
-
-
 def _meta(shape, dtype, sharding, dm):
     """A DTensor of ``shape`` laid out by ``sharding`` whose local shard is
     a meta tensor."""
-    from torch.distributed.tensor import DTensor
-    spec = sharding.spec
-    local = torch.empty(local_shape(shape, spec, sharding.mesh),
+    local = torch.empty(local_shape(shape, sharding.spec, sharding.mesh),
                         dtype=dtype, device="meta")
-    return DTensor.from_local(local, dm, placements(spec, dm),
-                              run_check=False, shape=torch.Size(shape),
-                              stride=_contiguous_stride(shape))
+    return from_local(local, sharding, dm, shape)
 
 
 def _meta_tree(like: Any, shardings: Any, dm, dtype=None):
@@ -439,6 +452,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         c_shard = cache_shardings(bundle.cfg, cache_like, mesh,
                                   long_context=b == 1)
         cache = _meta_tree(cache_like, c_shard, dm)
+        constrain = activation_constraint(mesh, seq_shard)
 
         if shape.kind == "prefill":
             extra = batch.get("patch_embeds", batch.get("frame_embeds"))
@@ -446,7 +460,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             def step():
                 with _replicated():
                     return bundle.prefill(model, batch["tokens"], cache,
-                                          extra)
+                                          extra, constrain)
             tokens = b * s
             info["model_flops"] = 2 * info["active_params"] * tokens
         else:
@@ -456,7 +470,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
 
             def step():
                 with _replicated():
-                    return bundle.decode(model, cache, batch["token"])
+                    return bundle.decode(model, cache, batch["token"],
+                                         constrain)
             info["model_flops"] = 2 * info["active_params"] * b
         lowered = Lowered(step, (tree, cache, batch), lambda out: out)
     return lowered, info
@@ -530,7 +545,7 @@ def analyze(lowered: Lowered, info: Dict[str, Any]) -> Dict[str, Any]:
         "flops_ratio": rec.flops / costs.flops_per_chip,
         "expected_flops_per_chip": expected,
         "counted_over_expected": rec.flops / expected,
-        "expected_band": expected_band(shape, mesh),
+        "expected_band": expected_band(),
     }
     return info
 

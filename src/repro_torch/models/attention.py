@@ -180,8 +180,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q: (B, 1, H, hd); k_cache/v_cache: (B, S_max, KV, hd); pos: the index
     of the *current* token (cache valid through pos inclusive).  Only the
     first pos + 1 slots are read: the reference's mask gives the rest a
-    weight of exactly zero.
+    weight of exactly zero.  DTensors go through
+    ``shard_ops.decode_attention`` (local shards).
     """
+    if shard_ops.is_sharded(q):
+        return shard_ops.decode_attention(
+            lambda q_, k_, v_: decode_attention(q_, k_, v_, pos,
+                                                window=window,
+                                                softcap=softcap),
+            q, k_cache, v_cache, pos + 1, pos=pos, window=int(window or 0),
+            softcap=softcap)
     b, _, h, hd = q.shape
     kv_heads = k_cache.shape[2]
     g = h // kv_heads

@@ -175,26 +175,37 @@ def unflatten(pairs) -> Dict[str, Any]:
 
 
 def materialize(specs: Pytree, key: torch.Tensor, dtype: torch.dtype,
-                device=None) -> Pytree:
+                device=None, boxes: Optional[Dict[str, Any]] = None
+                ) -> Pytree:
     """Real parameters from a spec tree, as the reference draws them: one
     key per leaf (``prng.split`` in flatten order), normal leaves scaled
-    by 1/sqrt(fan_in) in the leaf's dtype."""
+    by 1/sqrt(fan_in) in the leaf's dtype.  With ``boxes`` ('/' path ->
+    (start, size) a dim: a rank's shards, ``sharding.param_boxes``), each
+    leaf's box alone, at the box's shape: its draws by the normal
+    kernel's window mode, the same bits as that box of the whole draw, so
+    no leaf is ever made whole."""
     device = resolve_device(device)
     leaves = flatten(specs)
     keys = prng.split(key, len(leaves))
     out = []
     for (path, spec), k in zip(leaves, keys):
+        box = None if boxes is None else boxes[path]
+        shape = spec.shape if box is None else tuple(n for _, n in box)
         if spec.init == "zeros":
-            leaf = torch.zeros(spec.shape, dtype=dtype, device=device)
+            leaf = torch.zeros(shape, dtype=dtype, device=device)
         elif spec.init == "ones":
-            leaf = torch.ones(spec.shape, dtype=dtype, device=device)
+            leaf = torch.ones(shape, dtype=dtype, device=device)
         else:
             fan_in = 1
             for dim in spec.fan_in_dims:
                 fan_in *= spec.shape[dim]
             scale = torch.tensor(1.0 / math.sqrt(max(fan_in, 1)),
                                  dtype=dtype, device=device)
-            leaf = ops.normal(k, spec.shape, device, dtype=dtype)
+            if box is None:
+                leaf = ops.normal(k, spec.shape, device, dtype=dtype)
+            else:
+                leaf = ops.normal_window(k, spec.shape, box, device,
+                                         dtype=dtype)
             leaf.mul_(scale)
         out.append((path, leaf))
     return unflatten(out)

@@ -20,7 +20,7 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, Params, Spec
-from repro_torch.models.transformer import _two_level
+from repro_torch.models.transformer import _identity, _two_level
 
 Pytree = Any
 
@@ -139,21 +139,25 @@ def _decoder_layer(cfg: ModelConfig, lp, h: torch.Tensor,
 
 def _decoder_pass(cfg: ModelConfig, params: EncDecLM, h: torch.Tensor,
                   memory: Optional[torch.Tensor], cache: Optional[Pytree] = None,
-                  pos: Optional[int] = None, remat: bool = False
-                  ) -> torch.Tensor:
+                  pos: Optional[int] = None, remat: bool = False,
+                  constrain=None) -> torch.Tensor:
     """The decoder stack: the full sequence when ``cache`` is None (with
     ``remat``, rematerialized as ``encode``), a cache-filling prefill from
     ``memory`` when ``pos`` is None, else one token's decode step at
     ``pos`` against the cached memory K/V.  The cache is written in
-    place."""
+    place.  ``constrain`` (serving only): the sharding hook, applied to
+    the residual stream ("carry") and each norm's output ("inner"), as
+    ``transformer.forward_hidden`` applies it."""
     decoding = cache is not None and pos is not None and h.shape[1] == 1
     if cache is None:
         zero = torch.zeros((), dtype=torch.float32, device=h.device)
         return _layers(lambda i, hc: (_decoder_layer(
             cfg, params.dec[i], hc, memory), zero), h, cfg.num_layers,
             remat)
+    constrain = constrain or _identity
+    h = constrain(h, "carry")
     for i, lp in enumerate(params.dec):
-        x = common.apply_norm(cfg, h, lp.ln1)
+        x = constrain(common.apply_norm(cfg, h, lp.ln1), "inner")
         q, k, v = attn.project_qkv(cfg, lp.self_attn, x)
         if decoding:
             attn.update_cache(cache["k"][i], cache["v"][i], k, v, pos)
@@ -164,7 +168,7 @@ def _decoder_pass(cfg: ModelConfig, params: EncDecLM, h: torch.Tensor,
                                        chunk=cfg.attn_chunk)
         h = h + attn.out_proj(lp.self_attn, o)
         # cross attention (memory K/V cached at prefill)
-        x = common.apply_norm(cfg, h, lp.ln_x)
+        x = constrain(common.apply_norm(cfg, h, lp.ln_x), "inner")
         if decoding:
             qx = attn._proj(x, lp.cross_attn.wq)
             mk, mv = cache["mk"][i], cache["mv"][i]
@@ -175,8 +179,8 @@ def _decoder_pass(cfg: ModelConfig, params: EncDecLM, h: torch.Tensor,
             mk, mv = cache["mk"][i], cache["mv"][i]
         ox = attn.chunked_attention(qx, mk, mv, causal=False, window=None)
         h = h + attn.out_proj(lp.cross_attn, ox)
-        x = common.apply_norm(cfg, h, lp.ln2)
-        h = h + _gelu_mlp(lp.ffn, x)
+        x = constrain(common.apply_norm(cfg, h, lp.ln2), "inner")
+        h = constrain(h + _gelu_mlp(lp.ffn, x), "carry")
     return h
 
 
@@ -235,23 +239,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 
 def prefill(cfg: ModelConfig, params: EncDecLM, tokens: torch.Tensor,
-            cache: Pytree, frame_embeds: torch.Tensor
+            cache: Pytree, frame_embeds: torch.Tensor, constrain=None
             ) -> Tuple[torch.Tensor, Pytree]:
     """Encode the frames, process the prompt, fill the cache (in place),
-    return last-position logits (B, 1, V)."""
+    return last-position logits (B, 1, V).  ``constrain``: the sharding
+    hook of ``_decoder_pass`` (the encoder takes the frames' layout)."""
+    constrain = constrain or _identity
     memory = encode(cfg, params, frame_embeds)
     h = _decoder_pass(cfg, params, _embed_dec(cfg, params, tokens, 0),
-                      memory, cache)
+                      memory, cache, constrain=constrain)
     cache["pos"] = tokens.shape[1]
-    return _logits(cfg, params, h[:, -1:]), cache
+    return _logits(cfg, params, constrain(h, "inner")[:, -1:]), cache
 
 
 def decode_step(cfg: ModelConfig, params: EncDecLM, cache: Pytree,
-                token: torch.Tensor) -> Tuple[torch.Tensor, Pytree]:
+                token: torch.Tensor, constrain=None
+                ) -> Tuple[torch.Tensor, Pytree]:
     """One decode step for the whole batch.  token (B,) -> logits (B, V);
-    the cache is updated in place."""
+    the cache is updated in place.  ``constrain`` as in ``prefill``."""
     pos = int(cache["pos"])
     h = _embed_dec(cfg, params, token[:, None], pos)
-    h = _decoder_pass(cfg, params, h, None, cache, pos)
+    h = _decoder_pass(cfg, params, h, None, cache, pos, constrain=constrain)
     cache["pos"] = pos + 1
     return _logits(cfg, params, h)[:, 0], cache

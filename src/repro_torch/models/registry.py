@@ -5,13 +5,14 @@ the trainer, the server and the OSN readout head (the counterpart of
 A bundle exposes:
   specs()                    -> param Spec tree (shapes + logical axes)
   init(key)                  -> the model's modules with real parameters
+  init_local(key, boxes)     -> a rank's shards of init's parameter tree
   abstract()                 -> meta-tensor params (no allocation)
   logical_axes()             -> the specs' logical axes
   param_count()              -> parameters in the spec tree
   loss(params, batch, constrain) -> scalar train loss
   init_cache(batch, s)       -> serving cache
-  prefill(params, ...)       -> (logits, cache)
-  decode(params, cache, tok) -> (logits, cache)
+  prefill(params, ..., constrain) -> (logits, cache)
+  decode(params, cache, tok, constrain) -> (logits, cache)
   input_specs(shape)         -> meta-tensor batch of one cell
   supports(shape)            -> (applicable, reason)
 
@@ -82,6 +83,15 @@ class ModelBundle:
                                   resolve_device(device))
         return build(self.cfg, tree)
 
+    def init_local(self, key: torch.Tensor, boxes: Dict[str, Any],
+                   device=None) -> Pytree:
+        """The parameter tree's boxes alone ('/' path -> (start, size) a
+        dim: a rank's shards, ``distributed.sharding.param_boxes``), with
+        ``init``'s draws from ``key``, bit for bit the same boxes of
+        ``init``'s leaves, on ``device``; no leaf is made whole."""
+        return common.materialize(self.specs(), key, self.cfg.compute_dtype,
+                                  resolve_device(device), boxes)
+
     def abstract(self) -> Pytree:
         """Meta tensors of every parameter (the dry run's stand-in)."""
         return common.abstract(self.specs(), self.cfg.compute_dtype)
@@ -107,14 +117,17 @@ class ModelBundle:
 
     @torch.no_grad()
     def prefill(self, params: nn.Module, tokens: torch.Tensor,
-                cache: Pytree, extra: Optional[torch.Tensor] = None):
-        if self.is_encdec:
-            return encdec.prefill(self.cfg, params, tokens, cache, extra)
-        return transformer.prefill(self.cfg, params, tokens, cache, extra)
+                cache: Pytree, extra: Optional[torch.Tensor] = None,
+                constrain=None):
+        """``constrain``: the sharding hook, as in ``loss``."""
+        return self._mod.prefill(self.cfg, params, tokens, cache, extra,
+                                 constrain)
 
     @torch.no_grad()
-    def decode(self, params: nn.Module, cache: Pytree, token: torch.Tensor):
-        return self._mod.decode_step(self.cfg, params, cache, token)
+    def decode(self, params: nn.Module, cache: Pytree, token: torch.Tensor,
+               constrain=None):
+        return self._mod.decode_step(self.cfg, params, cache, token,
+                                     constrain)
 
     # --------------------------------------------------------- input specs --
     def input_specs(self, shape: ShapeSpec, *, reduced: bool = False

@@ -21,6 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed import shard_ops
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, Spec
 
@@ -51,8 +52,8 @@ def rglru_specs(cfg: ModelConfig, stacked: int = 0) -> Dict[str, Spec]:
 
 
 def _gates(p, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    r_gate = torch.sigmoid(u @ p.w_r + p.b_r).float()
-    i_gate = torch.sigmoid(u @ p.w_i + p.b_i)
+    r_gate = torch.sigmoid(shard_ops.split_matmul(u, p.w_r) + p.b_r).float()
+    i_gate = torch.sigmoid(shard_ops.split_matmul(u, p.w_i) + p.b_i)
     log_a = -_C * common.softplus(p.lam.float()) * r_gate
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))

@@ -76,24 +76,16 @@ def _gated_out(p, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return common.rms_norm(y * common.silu(z), p.norm) @ p.w_out
 
 
-def ssd_forward(cfg: ModelConfig, p, x_in: torch.Tensor) -> torch.Tensor:
-    """Full-sequence SSD.  x_in (B, S, d) -> (B, S, d).  ``p`` holds one
-    layer's w_in, conv_w, conv_b, a_log, dt_bias, d_skip, norm, w_out."""
-    bsz, s_orig, _ = x_in.shape
-    din, n, h, hp = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
-    q = min(cfg.ssm_chunk, s_orig)
-    s_pad = (-s_orig) % q
-    if s_pad:   # causal => zero right-padding never affects real positions
-        x_in = shard_ops.pad(x_in, (0, 0, 0, s_pad))
-    s = s_orig + s_pad
+def _chunked_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  b_mat: torch.Tensor, c_mat: torch.Tensor,
+                  d_skip: torch.Tensor, q: int) -> torch.Tensor:
+    """The SSD's chunked dual over chunks of ``q``: xh (B,S,H,P), dt
+    (B,S,H) and a (H,) from ``_dt_a``, b_mat and c_mat (B,S,N) -> y
+    (B,S,H,P), the skip term included.  Independent across batch rows
+    and heads (``shard_ops.ssd_scan`` runs it on their local shards)."""
+    bsz, s, h, hp = xh.shape
+    n = b_mat.shape[-1]
     nc = s // q
-
-    z, dt, _, conv_out = _conv_inputs(cfg, p, x_in)
-    xr, b_mat, c_mat = (conv_out[..., :din], conv_out[..., din:din + n],
-                        conv_out[..., din + n:])
-    xh = xr.reshape(bsz, s, h, hp)
-    dt, a = _dt_a(p, dt)                                           # (B,S,H)
     da = dt * a
 
     xc = xh.reshape(bsz, nc, q, h, hp)
@@ -105,7 +97,7 @@ def ssd_forward(cfg: ModelConfig, p, x_in: torch.Tensor) -> torch.Tensor:
 
     # intra-chunk (dual/quadratic) term
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]            # (B,Nc,Q,Q,H)
-    idx = torch.arange(q, device=x_in.device)
+    idx = torch.arange(q, device=xh.device)
     causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
     l_mat = torch.where(causal, torch.exp(seg), 0.0)
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)                   # (B,Nc,Q,Q)
@@ -131,7 +123,31 @@ def ssd_forward(cfg: ModelConfig, p, x_in: torch.Tensor) -> torch.Tensor:
     y_off = y_off * torch.exp(cum)[..., None].to(xc.dtype)
 
     y = (y_diag + y_off).reshape(bsz, s, h, hp)
-    y = y + xh * p.d_skip[None, None, :, None].to(xh.dtype)
+    return y + xh * d_skip[None, None, :, None].to(xh.dtype)
+
+
+def ssd_forward(cfg: ModelConfig, p, x_in: torch.Tensor) -> torch.Tensor:
+    """Full-sequence SSD.  x_in (B, S, d) -> (B, S, d).  ``p`` holds one
+    layer's w_in, conv_w, conv_b, a_log, dt_bias, d_skip, norm, w_out."""
+    bsz, s_orig, _ = x_in.shape
+    din, n, h, hp = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    q = min(cfg.ssm_chunk, s_orig)
+    s_pad = (-s_orig) % q
+    if s_pad:   # causal => zero right-padding never affects real positions
+        x_in = shard_ops.pad(x_in, (0, 0, 0, s_pad))
+    s = s_orig + s_pad
+
+    z, dt, _, conv_out = _conv_inputs(cfg, p, x_in)
+    xr, b_mat, c_mat = (conv_out[..., :din], conv_out[..., din:din + n],
+                        conv_out[..., din + n:])
+    xh = xr.reshape(bsz, s, h, hp)
+    dt, a = _dt_a(p, dt)                                           # (B,S,H)
+    if shard_ops.is_sharded(xh):
+        y = shard_ops.ssd_scan(_chunked_scan, xh, dt, a, b_mat, c_mat,
+                               p.d_skip, q)
+    else:
+        y = _chunked_scan(xh, dt, a, b_mat, c_mat, p.d_skip, q)
     y = y.reshape(bsz, s, din)
     if s_pad:
         y = y[:, :s_orig]
@@ -194,6 +210,12 @@ def ssd_decode_step(cfg: ModelConfig, p, state: Dict[str, torch.Tensor],
     ssm = state["ssm"]
     ssm = ssm * decay[..., None, None].to(ssm.dtype) + upd.to(ssm.dtype)
     state["ssm"].copy_(ssm)
-    y = torch.einsum("bhpn,bn->bhp", ssm, c_t.to(ssm.dtype))
+    if shard_ops.is_sharded(ssm):
+        y = shard_ops.ssd_readout(ssm, c_t.to(ssm.dtype))
+    else:
+        y = torch.einsum("bhpn,bn->bhp", ssm, c_t.to(ssm.dtype))
     y = y + xr * p.d_skip[None, :, None].to(xr.dtype)
+    # a split head_dim gathered first: some torch releases (2.11) refuse
+    # to flatten it into din
+    y = shard_ops.whole_last_dim(y)
     return _gated_out(p, y.reshape(-1, din), z[:, 0])

@@ -459,26 +459,28 @@ def _hybrid_layers(cfg: ModelConfig, params: HybridLM, h: torch.Tensor,
 
 
 def _hybrid_decode(cfg: ModelConfig, params: HybridLM, cache: Pytree,
-                   h: torch.Tensor) -> torch.Tensor:
+                   h: torch.Tensor, constrain=_identity) -> torch.Tensor:
     pos = int(cache["pos"])
     positions = torch.tensor([pos], device=h.device)
     for is_attn, j in _hybrid_slots(cfg):
         if is_attn:
             lp = params.attn_layers[j]
             q, k, v = _attend(cfg, lp.attn, lp.attn_ln, h, positions,
-                              cfg.rope_theta)
+                              cfg.rope_theta, constrain)
             kc, vc = cache["k"][j], cache["v"][j]
             win = kc.shape[1]
             attn.update_cache(kc, vc, k, v, pos % win)
             h = _attn_finish(cfg, lp, h, _ring_decode_attn(
-                q, kc, vc, min(pos + 1, win)))
+                q, kc, vc, min(pos + 1, win)), constrain)
         else:
             lp = params.rec_layers[j]
-            x = common.apply_norm(cfg, h, lp.rec_ln)
+            x = constrain(common.apply_norm(cfg, h, lp.rec_ln), "inner")
             state = {"h": cache["rec"]["h"][j],
                      "conv": cache["rec"]["conv"][j]}
             y = rglru.rglru_decode_step(cfg, lp.rec, state, x[:, 0])
-            h = _rec_mlp(cfg, lp, h + y[:, None])
+            h = _rec_mlp(cfg, lp, h + shard_ops.like(y[:, None], h),
+                         constrain)
+        h = constrain(h, "carry")
     return h
 
 
@@ -546,30 +548,35 @@ def _slots(cfg: ModelConfig) -> List[Tuple[bool, int]]:
 
 # ------------------------------------------------------------------ prefill --
 def prefill(cfg: ModelConfig, params: _LM, tokens: torch.Tensor,
-            cache: Pytree, extra_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Pytree]:
+            cache: Pytree, extra_embeds: Optional[torch.Tensor] = None,
+            constrain=None) -> Tuple[torch.Tensor, Pytree]:
     """Process the prompt, fill the cache (in place), return last-position
-    logits (B, 1, V)."""
-    h = embed_tokens(cfg, params, tokens, extra_embeds)
+    logits (B, 1, V).  ``constrain``: the sharding hook of
+    ``forward_hidden``, applied at the same points (and to the hidden
+    state before the head, "inner")."""
+    constrain = constrain or _identity
+    h = constrain(embed_tokens(cfg, params, tokens, extra_embeds), "carry")
     s = h.shape[1]
     positions = torch.arange(s, device=h.device)
     if cfg.family == "hybrid":
-        h = _hybrid_forward(cfg, params, h, positions, cache)
+        h = _hybrid_forward(cfg, params, h, positions, cache,
+                            constrain=constrain)
     elif cfg.family == "ssm":
         # The chunked form for the outputs, then each layer's final state
         # by the reference's per-token recurrence.
         for i, lp in enumerate(params.layers):
-            x = common.apply_norm(cfg, h, lp.ln1)
+            x = constrain(common.apply_norm(cfg, h, lp.ln1), "inner")
             y = ssd.ssd_forward(cfg, lp.mix, x)
             ssd.ssd_final_state(cfg, lp.mix, x, _ssd_state(cache, i))
-            h = h + y
+            h = constrain(h + shard_ops.like(y, h), "carry")
     else:
         windows, thetas = layer_schedule(cfg)
         windowed = "kg" in cache
         slots = _slots(cfg) if windowed else None
         for i, (lp, w, th) in enumerate(zip(params.layers, windows,
                                             thetas)):
-            q, k, v = _attend(cfg, lp.attn, lp.ln1, h, positions, float(th))
+            q, k, v = _attend(cfg, lp.attn, lp.ln1, h, positions, float(th),
+                              constrain)
             if not windowed:
                 attn.update_cache(cache["k"][i], cache["v"][i], k, v, 0)
             elif slots[i][0]:
@@ -578,10 +585,10 @@ def prefill(cfg: ModelConfig, params: _LM, tokens: torch.Tensor,
             else:
                 attn.update_cache(cache["kg"][slots[i][1]],
                                   cache["vg"][slots[i][1]], k, v, 0)
-            h = _finish(cfg, lp, h, _full_attention(cfg, q, k, v,
-                                                    int(w)))[0]
+            h = constrain(_finish(cfg, lp, h, _full_attention(
+                cfg, q, k, v, int(w)), constrain)[0], "carry")
     cache["pos"] = s
-    return lm_logits(cfg, params, h[:, -1:]), cache
+    return lm_logits(cfg, params, constrain(h, "inner")[:, -1:]), cache
 
 
 def _write_ring(buf: torch.Tensor, x: torch.Tensor, s: int) -> None:
@@ -592,40 +599,46 @@ def _write_ring(buf: torch.Tensor, x: torch.Tensor, s: int) -> None:
     if tail.shape[1] < win:
         buf.zero_()
         buf[:, :tail.shape[1]] = tail
-    else:
-        buf.copy_(torch.roll(tail, s % win, dims=1))
+    else:   # torch.roll(tail, s % win, dims=1), which DTensor cannot split
+        r = s % win
+        buf.copy_(torch.cat([tail[:, win - r:], tail[:, :win - r]], dim=1))
 
 
 # --------------------------------------------------------------- decode ------
 def decode_step(cfg: ModelConfig, params: _LM, cache: Pytree,
-                token: torch.Tensor) -> Tuple[torch.Tensor, Pytree]:
+                token: torch.Tensor, constrain=None
+                ) -> Tuple[torch.Tensor, Pytree]:
     """One decode step for the whole batch.  token (B,) -> logits (B, V);
-    the cache is updated in place."""
+    the cache is updated in place.  ``constrain`` as in ``prefill``."""
+    constrain = constrain or _identity
     pos = int(cache["pos"])
-    h = common.embed_lookup(params.embed, token[:, None]).to(
-        cfg.compute_dtype)                                   # (B, 1, d)
+    h = constrain(common.embed_lookup(params.embed, token[:, None]).to(
+        cfg.compute_dtype), "carry")                         # (B, 1, d)
     if cfg.family == "hybrid":
-        h = _hybrid_decode(cfg, params, cache, h)
+        h = _hybrid_decode(cfg, params, cache, h, constrain)
     elif cfg.family == "ssm":
         for i, lp in enumerate(params.layers):
-            x = common.apply_norm(cfg, h, lp.ln1)
-            h = h + ssd.ssd_decode_step(cfg, lp.mix, _ssd_state(cache, i),
-                                        x[:, 0])[:, None]
+            x = constrain(common.apply_norm(cfg, h, lp.ln1), "inner")
+            y = ssd.ssd_decode_step(cfg, lp.mix, _ssd_state(cache, i),
+                                    x[:, 0])[:, None]
+            h = constrain(h + shard_ops.like(y, h), "carry")
     else:
-        h = _attention_decode(cfg, params, cache, h, pos)
+        h = _attention_decode(cfg, params, cache, h, pos, constrain)
     cache["pos"] = pos + 1
-    return lm_logits(cfg, params, h)[:, 0], cache
+    return lm_logits(cfg, params, constrain(h, "inner"))[:, 0], cache
 
 
 def _attention_decode(cfg: ModelConfig, params: DecoderLM, cache: Pytree,
-                      h: torch.Tensor, pos: int) -> torch.Tensor:
+                      h: torch.Tensor, pos: int,
+                      constrain=_identity) -> torch.Tensor:
     """The uniform attention stack's decode (both cache layouts)."""
     positions = torch.tensor([pos], device=h.device)
     windows, thetas = layer_schedule(cfg)
     windowed = "kg" in cache
     slots = _slots(cfg) if windowed else None
     for i, (lp, w, th) in enumerate(zip(params.layers, windows, thetas)):
-        q, k, v = _attend(cfg, lp.attn, lp.ln1, h, positions, float(th))
+        q, k, v = _attend(cfg, lp.attn, lp.ln1, h, positions, float(th),
+                          constrain)
         if windowed and slots[i][0]:
             kc, vc = cache["kl"][slots[i][1]], cache["vl"][slots[i][1]]
             win = kc.shape[1]
@@ -641,14 +654,20 @@ def _attention_decode(cfg: ModelConfig, params: DecoderLM, cache: Pytree,
             attn.update_cache(kc, vc, k, v, pos)
             o = attn.decode_attention(q, kc, vc, pos, window=int(w),
                                       softcap=cfg.logit_softcap)
-        h = _finish(cfg, lp, h, o)[0]
+        h = constrain(_finish(cfg, lp, h, o, constrain)[0], "carry")
     return h
 
 
 def _ring_decode_attn(q, kc, vc, valid_len: int, softcap: float = 0.0):
     """Decode attention over a ring-buffer window cache (positions are
     unordered in the buffer; all valid slots attend: the window is kept by
-    eviction).  Only the ``valid_len`` filled slots are read."""
+    eviction).  Only the ``valid_len`` filled slots are read.  DTensors go
+    through ``shard_ops.decode_attention`` (local shards)."""
+    if shard_ops.is_sharded(q):
+        return shard_ops.decode_attention(
+            lambda q_, k_, v_: _ring_decode_attn(q_, k_, v_, valid_len,
+                                                 softcap),
+            q, kc, vc, valid_len, softcap=softcap)
     b, _, hh, hd = q.shape
     kv = kc.shape[2]
     g = hh // kv

@@ -6,7 +6,8 @@ same seed gives the same draws in both packages:
 
   PRNGKey, split, fold_in, key_data          key algebra
   uniform, bernoulli, rademacher, randint,   draws
-  normal_plain, normal_bf16_plain, choice,
+  normal_plain, normal_bf16_plain,
+  normal_window, choice,
   gumbel, categorical, permutation
   one_hot                                    jax.nn.one_hot
 
@@ -437,13 +438,68 @@ def normal_bf16_plain(key: torch.Tensor, shape: Shape,
                     lambda bits: table[(bits >> 1) & 0x7F])
 
 
-def normal_bf16_window(key: torch.Tensor, start: int, count: int,
-                       device) -> torch.Tensor:
-    """Draws start .. start + count - 1 of a bfloat16 normal draw of
-    ``key`` of any shape (flat index i hashes counter i), on any device: a
-    window of a large draw without the whole of it."""
-    table = normal_bf16_table().to(device)
-    return table[(_bits(key, start, count, device) >> 1) & 0x7F]
+Box = Sequence[Tuple[int, int]]
+
+
+def check_box(shape: Tuple[int, ...], box: Box) -> Tuple[Tuple[int, int],
+                                                          ...]:
+    """``box`` as (start, size) int pairs, one a dim of ``shape``, each
+    inside its dim; raises ValueError otherwise."""
+    box = tuple((int(s), int(n)) for s, n in box)
+    if len(box) != len(shape) or any(
+            s < 0 or n < 0 or s + n > d for (s, n), d in zip(box, shape)):
+        raise ValueError(f"box {box} does not lie in shape {shape}")
+    return box
+
+
+def box_counters(shape: Tuple[int, ...], box: Box, start: int,
+                 count: int, device) -> torch.Tensor:
+    """The flat counters in ``shape`` (int64) of the box's elements
+    start .. start + count - 1, in the box's row-major order."""
+    i = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    flat = torch.zeros_like(i)
+    stride = 1
+    for (lo, n), dim in zip(reversed(box), reversed(shape)):
+        flat += (i % n + lo) * stride
+        i = i // n
+        stride *= dim
+    return flat
+
+
+def normal_window(key: torch.Tensor, shape: Shape, box: Box,
+                  dtype: torch.dtype = torch.float32,
+                  device=None) -> torch.Tensor:
+    """The box of ``jax.random.normal(key, shape, dtype)`` (float32 or
+    bfloat16), without the rest of it: ``box`` holds a (start, size) pair
+    a dim of ``shape``, and the element at each index of the box takes the
+    64-bit counter of its flat index in the whole ``shape`` (jax's
+    partitionable threefry, so a shard of a sharded draw is a box).  The
+    box is drawn chunk by chunk.  The entry point is
+    ``kernels.ops.normal_window``, which takes this on the CPU."""
+    device = resolve_device(device)
+    shape = _shape(shape)
+    box = check_box(shape, box)
+    if dtype == torch.float32:
+        def fn(bits):
+            return normal_of_mantissas(bits >> 9)
+    elif dtype == torch.bfloat16:
+        table = normal_bf16_table().to(device)
+
+        def fn(bits):
+            return table[(bits >> 1) & 0x7F]
+    else:
+        raise ValueError(f"normal_window: dtype must be float32 or "
+                         f"bfloat16, got {dtype}")
+    sizes = tuple(n for _, n in box)
+    size = math.prod(sizes)
+    k0, k1 = _words(key)
+    out = torch.empty(size, dtype=dtype, device=device)
+    for start in range(0, size, CHUNK):
+        count = min(CHUNK, size - start)
+        c = box_counters(shape, box, start, count, device)
+        y0, y1 = _threefry2x32(k0, k1, c >> 32, c & M32)
+        out[start:start + count] = fn(y0 ^ y1)
+    return out.reshape(sizes)
 
 
 def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:

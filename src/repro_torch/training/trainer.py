@@ -47,10 +47,11 @@ from repro_torch.distributed import shard_ops
 from repro_torch.distributed.collectives import (compressed_resilient_psum,
                                                  resilient_psum)
 from repro_torch.distributed.sharding import (activation_constraint,
-                                              batch_shardings, distribute,
+                                              batch_shardings, coordinates,
+                                              distribute, from_local,
                                               opt_state_shardings,
-                                              param_shardings, placements,
-                                              whole)
+                                              param_boxes, param_shardings,
+                                              placements, whole)
 from repro_torch.models import common
 from repro_torch.models.registry import ModelBundle, ShapeSpec, build
 from repro_torch.optim import adamw
@@ -226,25 +227,31 @@ class Trainer:
 
     def init_state(self) -> Tuple[nn.Module, adamw.AdamWState]:
         """The model from PRNGKey(seed) on the trainer's device, trainable,
-        and a fresh AdamW state."""
+        and a fresh AdamW state.  On a mesh, each rank draws only its own
+        shards (``_sharded_state``)."""
+        if self.mesh is not None:
+            return self._sharded_state()
         params = self.bundle.init(prng.PRNGKey(self.cfg.seed),
                                   device=self.device)
-        if self.mesh is not None:
-            return self._shard_state(params.tree)
         params.requires_grad_(True)
         return params, adamw.init(params.tree)
 
-    def _shard_state(self, tree: Pytree
-                     ) -> Tuple[nn.Module, adamw.AdamWState]:
-        """The model of a whole parameter tree (the same on every rank)
-        laid out on the mesh, and a zero AdamW state in the moments'
-        layout."""
+    def _sharded_state(self) -> Tuple[nn.Module, adamw.AdamWState]:
+        """The model laid out on the mesh, as the reference's
+        ``jax.jit(init, out_shardings=...)`` builds it: this rank's boxes
+        of every leaf drawn alone (``bundle.init_local``: the same bits as
+        the whole init's, no leaf made whole), each wrapped as its DTensor
+        with no communication; and a zero AdamW state in the moments'
+        layout (local zeros)."""
         from torch.distributed.tensor import zeros as dzeros
         dm = self.device_mesh
+        boxes = param_boxes(self.bundle, self.mesh, coordinates(dm))
+        local = dict(common.flatten(self.bundle.init_local(
+            prng.PRNGKey(self.cfg.seed), boxes, self.device)))
         shard = dict(common.flatten(self.p_shard))
         dtree = common.unflatten([
-            (path, distribute(leaf.detach(), shard[path], dm))
-            for path, leaf in common.flatten(tree)])
+            (path, from_local(local[path], shard[path], dm, spec.shape))
+            for path, spec in common.flatten(self.bundle.specs())])
         params = build(self.mcfg, dtree)
         params.requires_grad_(True)
 

@@ -91,11 +91,13 @@ def mesh_train(rank: int, world: int, port: int, out: str, shape, steps,
     ``shape`` over all ranks: ``steps`` steps from step 0, checkpoints
     every ``ckpt_every`` into ``ckpt_dir``; with ``restore``, first the
     latest checkpoint (written on any mesh) restored onto this one and
-    the run continued from it.  Rank 0 writes the history, and whether
-    ``init_state`` built every leaf whole (its global shape) on this rank
-    before slicing it, while the leaves it kept are shards (ROADMAP
-    Queue 3: the mesh trainer's init holds the whole model on each
-    rank)."""
+    the run continued from it.  Every rank writes ``init<rank>.pt``: the
+    shapes of the leaves ``init_state`` drew on it (through
+    ``bundle.init_local``) beside their local shapes under the policy,
+    and whether each shard equals its slice of the unsharded init, bit
+    for bit; rank 0 also writes the history."""
+    from repro_torch import prng
+    from repro_torch.distributed.sharding import local_shape
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import common
     from repro_torch.training import trainer as tr
@@ -106,26 +108,116 @@ def mesh_train(rank: int, world: int, port: int, out: str, shape, steps,
                            ckpt_every=ckpt_every)
     t = tr.Trainer(cfg, device="cpu", mesh=make_mesh(shape,
                                                      ("data", "model")))
-    built, init = [], t.bundle.init
+    built, init_local = [], t.bundle.init_local
 
     def recording_init(*args, **kwargs):
-        model = init(*args, **kwargs)
-        built.extend(leaf.shape for _, leaf in common.flatten(model.tree))
-        return model
-    t.bundle.init = recording_init
+        tree = init_local(*args, **kwargs)
+        built.extend(tuple(leaf.shape) for _, leaf in common.flatten(tree))
+        return tree
+    t.bundle.init_local = recording_init
     params, opt = t.init_state()
-    specs = [s.shape for _, s in common.flatten(t.bundle.specs())]
-    leaves = [leaf for _, leaf in common.flatten(params.tree)]
-    init_whole = [tuple(b) for b in built] == [tuple(s) for s in specs]
-    sharded = any(tuple(leaf.to_local().shape) != tuple(leaf.shape)
-                  for leaf in leaves)
+    shard = dict(common.flatten(t.p_shard))
+    want = [local_shape(s.shape, shard[path].spec, t.mesh)
+            for path, s in common.flatten(t.bundle.specs())]
+    whole = dict(common.flatten(t.bundle.init(prng.PRNGKey(cfg.seed),
+                                              device="cpu").tree))
+    equal = []
+    for path, leaf in common.flatten(params.tree):
+        full = whole[path].detach()
+        for dim, (start, size) in enumerate(_box(leaf)):
+            full = full.narrow(dim, start, size)
+        local = leaf.to_local().detach()
+        equal.append(torch.equal(local.view(torch.int32),
+                                 full.contiguous().view(torch.int32)))
+    torch.save({"built": built, "local_shapes": want, "equal": equal},
+               os.path.join(out, f"init{rank}.pt"))
     start = 0
     if restore:
         start = t.ckpt.latest_step()
         opt = t.restore(start, params, opt)
     _, _, hist = t.run(params, opt, start)
     if rank == 0:
-        torch.save({"hist": hist, "init_whole": init_whole,
-                    "kept_shards": sharded},
-                   os.path.join(out, f"rank{rank}.pt"))
+        torch.save({"hist": hist}, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _box(dtensor):
+    """A DTensor's local (start, size) a dim."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        dtensor.shape, dtensor.device_mesh, dtensor.placements)
+    return list(zip(offset, shape))
+
+
+def shard_ops_cases(rank: int, world: int, port: int, out: str):
+    """``shard_ops.decode_attention`` (the cache split by kv heads, by its
+    sequence over "model", and over both mesh dims as a long-context
+    cache is; the plain decode and the ring buffer's),
+    ``shard_ops.ssd_scan``, ``ssd_readout`` and ``split_matmul`` (forward
+    and gradients) on a 2 x 2 ("data", "model") mesh of float32
+    DTensors against the plain functions on the whole inputs: the
+    largest gap of each, relative to max |plain|."""
+    import numpy as np
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.distributed import shard_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention, ssd, transformer
+    _join(rank, world, port)
+    dm = make_mesh((2, 2), ("data", "model")).device_mesh("cpu")
+    rng = np.random.default_rng(0)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def put(t, *pl):
+        return distribute_tensor(t, dm, list(pl), src_data_rank=None)
+
+    def gap(got, want):
+        return float((got.full_tensor() - want).abs().max() /
+                     want.abs().max())
+    r, s0, s1, s2 = Replicate(), Shard(0), Shard(1), Shard(2)
+    gaps = {}
+    q, k, v = arr(4, 1, 4, 8), arr(4, 16, 2, 8), arr(4, 16, 2, 8)
+    layouts = {"kv_heads": ((s0, s2), (s0, s2)),
+               "sequence": ((s0, s1), (s0, r)),
+               "long_context": ((s1, s1), (r, r))}
+    for name, (kv_pl, q_pl) in layouts.items():
+        for pos, window, cap in ((9, 0, 0.0), (5, 0, 0.0), (12, 4, 5.0)):
+            want = attention.decode_attention(q, k, v, pos, window=window,
+                                              softcap=cap)
+            got = attention.decode_attention(
+                put(q, *q_pl), put(k, *kv_pl), put(v, *kv_pl), pos,
+                window=window, softcap=cap)
+            gaps[f"decode/{name}/{pos}/{window}"] = gap(got, want)
+        want = transformer._ring_decode_attn(q, k, v, 11, softcap=3.0)
+        got = transformer._ring_decode_attn(put(q, *q_pl), put(k, *kv_pl),
+                                            put(v, *kv_pl), 11, softcap=3.0)
+        gaps[f"ring/{name}"] = gap(got, want)
+    xh, dt, bm, cm = arr(4, 32, 4, 8), arr(4, 32, 4).abs(), arr(4, 32, 16), \
+        arr(4, 32, 16)
+    a, skip = -arr(4).abs(), arr(4)
+    want = ssd._chunked_scan(xh, dt, a, bm, cm, skip, 8)
+    got = shard_ops.ssd_scan(ssd._chunked_scan, put(xh, s0, s2),
+                             put(dt, s0, s2), put(a, r, s0),
+                             put(bm, s0, r), put(cm, s0, r),
+                             put(skip, r, s0), 8)
+    gaps["ssd_scan"] = gap(got, want)
+    st, c = arr(4, 4, 8, 16), arr(4, 16)
+    gaps["ssd_readout"] = gap(
+        shard_ops.ssd_readout(put(st, s0, s2), put(c, s0, r)),
+        torch.einsum("bhpn,bn->bhp", st, c))
+    x, w, g = arr(4, 6, 8), arr(8, 6), arr(4, 6, 6)
+    xd = put(x, s0, s2).requires_grad_()
+    wd = put(w, r, s0).requires_grad_()
+    y = shard_ops.split_matmul(xd, wd)
+    (y.full_tensor() * g).sum().backward()
+    gaps["split_matmul"] = gap(y, x @ w)
+    gaps["split_matmul_dx"] = gap(xd.grad, g @ w.T)
+    gaps["split_matmul_dw"] = gap(wd.grad, x.reshape(-1, 8).T @
+                                  g.reshape(-1, 6))
+    gaps["ssd_scan_layout"] = [getattr(p, "dim", None)
+                               for p in got.placements]
+    if rank == 0:
+        torch.save(gaps, os.path.join(out, "rank0.pt"))
     dist.destroy_process_group()

@@ -97,6 +97,7 @@ def test_launches_are_counted(cuda):
                            torch.zeros(8, device=cuda),
                            torch.zeros(2, dtype=torch.bool, device=cuda))
     ops.normal(prng.PRNGKey(0), (5,), cuda)
+    ops.normal_window(prng.PRNGKey(0), (5, 4), ((1, 2), (0, 4)), cuda)
     ops.randint(prng.PRNGKey(0), (5,), 0, 3, device=cuda)
     ops.uniform(prng.PRNGKey(0), (0,), device=cuda)     # nothing to launch
     ops.rademacher(prng.PRNGKey(0), (5,), device=cuda)
@@ -108,7 +109,8 @@ def test_launches_are_counted(cuda):
                                    "sketch_gram_sjlt": 0,
                                    "sketch_gram_srht": 0,
                                    "fwht": 1, "fwht_two_pass": 1,
-                                   "normal": 1, "draw": 2}
+                                   "normal": 1, "normal_window": 1,
+                                   "draw": 2}
 
 
 # Past b ~ 1,700 no (b x 32) shared-memory tile fits: the apply's sort
@@ -999,11 +1001,38 @@ def test_normal_bf16_counters_past_two_to_the_32(cuda):
     size = (1 << 32) + 4096
     got = ops.normal(key, (size,), cuda, dtype=torch.bfloat16)
     for start in (0, (1 << 32) - 2048, size - 4096):
-        want = prng.normal_bf16_window(key, start, 4096, cuda)
+        want = prng.normal_window(key, (size,), ((start, 4096),),
+                                  torch.bfloat16, cuda)
         assert torch.equal(got[start:start + 4096].view(torch.int16),
                            want.view(torch.int16))
     del got
     torch.cuda.empty_cache()
+
+
+# Boxes of the window mode: split on dims 1 and 3 (the MoE expert leaves'
+# layout), past counter 2^32 (the 235B expert leaf, 7.57e10 draws), and a
+# whole leaf.
+WINDOW_CASES = [((8, 128, 64, 96), ((0, 8), (32, 32), (0, 64), (48, 48))),
+                ((94, 128, 4096, 1536),
+                 ((93, 1), (96, 32), (0, 2048), (1152, 384))),
+                ((3, 5, 700), ((0, 3), (0, 5), (0, 700)))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,box", WINDOW_CASES)
+def test_normal_window_mode_is_the_plain_window(cuda, shape, box, dtype):
+    """The window mode against ``prng.normal_window`` on the card, every
+    bit, one launch; a whole box equals the whole draw's launch."""
+    key = prng.PRNGKey(9)
+    ops.reset_launch_counts()
+    got = ops.normal_window(key, shape, box, cuda, dtype=dtype)
+    assert ops.launch_counts()["normal_window"] == 1
+    want = prng.normal_window(key, shape, box, dtype, cuda)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
+    if all(s == 0 and n == d for (s, n), d in zip(box, shape)):
+        assert torch.equal(got.view(bits), ops.normal(
+            key, shape, cuda, dtype=dtype).view(bits))
 
 
 # ------------------------------------ the MoE, SSM, hybrid, encdec families

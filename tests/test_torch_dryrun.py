@@ -10,9 +10,12 @@ the counted flops per chip inside ``dryrun.expected_band`` of
 (``analytic.cell_costs``) under the port's own rules (every key chunk
 attended, the two-level remat's passes, the one-hot backward; the rules
 are in its docstring; the XLA counts of the reference's dry run count a
-loop body once and are no yardstick).  A train step's band is
-``FLOPS_TOL`` wide, and a planted miscount (the remat switched off: a
-third fewer forward passes) falls outside it.  The same subprocess
+loop body once and are no yardstick).  Every step's band is
+``FLOPS_TOL`` wide (prefill's and decode's too: their layouts are
+pinned), and a planted miscount (the remat switched off: a third fewer
+forward passes) falls outside it; so is a decode whose cache splits its
+sequence.  mamba2's train cell on a 3-D mesh runs in a subprocess of its
+own, in a minute.  The same subprocess
 checks the collective recorder on one known all-gather and the flops of
 one sharded product.
 Skip rules, ``active_param_count`` and ``sharded_param_bytes`` equal the
@@ -52,6 +55,9 @@ def _reference_dryrun():
     return dryrun
 CELLS = [("qwen3-4b", "train_4k"), ("qwen3-moe-30b-a3b", "decode_32k"),
          ("mamba2-780m", "long_500k"), ("recurrentgemma-2b", "prefill_32k")]
+# A decode whose cache splits its sequence over "model" (kv heads 2 on a
+# model axis of 4): decode attention's softmax combined across ranks.
+SEQ_SPLIT = ("qwen3-4b", "decode_32k", (2, 4))
 
 _SUB = """
 import json
@@ -69,6 +75,10 @@ for arch, shape in CELLS:
                            mesh=make_mesh((4, 2), ("data", "model")),
                            verbose=False)
     out["cells"][arch + "|" + shape] = info
+arch, shape, mesh = SEQ_SPLIT
+out["seq_split"] = dryrun.run_cell(arch, shape,
+                                   mesh=make_mesh(mesh, ("data", "model")),
+                                   verbose=False)
 
 from repro_torch.models import transformer
 
@@ -105,7 +115,7 @@ print("JSON" + json.dumps(out, default=str))
 
 @pytest.fixture(scope="module")
 def cells():
-    code = f"CELLS = {CELLS!r}\n" + _SUB
+    code = f"CELLS = {CELLS!r}\nSEQ_SPLIT = {SEQ_SPLIT!r}\n" + _SUB
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=600)
@@ -141,6 +151,53 @@ def test_reduced_mesh_cell(cells, arch, shape):
     assert a["expected_flops_per_chip"] * a["counted_over_expected"] == \
         pytest.approx(info["flops_per_chip"], rel=1e-12)
     assert info["flops_per_chip"] > 0 and info["bytes_per_chip"] > 0
+
+
+def test_serving_cells_are_held_to_the_train_band(cells):
+    """Prefill and decode run with their layouts pinned (the activation
+    constraint threaded through ``bundle.prefill``/``decode``, decode
+    attention on local shards), so their band is the train step's 1 -+
+    FLOPS_TOL, and a decode whose cache splits its sequence counts
+    within it too."""
+    tol = tdryrun.FLOPS_TOL
+    infos = [cells["cells"][f"{a}|{s}"] for a, s in CELLS
+             if s != "train_4k"] + [cells["seq_split"]]
+    assert len(infos) == 4
+    for info in infos:
+        a = info["analytic"]
+        assert tuple(a["expected_band"]) == (1 - tol, 1 + tol)
+        assert abs(a["counted_over_expected"] - 1) <= tol, info["arch"]
+    assert cells["seq_split"]["mesh"] == {"data": 2, "model": 4}
+
+
+_THREE_D = """
+import json
+from repro_torch.configs import smoke_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.registry import _REGISTRY
+cfg = smoke_config("mamba2-780m").scaled(max_seq=40_000)
+_REGISTRY["mamba2-780m"] = lambda: cfg
+info = dryrun.run_cell("mamba2-780m", "train_4k", mesh=make_mesh(
+    (2, 2, 2), ("pod", "data", "model")), verbose=False)
+print("JSON" + json.dumps(info["analytic"], default=str))
+"""
+
+
+def test_ssm_train_cell_on_a_three_dim_mesh():
+    """mamba2-780m x train_4k on a 2 x 2 x 2 ("pod", "data", "model") mesh
+    at smoke width finishes within 60 s (its SSD scan runs on local
+    shards: DTensor's own rules planned a strided batch split for
+    minutes) and counts within the band."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", _THREE_D],
+                         capture_output=True, text=True, env=env,
+                         timeout=60)
+    assert out.returncode == 0, out.stderr[-3000:]
+    a = json.loads([ln for ln in out.stdout.splitlines()
+                    if ln.startswith("JSON")][-1][4:])
+    lo, hi = a["expected_band"]
+    assert lo <= a["counted_over_expected"] <= hi
 
 
 def test_train_flops_gate_is_tight(cells):

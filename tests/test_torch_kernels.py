@@ -263,7 +263,8 @@ def test_launch_counts_reset():
     assert set(ops.KERNELS) == {"sketch_gram_count", "count_sketch_apply",
                                 "oversketch_gram", "coded_block_matvec",
                                 "sketch_gram_sjlt", "sketch_gram_srht",
-                                "fwht", "fwht_two_pass", "normal", "draw"}
+                                "fwht", "fwht_two_pass", "normal",
+                                "normal_window", "draw"}
 
 
 # (K, s, n, b) -> sort chunks: one per ~8,192 entries, 1 to 64.

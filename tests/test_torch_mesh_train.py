@@ -10,8 +10,8 @@ The losses and grad norms are held within 1e-5 relative to the
 reference's same run, and to the port's unsharded trainer doing the same
 (6 steps, then the step-6 checkpoint restored onto no mesh: elastic
 restore onto another layout).  Also the launcher's ``--mesh`` on a
-one-rank mesh, and the mesh trainer's init's limit: every rank builds
-the whole model before it keeps its shards.
+one-rank mesh, and the mesh trainer's init: every rank draws only its
+own shards, each equal to its slice of the unsharded init.
 """
 import json
 import os
@@ -24,6 +24,8 @@ import torch
 import torch.multiprocessing as mp
 
 from repro_torch import configs as tconfigs
+from repro_torch.models import common as tcommon
+from repro_torch.models import registry as tregistry
 from repro_torch.training import trainer as ttrainer
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -72,7 +74,10 @@ def _spawn_mesh(world, shape, steps, ckpt, restore, out):
     mp.spawn(_torch_dist.mesh_train,
              args=(world, _free_port(), out, shape, steps, ckpt, 3, restore),
              nprocs=world, join=True)
-    return torch.load(os.path.join(out, "rank0.pt"))
+    rank0 = torch.load(os.path.join(out, "rank0.pt"))
+    rank0["init"] = [torch.load(os.path.join(out, f"init{r}.pt"))
+                     for r in range(world)]
+    return rank0
 
 
 @pytest.fixture(scope="module")
@@ -90,7 +95,8 @@ def runs(tmp_path_factory):
     ckpt = str(root / "ckpt")
     rank0 = _spawn_mesh(8, (4, 2), 6, ckpt, False, str(root / "a"))
     mesh1 = rank0["hist"]
-    mesh2 = _spawn_mesh(4, (2, 2), 8, ckpt, True, str(root / "b"))["hist"]
+    second = _spawn_mesh(4, (2, 2), 8, ckpt, True, str(root / "b"))
+    mesh2 = second["hist"]
     steps = sorted(int(d.split("-")[1]) for d in os.listdir(ckpt)
                    if d.startswith("step-"))
 
@@ -112,7 +118,8 @@ def runs(tmp_path_factory):
     assert ref.returncode == 0, err[-3000:]
     ref1, ref2 = json.loads(out.strip().splitlines()[-1])
     return {"mesh": (mesh1, mesh2), "plain": (plain1, plain2),
-            "ref": (ref1, ref2), "ckpt_steps": steps, "rank0": rank0}
+            "ref": (ref1, ref2), "ckpt_steps": steps,
+            "init": {"4x2": rank0["init"], "2x2": second["init"]}}
 
 
 def _close(have, want, what):
@@ -142,14 +149,26 @@ def test_mesh_run_matches_the_unsharded_trainer(runs):
     _close(m2, p2, "2x2 vs unsharded restore")
 
 
-def test_mesh_init_builds_the_whole_model_on_each_rank(runs):
-    """The limit this states (ROADMAP Queue 3): ``init_state`` on a mesh
-    draws every leaf whole on every rank (``bundle.init``), then keeps its
-    shards; the reference's jitted init with ``out_shardings`` builds
-    only each device's shards.  So the mesh trainer starts only a model
-    that fits one device whole, 235B-class models not at all."""
-    r0 = runs["rank0"]
-    assert r0["init_whole"] and r0["kept_shards"]
+@pytest.mark.parametrize("mesh", ["4x2", "2x2"])
+def test_mesh_init_draws_only_each_ranks_shards(runs, mesh):
+    """``init_state`` on a mesh draws, on every rank, each leaf at its
+    local shape under the policy and nothing whole (the reference's
+    ``jax.jit(init, out_shardings=...)`` builds only each device's
+    shards); the split leaves are smaller than whole."""
+    for rank in runs["init"][mesh]:
+        assert rank["built"] == [tuple(s) for s in rank["local_shapes"]]
+    specs = [s.shape for _, s in tcommon.flatten(
+        tregistry.ModelBundle(tconfigs.smoke_config("qwen3-4b")).specs())]
+    assert any(tuple(b) != tuple(s) for b, s in zip(
+        runs["init"][mesh][0]["built"], specs))
+
+
+@pytest.mark.parametrize("mesh", ["4x2", "2x2"])
+def test_mesh_init_shards_are_the_unsharded_init_sliced(runs, mesh):
+    """Every rank's shard of every leaf equals its slice of the unsharded
+    init, bit for bit (the window draws hash the whole leaf's counters)."""
+    for rank in runs["init"][mesh]:
+        assert rank["equal"] and all(rank["equal"])
 
 
 def test_launch_train_mesh_one_rank(capsys, tmp_path):

@@ -356,3 +356,65 @@ def test_one_hot_matches_jax():
     np.testing.assert_array_equal(
         prng.one_hot(torch.from_numpy(x), 10).numpy(),
         np.asarray(jax.nn.one_hot(jnp.asarray(x), 10)))
+
+
+# A leaf split on a dim past the leading one, on two dims, and whole.
+WINDOW_BOXES = [((0, 4), (0, 6), (0, 10)), ((0, 4), (3, 3), (0, 10)),
+                ((1, 2), (0, 6), (5, 5)), ((2, 1), (4, 2), (7, 3))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("box", WINDOW_BOXES)
+def test_normal_window_is_the_box_of_jax_draw(dtype, box):
+    """``prng.normal_window`` and ``ops.normal_window`` on the CPU equal
+    the same box of ``jax.random.normal(key, shape, dtype)``, bit for
+    bit."""
+    jk, tk = _pair(31)
+    shape = (4, 6, 10)
+    want = np.asarray(jax.random.normal(jk, shape, getattr(jnp, dtype))
+                      .astype(jnp.float32))[tuple(slice(s, s + n)
+                                                  for s, n in box)]
+    tdt = getattr(torch, dtype)
+    for got in (prng.normal_window(tk, shape, box, tdt, "cpu"),
+                ops.normal_window(tk, shape, box, "cpu", dtype=tdt)):
+        assert got.dtype == tdt and tuple(got.shape) == want.shape
+        np.testing.assert_array_equal(got.float().numpy().view(np.uint32),
+                                      want.view(np.uint32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normal_window_past_two_to_the_32(dtype):
+    """Boxes of a (94, 128, 4,096, 1,536) leaf (qwen3-moe-235b-a22b's
+    expert leaf: 7.57e10 draws), split on dims 1 and 3, one of them at
+    counters past 2^32: each row of the box is the plain hash of its
+    flat counters."""
+    tk = prng.PRNGKey(7)
+    shape = (94, 128, 4096, 1536)
+    strides = (128 * 4096 * 1536, 4096 * 1536, 1536, 1)
+    table = prng.normal_bf16_table()
+    bits_of = torch.int32 if dtype == torch.float32 else torch.int16
+    far = ((93, 1), (120, 2), (4094, 2), (1152, 384))
+    assert prng.box_counters(shape, far, 0, 1, "cpu").item() > 1 << 32
+    for box in (far, ((1, 1), (64, 1), (0, 3), (0, 5))):
+        got = prng.normal_window(tk, shape, box, dtype, "cpu")
+        for i in range(box[1][1]):
+            for j in range(box[2][1]):
+                start = sum((s + o) * st for (s, _), o, st in zip(
+                    box, (0, i, j, 0), strides))
+                bits = prng._bits(tk, start, box[3][1], "cpu")
+                want = prng.normal_of_mantissas(bits >> 9) \
+                    if dtype == torch.float32 else table[(bits >> 1) & 0x7F]
+                assert torch.equal(got[0, i, j].view(bits_of),
+                                   want.view(bits_of))
+
+
+def test_normal_window_checks_its_box_and_device():
+    key = prng.PRNGKey(0)
+    for box in (((0, 3),), ((0, 2), (1, 3)), ((-1, 1), (0, 2))):
+        with pytest.raises(ValueError, match="does not lie in"):
+            ops.normal_window(key, (2, 3), box, "cpu")
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        ops.normal_window(key, (2, 3), ((0, 1), (0, 1)), "meta")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.normal_window(key, (2, 3), ((0, 1), (0, 1)), "cpu",
+                          dtype=torch.float16)

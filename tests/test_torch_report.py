@@ -139,7 +139,7 @@ def test_kernels_bench_cpu_rows(tmp_path):
         assert r["path"] == "plain" and r["device"] == "cpu"
         assert r["ms"] > 0 and r["shape"]
     assert [r["table_row"] for r in rows] == [1, 2, 3, 4, 5, 6, 7, 8, None,
-                                              None]
+                                              None, None]
     bench = os.path.join(REPO, "BENCH_kernels.json")
     before = open(bench, "rb").read() if os.path.exists(bench) else None
     with pytest.raises(SystemExit):
