@@ -252,6 +252,18 @@ with its seconds:
            gated under a tenth of the whole model's 470.19 GB), sub-boxes
            of each expert leaf at counters past 2^32 against
            prng.normal_window on the CPU, bit for bit
+  ckpt_sharded_30b
+           after mesh_init, the sharded checkpoint save as each rank of
+           the 4 x 2 mesh writes it: qwen3-moe-30b-a3b at its published
+           widths with the depth cut 48 -> 4 layers, each of the 8 ranks'
+           boxes drawn alone by bundle.init_local and written into the
+           shared files by checkpoint.manager.write_part at that rank's
+           coordinates, then freed (save seconds, GB written and device
+           peak a rank; the peak gated at the rank's shard bytes plus its
+           largest box plus 256 MiB); the files equal byte for byte to an
+           unsharded CheckpointManager.save of the same tree drawn whole
+           by the normal kernel; rank (3, 1)'s boxes read back
+           (manager.read_box) equal to its init_local bit for bit
   kernels_bench
            at the end, kernels_bench's rows (its bench_rows format) from
            this run's own kernel timings, written through kernels_bench's
@@ -263,8 +275,9 @@ with its seconds:
            train_4k on the 16 x 16 fake mesh and with --multi-pod, and
            with --smoke the reduced cells of tests/test_torch_dryrun.py
            at 4 x 2 (qwen3-4b train_4k, the MoE's decode_32k, mamba2's
-           long_500k, recurrentgemma's prefill_32k) and mamba2 train_4k
-           at 2 x 2 x 2, each a host process started after the build:
+           long_500k, recurrentgemma's prefill_32k), whisper's train_4k
+           and mamba2's prefill_32k at 4 x 2, and mamba2 train_4k at
+           2 x 2 x 2, each a host process started after the build:
            every field present, the counted flops per chip within 1 -+
            dryrun.FLOPS_TOL (0.2) of dryrun.expected_flops_per_chip
            (launch/analytic.py's parts under the port's rules; prefill
@@ -3440,7 +3453,11 @@ DRYRUN_SMOKE_CELLS = (("qwen3-4b", "train_4k", "4x2"),
                       ("qwen3-moe-30b-a3b", "decode_32k", "4x2"),
                       ("mamba2-780m", "long_500k", "4x2"),
                       ("recurrentgemma-2b", "prefill_32k", "4x2"),
-                      ("mamba2-780m", "train_4k", "2x2x2"))
+                      ("mamba2-780m", "train_4k", "2x2x2"),
+                      # the encoder-decoder loss's constraint on 2.11
+                      ("whisper-large-v3", "train_4k", "4x2"),
+                      # the SSD's state from the chunked scan
+                      ("mamba2-780m", "prefill_32k", "4x2"))
 
 
 def start_dryruns() -> list:
@@ -3928,6 +3945,161 @@ def run_mesh_init(ops, prng, dev) -> tuple:
     return paths, kernel_row
 
 
+CKPT_LAYERS = 4               # qwen3-moe-30b-a3b's 48 layers cut to 4
+CKPT_RANK = {"data": 3, "model": 1}   # the rank restored from the files
+CKPT_SLACK = 256 * 2**20      # a writing rank's device peak, past its data
+
+
+def same_bytes(a: str, b: str, chunk: int = 1 << 26) -> bool:
+    """Whether files ``a`` and ``b`` hold the same bytes."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as f, open(b, "rb") as g:
+        while True:
+            x = f.read(chunk)
+            if x != g.read(chunk):
+                return False
+            if not x:
+                return True
+
+
+def run_ckpt_sharded(ops, prng, dev) -> tuple:
+    """ckpt_sharded_30b: a sharded checkpoint save of qwen3-moe-30b-a3b's
+    parameters (published widths, CKPT_LAYERS layers) as the 4 x 2 mesh
+    of MESH_30B writes it, one rank at a time on the card: the rank's
+    boxes drawn by ``bundle.init_local`` (``sharding.param_boxes`` at its
+    coordinates), written by ``checkpoint.manager.write_part`` into the
+    files ``create_files`` made (each box by its first replica only),
+    then freed; ``publish`` last.  Gated: the files equal an unsharded
+    ``CheckpointManager.save`` of the tree drawn whole byte for byte;
+    rank CKPT_RANK's boxes read back by ``manager.read_box`` equal its
+    ``init_local`` bit for bit; each rank's device peak while it writes
+    at most its shard bytes plus its largest box plus CKPT_SLACK.
+    Returns ({run: launches}, the row)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager, manager
+    from repro_torch.distributed.sharding import param_boxes, resolve_pspec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.common import flatten
+    t_all = time.perf_counter()
+    short = f"{MOE_ARCH}-{CKPT_LAYERS}l"
+    registry._REGISTRY[short] = lambda: registry.get_config(
+        MOE_ARCH).scaled(num_layers=CKPT_LAYERS)
+    root = tempfile.mkdtemp(prefix="ckpt_sharded-")
+    try:
+        bundle = registry.get_bundle(short)
+        mesh = make_mesh(MESH_30B, ("data", "model"))
+        specs = {path: resolve_pspec(s.shape, s.axes, mesh)
+                 for path, s in flatten(bundle.specs())}
+        # the manager's leaf order (its names sorted as a save sorts them)
+        layout = [(name, tuple(t.shape), t.dtype) for name, t in
+                  manager._flatten_with_names(bundle.abstract())]
+        names = [name for name, _, _ in layout]
+        step, key = 1, prng.PRNGKey(SEED)
+        sharded = os.path.join(root, "sharded")
+        tmp = os.path.join(sharded, f".tmp-{step}")
+        t0 = time.perf_counter()
+        records = manager.create_files(tmp, layout)
+        create_s = time.perf_counter() - t0
+        ranks, paths = [], {}
+        ops.reset_launch_counts()
+        for d in range(MESH_30B[0]):
+            for m in range(MESH_30B[1]):
+                coords = {"data": d, "model": m}
+                base = torch.cuda.memory_allocated()
+                tree = dict(flatten(bundle.init_local(
+                    key, param_boxes(bundle, mesh, coords), dev)))
+                torch.cuda.synchronize()
+                sizes = [t.numel() * t.element_size() for t in tree.values()]
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                written = manager.write_part(
+                    tmp, [(tree[n], specs[n]) for n in names], mesh, coords)
+                seconds = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+                gate = sum(sizes) + max(sizes) + CKPT_SLACK
+                ranks.append({"coords": coords, "save_s": seconds,
+                              "gb_written": written / 1e9,
+                              "shard_gb": sum(sizes) / 1e9,
+                              "largest_box_gb": max(sizes) / 1e9,
+                              "write_peak_gib": peak / 2**30,
+                              "gate_gib": gate / 2**30})
+                del tree
+                torch.cuda.empty_cache()
+                if peak > gate:
+                    raise AssertionError(f"ckpt_sharded_30b: rank {coords} "
+                                         f"peaked at {peak / 2**30:.3f} GiB "
+                                         f"writing, past {gate / 2**30:.3f}")
+        t0 = time.perf_counter()
+        manager.publish(sharded, step, tmp, records)
+        publish_s = time.perf_counter() - t0
+        paths["ckpt_sharded_30b"] = ops.launch_counts()
+
+        # The same tree drawn whole, saved unsharded.
+        ops.reset_launch_counts()
+        whole = bundle.init(key, device=dev).tree
+        paths["ckpt_sharded_30b_whole"] = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CheckpointManager(os.path.join(root, "plain")).save(step, whole)
+        plain_s = time.perf_counter() - t0
+        del whole
+        torch.cuda.empty_cache()
+        ours = os.path.join(sharded, f"step-{step:08d}")
+        theirs = os.path.join(root, "plain", f"step-{step:08d}")
+        files = sorted(os.listdir(ours))
+        t0 = time.perf_counter()
+        differing = [f for f in files
+                     if not same_bytes(os.path.join(ours, f),
+                                       os.path.join(theirs, f))]
+        if files != sorted(os.listdir(theirs)):
+            differing.append("the file lists")
+        compare_s = time.perf_counter() - t0
+
+        # Rank CKPT_RANK's boxes read back against its own draw.
+        boxes = param_boxes(bundle, mesh, CKPT_RANK)
+        want = dict(flatten(bundle.init_local(key, boxes, dev)))
+        t0 = time.perf_counter()
+        unequal = []
+        for rec in records:
+            got = manager.read_box(os.path.join(ours, rec["file"]),
+                                   rec["dtype"], boxes[rec["name"]], dev,
+                                   torch.bfloat16)
+            if not torch.equal(got.view(torch.int16),
+                               want[rec["name"]].view(torch.int16)):
+                unequal.append(rec["name"])
+        restore_s = time.perf_counter() - t0
+        del want
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        registry._REGISTRY.pop(short, None)
+    row = {"phase": "ckpt_sharded_30b", "arch": MOE_ARCH,
+           "reduced": {"num_layers": [registry.get_config(
+               MOE_ARCH).num_layers, CKPT_LAYERS]},
+           "mesh": mesh.shape, "params": bundle.param_count(),
+           "whole_gb": bundle.param_count() * 2 / 1e9,
+           "leaves": len(records), "ranks": ranks,
+           "gb_written": sum(r["gb_written"] for r in ranks),
+           "create_s": create_s, "publish_s": publish_s,
+           "unsharded_save_s": plain_s, "compare_s": compare_s,
+           "files_byte_for_byte": not differing, "differing": differing,
+           "restored_rank": CKPT_RANK, "restore_s": restore_s,
+           "restored_bit_for_bit": not unequal,
+           "launches": {run: {k: c[k] for k in ("normal", "normal_window")}
+                        for run, c in paths.items()},
+           "seconds": time.perf_counter() - t_all}
+    emit(row)
+    if differing or unequal:
+        raise AssertionError(f"ckpt_sharded_30b: files differing "
+                             f"{differing}, restored leaves unequal "
+                             f"{unequal}")
+    return paths, row
+
+
 def write_kernels_bench(summary: list, rows: dict, shapes: dict,
                         smi: str) -> None:
     """kernels_bench's rows (``kernels_bench.bench_rows``, the bench's own
@@ -4227,6 +4399,9 @@ def main() -> int:
     # ranks' shards of qwen3-moe-235b-a22b.
     init_paths, rows["normal_window"] = run_mesh_init(ops, prng, dev)
     paths.update(init_paths)
+    torch.cuda.empty_cache()
+    # The sharded checkpoint save, every 4 x 2 rank's part on the card.
+    paths.update(run_ckpt_sharded(ops, prng, dev)[0])
     finish_dryruns(dryruns)
 
     # Each kernel's numbers at the shape its full-width path launches it:

@@ -387,13 +387,15 @@ def split_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------- SSD --
-def ssd_scan(plain: Callable, xh, dt, a, b_mat, c_mat, d_skip, q: int):
+def ssd_scan(plain: Callable, xh, dt, a, b_mat, c_mat, d_skip, q: int,
+             valid: Optional[int] = None):
     """``plain`` (``models.ssd._chunked_scan``) of DTensors on each rank's
     own (batch, head) shards: the scan is independent across batch rows
     and heads, so xh (B,S,H,P) and dt (B,S,H) are laid out by batch (as
     xh is split) and by heads over "model" where they divide, a and
     d_skip (H,) by the same heads, b_mat and c_mat (B,S,N) by batch alone,
-    and ``plain`` runs on the shards; y (B,S,H,P) keeps xh's layout.
+    and ``plain`` runs on the shards -> (y (B,S,H,P) in xh's layout, the
+    final state (B,H,P,N) split as y by batch and heads).
     DTensor's own rules would flatten the batch split over ("pod",
     "data") into the scan's products as a strided shard, whose layout
     they take minutes of host time to plan."""
@@ -411,10 +413,14 @@ def ssd_scan(plain: Callable, xh, dt, a, b_mat, c_mat, d_skip, q: int):
               Replicate() for i in range(mesh.ndim)]
         return t.redistribute(mesh, pl).to_local(), pl
     xh_loc, pl = local(xh, 2)
-    y = plain(xh_loc, local(dt, 2)[0],
-              _head_shard(a, mesh, split), local(b_mat, None)[0],
-              local(c_mat, None)[0], _head_shard(d_skip, mesh, split), q)
-    return DTensor.from_local(y, mesh, pl, run_check=False)
+    y, last = plain(xh_loc, local(dt, 2)[0],
+                    _head_shard(a, mesh, split), local(b_mat, None)[0],
+                    local(c_mat, None)[0], _head_shard(d_skip, mesh, split),
+                    q, valid)
+    state_pl = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else p
+                for p in pl]
+    return (DTensor.from_local(y, mesh, pl, run_check=False),
+            DTensor.from_local(last, mesh, state_pl, run_check=False))
 
 
 def ssd_readout(ssm, c):

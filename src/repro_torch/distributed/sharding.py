@@ -368,6 +368,30 @@ def local_box(shape: Sequence[int], spec: Spec, mesh,
     return tuple(box)
 
 
+def spec_of(t) -> Spec:
+    """The spec of a DTensor's layout (``placements``' inverse): each
+    tensor dim's splitting mesh axes, major first.  A pending sum
+    (``Partial``) or a strided shard has no spec and raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = t.device_mesh.mesh_dim_names
+    dims: List[List[str]] = [[] for _ in range(t.ndim)]
+    for name, p in zip(names, t.placements):
+        if type(p) is Shard:
+            dims[p.dim % t.ndim].append(name)
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"no spec for the placement {p} on {name!r}")
+    return _trim([tuple(d) if d else None for d in dims])
+
+
+def first_replica(spec: Spec, coords: Dict[str, int]) -> bool:
+    """Whether the rank at mesh coordinates ``coords`` is the first of the
+    ranks holding the same shard of a tensor laid out by ``spec``: at
+    coordinate 0 on every mesh axis the spec does not split."""
+    split = {a for e in spec if e is not None
+             for a in (e if isinstance(e, tuple) else (e,))}
+    return all(c == 0 for a, c in coords.items() if a not in split)
+
+
 def param_boxes(bundle, mesh, coords: Dict[str, int]) -> Dict[str, Any]:
     """Each parameter's box ('/' path -> ``local_box``) at mesh
     coordinates ``coords`` under the policy's shardings: the shards one

@@ -282,10 +282,6 @@ def expected_flops_per_chip(cfg, shape, mesh) -> float:
         else:
             mix += 2 * din * d + 2 * q * n + 2 * q * hh * p + \
                 4 * n * hh * p
-            if shape.kind == "prefill":
-                # the final state's recurrence projects the prompt again,
-                # as the reference's ``_ssd_final_state`` does
-                mix += 2 * d * (2 * din + 2 * n + hh)
         layers = n_m * mix
     elif cfg.family == "hybrid":
         r = cfg.rnn_width

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.distributed import shard_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, Params, Spec
@@ -88,26 +89,30 @@ class EncDecLM(nn.Module):
 
 # ---------------------------------------------------------------- passes -----
 def encode(cfg: ModelConfig, params: EncDecLM, frame_embeds: torch.Tensor,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, constrain=_identity) -> torch.Tensor:
     """(B, T_enc, d) precomputed frontend embeddings -> encoder memory.
     With ``remat``, the layers rematerialized in the backward as the
-    reference's training pass does (``transformer._two_level``)."""
+    reference's training pass does (``transformer._two_level``).
+    ``constrain``: the sharding hook, applied as ``_decoder_layer``
+    applies it (the memory, which every decoder layer projects, as
+    "inner")."""
     h = frame_embeds.to(cfg.compute_dtype)
-    h = h + common.sinusoidal_positions(h.shape[1], cfg.d_model, h.dtype,
-                                        h.device)[None]
+    h = constrain(h + common.sinusoidal_positions(
+        h.shape[1], cfg.d_model, h.dtype, h.device)[None], "carry")
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def body(i, h):
         lp = params.enc[i]
-        x = common.apply_norm(cfg, h, lp.ln1)
+        x = constrain(common.apply_norm(cfg, h, lp.ln1), "inner")
         q, k, v = attn.project_qkv(cfg, lp.attn, x)
         o = attn.chunked_attention(q, k, v, causal=False, window=None,
                                    chunk=cfg.attn_chunk)
-        h = h + attn.out_proj(lp.attn, o)
-        x = common.apply_norm(cfg, h, lp.ln2)
-        return h + _gelu_mlp(lp.ffn, x), zero
+        h = h + shard_ops.like(attn.out_proj(lp.attn, o), h)
+        x = constrain(common.apply_norm(cfg, h, lp.ln2), "inner")
+        return constrain(h + shard_ops.like(_gelu_mlp(lp.ffn, x), h),
+                         "carry"), zero
     h = _layers(body, h, cfg.encoder_layers, remat)
-    return common.apply_norm(cfg, h, params.enc_norm)
+    return constrain(common.apply_norm(cfg, h, params.enc_norm), "inner")
 
 
 def _layers(body, h: torch.Tensor, n: int, remat: bool) -> torch.Tensor:
@@ -121,20 +126,24 @@ def _layers(body, h: torch.Tensor, n: int, remat: bool) -> torch.Tensor:
 
 
 def _decoder_layer(cfg: ModelConfig, lp, h: torch.Tensor,
-                   memory: torch.Tensor) -> torch.Tensor:
+                   memory: torch.Tensor, constrain=_identity
+                   ) -> torch.Tensor:
     """One decoder layer over the full sequence, no cache: causal
-    self-attention, cross-attention to ``memory``, the gelu MLP."""
-    x = common.apply_norm(cfg, h, lp.ln1)
+    self-attention, cross-attention to ``memory``, the gelu MLP.
+    ``constrain``: the sharding hook on each norm's output ("inner") and
+    the layer's output ("carry"), as ``transformer.forward_hidden``
+    applies it."""
+    x = constrain(common.apply_norm(cfg, h, lp.ln1), "inner")
     q, k, v = attn.project_qkv(cfg, lp.self_attn, x)
     o = attn.chunked_attention(q, k, v, causal=True, window=None,
                                chunk=cfg.attn_chunk)
-    h = h + attn.out_proj(lp.self_attn, o)
-    x = common.apply_norm(cfg, h, lp.ln_x)
+    h = h + shard_ops.like(attn.out_proj(lp.self_attn, o), h)
+    x = constrain(common.apply_norm(cfg, h, lp.ln_x), "inner")
     qx, mk, mv = attn.project_qkv(cfg, lp.cross_attn, x, memory)
     ox = attn.chunked_attention(qx, mk, mv, causal=False, window=None)
-    h = h + attn.out_proj(lp.cross_attn, ox)
-    x = common.apply_norm(cfg, h, lp.ln2)
-    return h + _gelu_mlp(lp.ffn, x)
+    h = h + shard_ops.like(attn.out_proj(lp.cross_attn, ox), h)
+    x = constrain(common.apply_norm(cfg, h, lp.ln2), "inner")
+    return constrain(h + shard_ops.like(_gelu_mlp(lp.ffn, x), h), "carry")
 
 
 def _decoder_pass(cfg: ModelConfig, params: EncDecLM, h: torch.Tensor,
@@ -145,17 +154,17 @@ def _decoder_pass(cfg: ModelConfig, params: EncDecLM, h: torch.Tensor,
     ``remat``, rematerialized as ``encode``), a cache-filling prefill from
     ``memory`` when ``pos`` is None, else one token's decode step at
     ``pos`` against the cached memory K/V.  The cache is written in
-    place.  ``constrain`` (serving only): the sharding hook, applied to
-    the residual stream ("carry") and each norm's output ("inner"), as
+    place.  ``constrain``: the sharding hook, applied to the residual
+    stream ("carry") and each norm's output ("inner"), as
     ``transformer.forward_hidden`` applies it."""
     decoding = cache is not None and pos is not None and h.shape[1] == 1
+    constrain = constrain or _identity
+    h = constrain(h, "carry")
     if cache is None:
         zero = torch.zeros((), dtype=torch.float32, device=h.device)
         return _layers(lambda i, hc: (_decoder_layer(
-            cfg, params.dec[i], hc, memory), zero), h, cfg.num_layers,
-            remat)
-    constrain = constrain or _identity
-    h = constrain(h, "carry")
+            cfg, params.dec[i], hc, memory, constrain), zero), h,
+            cfg.num_layers, remat)
     for i, lp in enumerate(params.dec):
         x = constrain(common.apply_norm(cfg, h, lp.ln1), "inner")
         q, k, v = attn.project_qkv(cfg, lp.self_attn, x)
@@ -211,13 +220,18 @@ def loss_fn(cfg: ModelConfig, params: EncDecLM,
             batch: Dict[str, torch.Tensor], constrain=None) -> torch.Tensor:
     """Train loss: the encoder over ``frame_embeds``, the decoder over the
     tokens, the tied head fused chunk by chunk
-    (``common.chunked_cross_entropy``).  ``constrain`` is accepted and
-    unused, as the reference's encoder-decoder loss leaves it: its
-    activations take whatever layout DTensor propagates."""
-    memory = encode(cfg, params, batch["frame_embeds"], remat=True)
+    (``common.chunked_cross_entropy``).  ``constrain``: the sharding hook
+    of ``distributed.activation_constraint``, applied through both
+    stacks as ``transformer.loss_fn`` applies it (the vocab-parallel
+    embedding's partial sums are reduced before the first layer).  The
+    reference's loss takes no hook: XLA propagates its layouts."""
+    constrain = constrain or _identity
+    memory = encode(cfg, params, batch["frame_embeds"], remat=True,
+                    constrain=constrain)
     h = _decoder_pass(cfg, params, _embed_dec(cfg, params, batch["tokens"],
-                                              0), memory, remat=True)
-    h = common.apply_norm(cfg, h, params.final_norm)
+                                              0), memory, remat=True,
+                      constrain=constrain)
+    h = constrain(common.apply_norm(cfg, h, params.final_norm), "inner")
     return common.chunked_cross_entropy(h, params.embed, batch["labels"],
                                         transpose_head=True,
                                         chunk=cfg.ce_chunk)

@@ -4,6 +4,7 @@ counterpart of ``repro/models/ssd.py``.
 The full sequence runs the chunked SSD algorithm: within a chunk the
 contribution is a masked quadratic form (the "attention-like" dual);
 across chunks a short linear recurrence carries the (H, P, N) state.
+A prefill keeps the scan's carry after the prompt as the decode's state.
 Decode is the O(1) recurrent update.  The numerics are the reference's:
 the within-chunk prefix sum of dt * A in XLA's float32 order
 (``prng.cumsum_f32``), the decays and the dual's weights in float32, the
@@ -12,7 +13,7 @@ Pallas kernel here.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -78,14 +79,22 @@ def _gated_out(p, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 def _chunked_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   b_mat: torch.Tensor, c_mat: torch.Tensor,
-                  d_skip: torch.Tensor, q: int) -> torch.Tensor:
+                  d_skip: torch.Tensor, q: int, valid: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The SSD's chunked dual over chunks of ``q``: xh (B,S,H,P), dt
-    (B,S,H) and a (H,) from ``_dt_a``, b_mat and c_mat (B,S,N) -> y
-    (B,S,H,P), the skip term included.  Independent across batch rows
-    and heads (``shard_ops.ssd_scan`` runs it on their local shards)."""
+    (B,S,H) and a (H,) from ``_dt_a``, b_mat and c_mat (B,S,N) -> (y
+    (B,S,H,P), the skip term included; the state (B,H,P,N) after the
+    first ``valid`` positions, all S when None).  The positions from
+    ``valid`` on (a right padding) take dt = 0, so they neither decay
+    nor feed the state; no earlier position's y depends on them.
+    Independent across batch rows and heads (``shard_ops.ssd_scan`` runs
+    it on their local shards)."""
     bsz, s, h, hp = xh.shape
     n = b_mat.shape[-1]
     nc = s // q
+    if valid is not None and valid < s:
+        pad = torch.arange(s, device=dt.device)[None, :, None] >= valid
+        dt = dt.masked_fill(pad, 0.0)
     da = dt * a
 
     xc = xh.reshape(bsz, nc, q, h, hp)
@@ -123,12 +132,19 @@ def _chunked_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y_off = y_off * torch.exp(cum)[..., None].to(xc.dtype)
 
     y = (y_diag + y_off).reshape(bsz, s, h, hp)
-    return y + xh * d_skip[None, None, :, None].to(xh.dtype)
+    return y + xh * d_skip[None, None, :, None].to(xh.dtype), hprev
 
 
-def ssd_forward(cfg: ModelConfig, p, x_in: torch.Tensor) -> torch.Tensor:
+def ssd_forward(cfg: ModelConfig, p, x_in: torch.Tensor,
+                state: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
     """Full-sequence SSD.  x_in (B, S, d) -> (B, S, d).  ``p`` holds one
-    layer's w_in, conv_w, conv_b, a_log, dt_bias, d_skip, norm, w_out."""
+    layer's w_in, conv_w, conv_b, a_log, dt_bias, d_skip, norm, w_out.
+    With ``state`` (a prefill's, from ``ssd_init_state``), the state
+    after the prompt is written into it in place: the conv's last K - 1
+    raw inputs and the scan's final carry.  The reference recomputes that
+    carry token by token from the cache's state (``_ssd_final_state``);
+    from a fresh cache's zeros both give the same state."""
     bsz, s_orig, _ = x_in.shape
     din, n, h, hp = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
@@ -138,16 +154,20 @@ def ssd_forward(cfg: ModelConfig, p, x_in: torch.Tensor) -> torch.Tensor:
         x_in = shard_ops.pad(x_in, (0, 0, 0, s_pad))
     s = s_orig + s_pad
 
-    z, dt, _, conv_out = _conv_inputs(cfg, p, x_in)
+    z, dt, conv_in, conv_out = _conv_inputs(cfg, p, x_in)
     xr, b_mat, c_mat = (conv_out[..., :din], conv_out[..., din:din + n],
                         conv_out[..., din + n:])
     xh = xr.reshape(bsz, s, h, hp)
     dt, a = _dt_a(p, dt)                                           # (B,S,H)
     if shard_ops.is_sharded(xh):
-        y = shard_ops.ssd_scan(_chunked_scan, xh, dt, a, b_mat, c_mat,
-                               p.d_skip, q)
+        y, last = shard_ops.ssd_scan(_chunked_scan, xh, dt, a, b_mat, c_mat,
+                                     p.d_skip, q, s_orig)
     else:
-        y = _chunked_scan(xh, dt, a, b_mat, c_mat, p.d_skip, q)
+        y, last = _chunked_scan(xh, dt, a, b_mat, c_mat, p.d_skip, q, s_orig)
+    if state is not None:
+        tail = conv_in[:, :s_orig][:, -(cfg.ssm_conv - 1):]
+        state["conv"].copy_(shard_ops.like(tail, state["conv"]))
+        state["ssm"].copy_(shard_ops.like(last, state["ssm"]))
     y = y.reshape(bsz, s, din)
     if s_pad:
         y = y[:, :s_orig]
@@ -164,28 +184,6 @@ def ssd_init_state(cfg: ModelConfig, batch: int, dtype,
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, din + 2 * n),
                             dtype=dtype, device=device),
     }
-
-
-def ssd_final_state(cfg: ModelConfig, p, x_in: torch.Tensor,
-                    state: Dict[str, torch.Tensor]) -> None:
-    """The post-prefill state (conv tail and ssm) of a prompt x_in
-    (B, S, d), written into ``state`` in place: the reference's per-token
-    recurrence (``transformer._ssd_final_state``), step for step."""
-    din, n, h, hp = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
-    bsz, s, _ = x_in.shape
-    _, dt, conv_in, conv_out = _conv_inputs(cfg, p, x_in)
-    state["conv"].copy_(conv_in[:, -(cfg.ssm_conv - 1):, :])
-    xr = conv_out[..., :din].reshape(bsz, s, h, hp)
-    b_mat = conv_out[..., din:din + n]
-    dtv, a = _dt_a(p, dt)
-    hs = state["ssm"]
-    decay = torch.exp(dtv * a).to(hs.dtype)                        # (B,S,H)
-    db = dtv[..., None] * b_mat[:, :, None, :]                     # (B,S,H,N)
-    for t in range(s):
-        upd = db[:, t, :, None, :] * xr[:, t, ..., None]           # (B,H,P,N)
-        hs = hs * decay[:, t, :, None, None] + upd.to(hs.dtype)
-    state["ssm"].copy_(hs)
 
 
 def ssd_decode_step(cfg: ModelConfig, p, state: Dict[str, torch.Tensor],

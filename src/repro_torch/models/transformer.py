@@ -562,12 +562,10 @@ def prefill(cfg: ModelConfig, params: _LM, tokens: torch.Tensor,
         h = _hybrid_forward(cfg, params, h, positions, cache,
                             constrain=constrain)
     elif cfg.family == "ssm":
-        # The chunked form for the outputs, then each layer's final state
-        # by the reference's per-token recurrence.
+        # The chunked form for the outputs and each layer's final state.
         for i, lp in enumerate(params.layers):
             x = constrain(common.apply_norm(cfg, h, lp.ln1), "inner")
-            y = ssd.ssd_forward(cfg, lp.mix, x)
-            ssd.ssd_final_state(cfg, lp.mix, x, _ssd_state(cache, i))
+            y = ssd.ssd_forward(cfg, lp.mix, x, _ssd_state(cache, i))
             h = constrain(h + shard_ops.like(y, h), "carry")
     else:
         windows, thetas = layer_schedule(cfg)

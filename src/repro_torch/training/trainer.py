@@ -20,8 +20,9 @@ redistributed between layers by ``activation_constraint`` (batch over
 ("pod","data"), sequence over "model"), and AdamW's moments laid out by
 ``opt_state_shardings`` with ZeRO-1 over "data": each rank updates its
 slice of the moments and parameters, then the parameters are gathered
-back to their layout.  A checkpoint holds whole tensors, so it restores
-onto another mesh, or onto no mesh (elastic restore).  The
+back to their layout.  A checkpoint holds whole-shape tensors (each
+rank writes its own boxes of them), so it restores onto another mesh, or
+onto no mesh (elastic restore).  The
 straggler-resilient path takes ``group`` instead, every rank holding the
 whole model, as the reference's replicates its parameters there.
 ``step_time`` brackets the device work (the device is synchronized

@@ -95,7 +95,8 @@ def mesh_train(rank: int, world: int, port: int, out: str, shape, steps,
     shapes of the leaves ``init_state`` drew on it (through
     ``bundle.init_local``) beside their local shapes under the policy,
     and whether each shard equals its slice of the unsharded init, bit
-    for bit; rank 0 also writes the history."""
+    for bit; rank 0 also writes the history.  Every rank writes
+    ``save<rank>.pt`` (``_audit_saves``)."""
     from repro_torch import prng
     from repro_torch.distributed.sharding import local_shape
     from repro_torch.launch.mesh import make_mesh
@@ -115,6 +116,7 @@ def mesh_train(rank: int, world: int, port: int, out: str, shape, steps,
         built.extend(tuple(leaf.shape) for _, leaf in common.flatten(tree))
         return tree
     t.bundle.init_local = recording_init
+    audit = _audit_saves(t.ckpt, rank, os.path.join(out, "plain"))
     params, opt = t.init_state()
     shard = dict(common.flatten(t.p_shard))
     want = [local_shape(s.shape, shard[path].spec, t.mesh)
@@ -136,9 +138,72 @@ def mesh_train(rank: int, world: int, port: int, out: str, shape, steps,
         start = t.ckpt.latest_step()
         opt = t.restore(start, params, opt)
     _, _, hist = t.run(params, opt, start)
+    torch.save(audit, os.path.join(out, f"save{rank}.pt"))
     if rank == 0:
         torch.save({"hist": hist}, os.path.join(out, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+def _audit_saves(ckpt, rank: int, plain_dir: str) -> dict:
+    """Wraps the trainer's checkpoint manager: counts the
+    ``DTensor.full_tensor`` calls made inside its ``save``,
+    ``async_save`` and ``wait`` (``full_tensor``), and records each async
+    snapshot's host bytes (``snapshot_bytes``) beside the rank's local
+    shard bytes (``shard_bytes``) and the state's whole bytes
+    (``whole_bytes``); after each ``async_save``, the same state is
+    gathered whole outside the manager and saved unsharded by rank 0
+    into ``plain_dir``.  -> the record, filled as the run goes."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as cm
+    from repro_torch.distributed.sharding import whole
+    audit = {"full_tensor": 0, "snapshot_bytes": [], "shard_bytes": [],
+             "whole_bytes": [], "steps": []}
+    inside = [False]
+    full_tensor = DTensor.full_tensor
+
+    def counted(self, *args, **kwargs):
+        audit["full_tensor"] += inside[0]
+        return full_tensor(self, *args, **kwargs)
+    DTensor.full_tensor = counted
+    snapshot = cm._snapshot
+
+    def recorded(parts):
+        host = snapshot(parts)
+        audit["snapshot_bytes"].append(sum(
+            p[0].numel() * p[0].element_size() for p in host
+            if p is not None))
+        return host
+    cm._snapshot = recorded
+
+    def audited(method):
+        def call(*args, **kwargs):
+            inside[0] = True
+            try:
+                return method(*args, **kwargs)
+            finally:
+                inside[0] = False
+        return call
+    async_save = audited(ckpt.async_save)
+
+    def audited_async(step, state):
+        async_save(step, state)
+        leaves = [leaf for _, leaf in cm._flatten_with_names(state)]
+        audit["steps"].append(step)
+        audit["shard_bytes"].append(sum(
+            getattr(t, "to_local", lambda t=t: t)().numel() *
+            t.element_size() for t in leaves))
+        audit["whole_bytes"].append(sum(t.numel() * t.element_size()
+                                        for t in leaves))
+        gathered = cm._unflatten_like(state, {
+            name: whole(leaf).detach().clone()
+            for name, leaf in cm._flatten_with_names(state)})
+        if rank == 0:
+            CheckpointManager(plain_dir).save(step, gathered)
+    ckpt.async_save = audited_async
+    ckpt.save = audited(ckpt.save)
+    ckpt.wait = audited(ckpt.wait)
+    return audit
 
 
 def _box(dtensor):
@@ -197,12 +262,21 @@ def shard_ops_cases(rank: int, world: int, port: int, out: str):
     xh, dt, bm, cm = arr(4, 32, 4, 8), arr(4, 32, 4).abs(), arr(4, 32, 16), \
         arr(4, 32, 16)
     a, skip = -arr(4).abs(), arr(4)
-    want = ssd._chunked_scan(xh, dt, a, bm, cm, skip, 8)
-    got = shard_ops.ssd_scan(ssd._chunked_scan, put(xh, s0, s2),
-                             put(dt, s0, s2), put(a, r, s0),
-                             put(bm, s0, r), put(cm, s0, r),
-                             put(skip, r, s0), 8)
+    want, _ = ssd._chunked_scan(xh, dt, a, bm, cm, skip, 8)
+    got, _ = shard_ops.ssd_scan(ssd._chunked_scan, put(xh, s0, s2),
+                                put(dt, s0, s2), put(a, r, s0),
+                                put(bm, s0, r), put(cm, s0, r),
+                                put(skip, r, s0), 8)
     gaps["ssd_scan"] = gap(got, want)
+    # the final state after 27 of the 32 positions (a right padding)
+    _, want_last = ssd._chunked_scan(xh, dt, a, bm, cm, skip, 8, 27)
+    _, last = shard_ops.ssd_scan(ssd._chunked_scan, put(xh, s0, s2),
+                                 put(dt, s0, s2), put(a, r, s0),
+                                 put(bm, s0, r), put(cm, s0, r),
+                                 put(skip, r, s0), 8, 27)
+    gaps["ssd_scan_state"] = gap(last, want_last)
+    gaps["ssd_scan_state_layout"] = [getattr(p, "dim", None)
+                                     for p in last.placements]
     st, c = arr(4, 4, 8, 16), arr(4, 16)
     gaps["ssd_readout"] = gap(
         shard_ops.ssd_readout(put(st, s0, s2), put(c, s0, r)),
@@ -218,6 +292,51 @@ def shard_ops_cases(rank: int, world: int, port: int, out: str):
                                   g.reshape(-1, 6))
     gaps["ssd_scan_layout"] = [getattr(p, "dim", None)
                                for p in got.placements]
+    gaps.update(_whisper_loss_on_mesh())
     if rank == 0:
         torch.save(gaps, os.path.join(out, "rank0.pt"))
     dist.destroy_process_group()
+
+
+def _whisper_loss_on_mesh() -> dict:
+    """whisper-large-v3's smoke train loss and gradients at float32 on a
+    2 x 2 ("data", "model") mesh (the trainer's shards, batch layout and
+    activation constraint) against the unsharded trainer's on the same
+    batch: the loss's gap relative to it, the gradients' largest gap
+    relative to the tree's largest entry, and whether the first decoder
+    layer's input held a pending sum (``Partial``), which some torch
+    releases (2.11) refuse to add a bias to."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import common, encdec
+    from repro_torch.training import trainer as tr
+    _float32_smoke()
+    cfg = tr.TrainerConfig(arch="whisper-large-v3", steps=1, batch=4,
+                           seq=32)
+    plain = tr.Trainer(cfg, device="cpu")
+    params, _ = plain.init_state()
+    batch = plain.pipeline.device_batch(0)
+    want_loss, want = plain.grads(params, batch)
+    want = {k: v.clone() for k, v in common.flatten(want)}
+    t = tr.Trainer(cfg, device="cpu",
+                   mesh=make_mesh((2, 2), ("data", "model")))
+    params, _ = t.init_state()
+    first_input = []
+    layer = encdec._decoder_layer
+
+    def recording(cfg, lp, h, memory, constrain):
+        if not first_input:
+            first_input.extend(h.placements)
+        return layer(cfg, lp, h, memory, constrain)
+    encdec._decoder_layer = recording
+    try:
+        loss, grads = t.grads(params, t.place_batch(batch))
+    finally:
+        encdec._decoder_layer = layer
+    got = {k: v.full_tensor() for k, v in common.flatten(grads)}
+    top = max(float(g.abs().max()) for g in want.values())
+    return {"whisper_loss": abs(float(loss.full_tensor()) -
+                                float(want_loss)) / abs(float(want_loss)),
+            "whisper_grads": max(float((got[k] - want[k]).abs().max())
+                                 for k in want) / top,
+            "whisper_first_layer_input": [str(p) for p in first_input],
+            "whisper_partial": any(p.is_partial() for p in first_input)}

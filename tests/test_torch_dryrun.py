@@ -14,8 +14,9 @@ loop body once and are no yardstick).  Every step's band is
 ``FLOPS_TOL`` wide (prefill's and decode's too: their layouts are
 pinned), and a planted miscount (the remat switched off: a third fewer
 forward passes) falls outside it; so is a decode whose cache splits its
-sequence.  mamba2's train cell on a 3-D mesh runs in a subprocess of its
-own, in a minute.  The same subprocess
+sequence.  mamba2's prefill_32k cell at 4x2 counts one projection of
+the prompt a layer (its state comes from the chunked scan).  mamba2's
+train cell on a 3-D mesh runs in a subprocess of its own, in a minute.  The same subprocess
 checks the collective recorder on one known all-gather and the flops of
 one sharded product.
 Skip rules, ``active_param_count`` and ``sharded_param_bytes`` equal the
@@ -79,6 +80,11 @@ arch, shape, mesh = SEQ_SPLIT
 out["seq_split"] = dryrun.run_cell(arch, shape,
                                    mesh=make_mesh(mesh, ("data", "model")),
                                    verbose=False)
+cfg = smoke_config("mamba2-780m").scaled(max_seq=40_000)
+_REGISTRY["mamba2-780m"] = lambda: cfg
+out["ssm_prefill"] = dryrun.run_cell("mamba2-780m", "prefill_32k",
+                                     mesh=make_mesh((4, 2), ("data", "model")),
+                                     verbose=False)
 
 from repro_torch.models import transformer
 
@@ -168,6 +174,20 @@ def test_serving_cells_are_held_to_the_train_band(cells):
         assert tuple(a["expected_band"]) == (1 - tol, 1 + tol)
         assert abs(a["counted_over_expected"] - 1) <= tol, info["arch"]
     assert cells["seq_split"]["mesh"] == {"data": 2, "model": 4}
+
+
+def test_ssm_prefill_cell_projects_the_prompt_once(cells):
+    """mamba2-780m x prefill_32k at 4x2: the prefill takes each layer's
+    state from the chunked scan's carry, so the prompt is projected once
+    a layer (``expected_flops_per_chip`` counts one projection) and the
+    count is inside the band; the cell takes seconds, not the minutes of
+    a per-token recurrence on DTensors."""
+    info = cells["ssm_prefill"]
+    a = info["analytic"]
+    lo, hi = a["expected_band"]
+    assert (lo, hi) == (1 - tdryrun.FLOPS_TOL, 1 + tdryrun.FLOPS_TOL)
+    assert lo <= a["counted_over_expected"] <= hi
+    assert info["cell_seconds"] < 120
 
 
 _THREE_D = """

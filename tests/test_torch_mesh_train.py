@@ -75,8 +75,9 @@ def _spawn_mesh(world, shape, steps, ckpt, restore, out):
              args=(world, _free_port(), out, shape, steps, ckpt, 3, restore),
              nprocs=world, join=True)
     rank0 = torch.load(os.path.join(out, "rank0.pt"))
-    rank0["init"] = [torch.load(os.path.join(out, f"init{r}.pt"))
-                     for r in range(world)]
+    for name in ("init", "save"):
+        rank0[name] = [torch.load(os.path.join(out, f"{name}{r}.pt"))
+                       for r in range(world)]
     return rank0
 
 
@@ -119,7 +120,9 @@ def runs(tmp_path_factory):
     ref1, ref2 = json.loads(out.strip().splitlines()[-1])
     return {"mesh": (mesh1, mesh2), "plain": (plain1, plain2),
             "ref": (ref1, ref2), "ckpt_steps": steps,
-            "init": {"4x2": rank0["init"], "2x2": second["init"]}}
+            "init": {"4x2": rank0["init"], "2x2": second["init"]},
+            "ckpt": ckpt, "gathered": str(root / "a" / "plain"),
+            "save": rank0["save"]}
 
 
 def _close(have, want, what):
@@ -169,6 +172,99 @@ def test_mesh_init_shards_are_the_unsharded_init_sliced(runs, mesh):
     init, bit for bit (the window draws hash the whole leaf's counters)."""
     for rank in runs["init"][mesh]:
         assert rank["equal"] and all(rank["equal"])
+
+
+def _files(step_dir):
+    return sorted(os.listdir(step_dir))
+
+
+@pytest.mark.parametrize("step", [3, 6])
+def test_sharded_save_is_the_unsharded_save_byte_for_byte(runs, step):
+    """The 4x2 run's checkpoints (each rank writing its own boxes) are the
+    files an unsharded save of the same state writes (the state gathered
+    whole after the save, outside the manager), byte for byte: every
+    leaf's .npy and the manifest."""
+    ours = os.path.join(runs["ckpt"], f"step-{step:08d}")
+    plain = os.path.join(runs["gathered"], f"step-{step:08d}")
+    assert _files(ours) == _files(plain)
+    assert len(_files(ours)) > 40
+    for name in _files(ours):
+        with open(os.path.join(ours, name), "rb") as f, \
+                open(os.path.join(plain, name), "rb") as g:
+            assert f.read() == g.read(), name
+
+
+def test_sharded_save_gathers_no_leaf(runs):
+    """No rank calls ``full_tensor`` inside ``async_save``, ``save`` or
+    ``wait``; both saves of the 4x2 run went through the async path."""
+    for rank in runs["save"]:
+        assert rank["steps"] == [3, 6]
+        assert rank["full_tensor"] == 0
+
+
+def test_async_snapshot_holds_only_the_ranks_shards(runs):
+    """Each rank's host snapshot holds at most its local shards' bytes,
+    below the whole state's, and the ranks' snapshots together hold the
+    whole state once: each box is copied by one replica."""
+    ranks = runs["save"]
+    for i in range(2):
+        whole = ranks[0]["whole_bytes"][i]
+        for rank in ranks:
+            assert rank["snapshot_bytes"][i] <= rank["shard_bytes"][i]
+            assert rank["shard_bytes"][i] < whole
+        assert sum(r["snapshot_bytes"][i] for r in ranks) == whole
+
+
+def test_reference_restores_the_sharded_save(runs):
+    """``repro.checkpoint.CheckpointManager.restore`` reads the 4x2 run's
+    step-3 checkpoint (a flat tree whose key paths print as the port's
+    leaf names, which the manifest records): every leaf equals the
+    gathered state's, bit for bit."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.checkpoint import CheckpointManager as JManager
+    step_dir = os.path.join(runs["ckpt"], "step-00000003")
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        records = json.load(f)["leaves"]
+    like = _Named({r["name"]: jax.ShapeDtypeStruct(tuple(r["shape"]),
+                                                   jnp.dtype(r["dtype"]))
+                   for r in records})
+    back = JManager(runs["ckpt"]).restore(3, like)
+    plain = os.path.join(runs["gathered"], "step-00000003")
+    for r in records:
+        want = np.load(os.path.join(plain, r["file"]))
+        np.testing.assert_array_equal(np.asarray(back.leaves[r["name"]]),
+                                      want, r["name"])
+
+
+class _Key:
+    """A pytree key that prints as a port leaf name."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __str__(self):
+        return self.name
+
+
+class _Named:
+    """A flat pytree of leaves by '/' name."""
+
+    def __init__(self, leaves):
+        self.leaves = leaves
+
+
+def _register_named():
+    import jax
+    jax.tree_util.register_pytree_with_keys(
+        _Named,
+        lambda t: ([(_Key(k), v) for k, v in t.leaves.items()], tuple(
+            t.leaves)),
+        lambda names, values: _Named(dict(zip(names, values))))
+
+
+_register_named()
 
 
 def test_launch_train_mesh_one_rank(capsys, tmp_path):

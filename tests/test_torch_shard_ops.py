@@ -6,7 +6,8 @@ decode attention with the cache split by kv heads, by its sequence over
 ranks), and over both mesh dims (a long-context cache), the plain decode
 and the ring buffer's, the SSD's chunked scan on (batch, head) shards
 and its decode readout, and the RG-LRU gates' row-parallel product with its gradients, each
-against the plain function on the whole inputs."""
+against the plain function on the whole inputs; and whisper's train
+loss and gradients on the mesh against the unsharded trainer's."""
 import os
 import socket
 import sys
@@ -49,6 +50,27 @@ def test_ssd_scan_on_local_shards(gaps):
     and the decode step's readout of a state split on its head_dim."""
     assert gaps["ssd_scan"] <= RTOL and gaps["ssd_readout"] <= RTOL
     assert gaps["ssd_scan_layout"] == [0, 2]
+
+
+def test_ssd_scan_state_on_local_shards(gaps):
+    """The scan's final carry after 27 of 32 positions (the rest a right
+    padding) on (batch, head) shards: it keeps (batch, heads) on its
+    (B, H, P, N) dims."""
+    assert gaps["ssd_scan_state"] <= RTOL
+    assert gaps["ssd_scan_state_layout"] == [0, 1]
+
+
+def test_whisper_loss_and_gradients_on_a_mesh(gaps):
+    """whisper-large-v3's smoke loss and gradients on the 2 x 2 mesh
+    within 1e-5 of the unsharded trainer's (the gradients relative to
+    the tree's largest entry: its key biases' gradients are rounding
+    noise), and the first decoder layer's input holds no pending sum:
+    the loss reduces the vocab-parallel embedding's partial sums before
+    any layer (torch 2.11 refuses a biased projection of them)."""
+    assert gaps["whisper_loss"] <= RTOL
+    assert gaps["whisper_grads"] <= RTOL
+    assert gaps["whisper_first_layer_input"]
+    assert not gaps["whisper_partial"], gaps["whisper_first_layer_input"]
 
 
 def test_split_matmul_and_its_gradients(gaps):
