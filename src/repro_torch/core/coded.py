@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.kernels import coded_matvec as kcm
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +106,11 @@ def peel_decode(products: torch.Tensor, known: torch.Tensor,
     vals = torch.where(known[..., None], products,
                        torch.zeros((), dtype=products.dtype,
                                    device=products.device))
+    # Each round's _peel_axis writes a host scalar into a device tensor: a
+    # blocking copy from pageable memory, counted here for all rounds.
+    rounds = 2 * (code.grid + 1)
+    host.TRACER.copied(products.device, rounds * products.element_size(),
+                       rounds)
     for _ in range(code.grid + 1):
         vals, known = _peel_axis(vals, known, axis=0)
         vals, known = _peel_axis(vals, known, axis=1)
@@ -156,10 +162,13 @@ def verified_decode(products: torch.Tensor, arrived: torch.Tensor,
     parity and corner are all erased is consistent with a valid codeword.
     Callers relaunch on ``ok=False``."""
     flagged = detect_corrupted(products, arrived, code, rtol)
-    n_flagged = int(flagged.sum())
+    with host.TRACER.sync("flagged"):
+        n_flagged = int(flagged.sum())
     known = arrived & ~flagged
     sys_blocks, ok = peel_decode(products, known, code)
-    if not bool(ok):
+    with host.TRACER.sync("decode_ok"):
+        ok = bool(ok)
+    if not ok:
         return None, False, n_flagged
     row_par = sys_blocks.sum(dim=1, keepdim=True)
     top = torch.cat([sys_blocks, row_par], dim=1)
@@ -168,7 +177,9 @@ def verified_decode(products: torch.Tensor, arrived: torch.Tensor,
     mag = (torch.linalg.vector_norm(full, dim=-1)
            + torch.finfo(torch.float32).tiny)
     mismatch = known & (resid > rtol * mag)
-    if bool(mismatch.any()):
+    with host.TRACER.sync("mismatch"):
+        mismatch = bool(mismatch.any())
+    if mismatch:
         return None, False, n_flagged
     y = sys_blocks.reshape(code.padded_blocks * code.block_rows)
     return y[:out_rows], True, n_flagged

@@ -13,13 +13,19 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.obs import host
+
 DEFAULT_CANDIDATES = tuple(4.0 ** (-i) for i in range(6))   # 1, ..., 4^-5
 
 
 def _first_ok(ok: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
     """The first (largest) candidate that qualifies, else the smallest."""
     idx = torch.argmax(ok.to(torch.int8))
-    return torch.where(ok.any(), candidates[idx], candidates[-1])
+    any_ok = ok.any()
+    # Indexing by a device scalar reads it to the host.
+    with host.TRACER.sync("candidate"):
+        best = candidates[idx]
+    return torch.where(any_ok, best, candidates[-1])
 
 
 def armijo_select(f_trials: torch.Tensor, f0: torch.Tensor, gtp: torch.Tensor,
@@ -44,7 +50,8 @@ def linesearch_strongly_convex(objective, data, w: torch.Tensor,
                                beta: float = 0.1,
                                candidates: Tuple[float, ...] = DEFAULT_CANDIDATES
                                ) -> torch.Tensor:
-    cand = torch.tensor(candidates, dtype=w.dtype, device=w.device)
+    cand = host.TRACER.to_device(torch.tensor(candidates, dtype=w.dtype),
+                                 w.device)
     f0 = objective.value(w, data)
     f_trials = objective.value(w[None] + cand[:, None] * p[None], data)
     return armijo_select(f_trials, f0, p @ g, cand, beta)
@@ -56,7 +63,8 @@ def linesearch_weakly_convex(objective, data, w: torch.Tensor,
                              candidates: Tuple[float, ...] = DEFAULT_CANDIDATES
                              ) -> torch.Tensor:
     """Trial-point gradient norms, the sketched Hessian in the RHS."""
-    cand = torch.tensor(candidates, dtype=w.dtype, device=w.device)
+    cand = host.TRACER.to_device(torch.tensor(candidates, dtype=w.dtype),
+                                 w.device)
     trials = []
     for a in cand:
         gt = objective.gradient(w + a * p, data)

@@ -29,7 +29,11 @@ bytes).  ``adaptive_sketch`` doubles the sketch dimension when progress
 stalls or the surviving rows' Marchenko-Pastur factor falls below
 ``adaptive_mp_target``.  A clock with an ``obs.Telemetry`` attached gets
 the run and iteration spans, the loop's gauges and counters and each
-iteration's critical path, as the reference emits them.
+iteration's critical path, as the reference emits them.  Apart from it,
+every call records its layers on the host's clock in ``obs.host.TRACER``
+(the call, the encodes, each iteration and its gradient products, Hessian,
+sketch -> Gram, direction, line search and tail, and each blocking read of
+a device value as a ``sync`` span).
 """
 from __future__ import annotations
 
@@ -47,6 +51,8 @@ from repro_torch.core.objectives import Dataset
 from repro_torch.core.sketch import OverSketchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.runtime.faults import PhaseExhaustedError
+
+_host = obs.host.TRACER
 
 
 def _telemetry(clock) -> "obs.Telemetry":
@@ -141,6 +147,7 @@ class CodedMatvecEngine:
     verification catches what cancels, so each later matvec is exact or a
     billed relaunch."""
 
+    @_host.traced("encode")
     def __init__(self, data: Dataset, block_rows: int,
                  model: Optional[straggler.StragglerModel],
                  overlap_encode: bool = True, phase_memory: bool = False,
@@ -152,6 +159,7 @@ class CodedMatvecEngine:
         self._encode_pending = {"X", "XT"}
         self._encode_t0: Optional[float] = None
         n, d = data.x.shape
+        _host.annotate(n=n, d=d, block_rows=block_rows)
         self.code_x = coded.make_code(n, max(1, min(block_rows, n)))
         self.code_xt = coded.make_code(d, max(1, min(block_rows, d)))
         self.enc_x = coded.encode_2d(data.x, self.code_x)
@@ -169,6 +177,7 @@ class CodedMatvecEngine:
         return coded.coded_matvec(enc, v, self.code_for(tag),
                                   self.out_rows[tag], erased)
 
+    @_host.traced("gradient")
     def matvec(self, tag: str, v: torch.Tensor, clock: straggler.SimClock,
                key: torch.Tensor, policy: str,
                dag: Optional[scheduler.DagRun] = None,
@@ -236,6 +245,7 @@ class CodedMatvecEngine:
             enc_floor = clock.time
         erased = None
         corrupt = None
+        arrived = None
         g1 = code.grid + 1
         if self.model is not None and policy == "coded":
             if self.paranoid and self.corruption_detection:
@@ -249,7 +259,7 @@ class CodedMatvecEngine:
                              decodable=lambda m: _decodable(
                                  ~m.reshape(g1, g1)))
             arrived = mask.numpy()
-            erased = (~mask).reshape(g1, g1).to(v.device)
+            erased = _host.to_device((~mask).reshape(g1, g1), v.device)
             lc = clock.last_corruption
             if lc is not None:
                 # Arrived results the fault plane flagged as corrupted;
@@ -264,15 +274,23 @@ class CodedMatvecEngine:
         elif self.model is not None and policy == "ignore":
             # mini-batch style: pay the k-of-n time, use the exact product.
             phase(key, "k_of_n", kk=max(1, int(0.95 * w)))
+        # ``arrived``: the workers whose products the decode reads.
+        _host.annotate(tag=tag, workers=w, b=code.block_rows,
+                       s=enc.shape[-1], arrived=w if arrived is None
+                       else int(arrived.sum()))
         if corrupt is not None and corrupt.any():
             y, ok = self._corrupted_decode(tag, v, key, clock, corrupt,
                                            arrived)
         else:
             y, ok = self._mv(tag, v, erased)
-        if erased is not None and not bool(ok):
+        if erased is not None and isinstance(ok, torch.Tensor):
+            with _host.sync("decode_ok"):
+                ok = bool(ok)
+        if erased is not None and not ok:
             # Erasure pattern beyond the code, or a rejected decode: the
             # master re-launches the stragglers; charge a full round.
             self.fallbacks += 1
+            _host.annotate(relaunched=True)
             y, _ = self._mv(tag, v, None)
             _telemetry(clock).metrics.counter("coded.decode_fallbacks").inc()
             kf = prng.fold_in(key, 1)
@@ -308,9 +326,11 @@ class CodedMatvecEngine:
         prods = coded.coded_block_products(enc, v)
         noise = (torch.sqrt(torch.mean(prods ** 2)) + 1e-30) * kops.normal(
             prng.fold_in(key, 777), tuple(prods.shape), device=prods.device)
-        cgrid = torch.from_numpy(corrupt.reshape(g1, g1)).to(prods.device)
+        cgrid = _host.to_device(torch.from_numpy(corrupt.reshape(g1, g1)),
+                                prods.device)
         prods = torch.where(cgrid[..., None], prods + noise, prods)
-        known = torch.from_numpy(arrived.reshape(g1, g1)).to(prods.device)
+        known = _host.to_device(torch.from_numpy(arrived.reshape(g1, g1)),
+                                prods.device)
         tel = _telemetry(clock)
         if tel.enabled:
             tel.metrics.counter("coded.corruption_injected").inc(
@@ -333,11 +353,13 @@ class CodedMatvecEngine:
         return y, ok
 
 
+@_host.traced("direction")
 def _solve_direction(objective, h_hat: torch.Tensor, g: torch.Tensor,
                      cfg: NewtonConfig) -> torch.Tensor:
     solver = cfg.solver
     if solver == "auto":
         solver = "chol" if objective.strongly_convex else "pinv"
+    _host.annotate(solver=solver, dim=h_hat.shape[0])
     if solver == "chol":
         return -solvers.psd_solve(h_hat, g)
     if solver == "cg":
@@ -350,6 +372,7 @@ def _solve_direction(objective, h_hat: torch.Tensor, g: torch.Tensor,
     raise ValueError(solver)
 
 
+@_host.traced("hessian")
 def _hessian_phase(objective, data: Dataset, w: torch.Tensor,
                    cfg: NewtonConfig, key: torch.Tensor,
                    clock: Optional[straggler.SimClock],
@@ -426,16 +449,24 @@ def _hessian_phase(objective, data: Dataset, w: torch.Tensor,
                         if int(e2.mask.sum()) < floor:
                             return None, None
                         survivors = torch.from_numpy(e2.mask)
+        # The survivor mask is the fleet's, on the host: counting it reads
+        # nothing from the device.
+        live = int(survivors.sum())
+        _host.annotate(policy=cfg.hessian_policy, family=cfg.sketch_family,
+                       k=scfg.total_blocks, n=n_rows, d=d, b=b, live=live)
         state = fam.sample(prng.fold_in(key, 7), n_rows, device=a.device)
         tel = _telemetry(clock)
+        path = fam.fused_path(d) if cfg.use_kernels else "unfused"
         if tel.enabled:
             # The path the sketch -> Gram dispatch takes for this family
             # and d; the port's labels are "fused" and "unfused" only.
-            path = fam.fused_path(d) if cfg.use_kernels else "unfused"
             tel.metrics.counter(f"kernel.path.{path}").inc()
-        h_hat = fam.gram(state, a, survivors.to(a.device),
-                         use_kernels=cfg.use_kernels)
-        m_eff = float(survivors.sum()) * scfg.block_size
+        with _host.span("sketch_gram", family=cfg.sketch_family,
+                        fused=path == "fused", k=scfg.total_blocks, n=n_rows,
+                        d=d, b=scfg.block_size, live=live):
+            h_hat = fam.gram(state, a, _host.to_device(survivors, a.device),
+                             use_kernels=cfg.use_kernels)
+        m_eff = float(live) * scfg.block_size
         if tel.enabled:
             tel.metrics.gauge("sketch.m_eff").set(m_eff)
             tel.metrics.gauge("sketch.mp_debias").set(
@@ -444,6 +475,7 @@ def _hessian_phase(objective, data: Dataset, w: torch.Tensor,
                 float(survivors.sum()))
         return h_hat + objective.hess_reg * eye, m_eff
     # exact Hessian (the paper's "exact Newton" baseline)
+    _host.annotate(policy=cfg.hessian_policy, n=n_rows, d=d, b=b)
     if clock is not None:
         workers = max(1, -(-n_rows // b)) * d_blocks * d_blocks
         policy = ("speculative" if cfg.hessian_policy == "exact_speculative"
@@ -482,7 +514,7 @@ def _distavg_direction(objective, fam, a: torch.Tensor, g: torch.Tensor,
         p_k = -solvers.psd_solve(grams, g)
     if cfg.debias:
         p_k = sketching.debias_direction(p_k, d, fam.cfg.block_size)
-    m = survivors.to(device=a_t.device, dtype=a_t.dtype)
+    m = _host.to_device(survivors, a_t.device).to(a_t.dtype)
     n_avail = m.sum().clamp_min(1.0)
     p = m @ p_k / n_avail
     hg = torch.einsum("k,kde,e->d", m, grams, g) / n_avail
@@ -600,6 +632,7 @@ def _check_config(cfg: NewtonConfig, d: int) -> None:
     sketching.get(cfg.sketch_family, cfg.sketch)   # fail fast on bad family
 
 
+@_host.traced("call")
 def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
                         model=straggler.StragglerModel(),
                         device=None) -> NewtonResult:
@@ -612,6 +645,8 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
     prebuilt ``SimClock``, or None (no fleet: exact gradients, unit
     clock).  Runs on CUDA unless ``device`` says otherwise; the dataset and
     ``w0`` are moved there."""
+    _host.annotate(family=cfg.sketch_family, schedule=cfg.schedule,
+                   iters=cfg.iters)
     device = resolve_device(device)
     _check_config(cfg, torch.as_tensor(w0).numel())
     data = Dataset(*(None if t is None else t.to(device) for t in data))
@@ -647,6 +682,7 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
     for t in range(cfg.iters):
         cfg = live_cfg
         t_wall = time.perf_counter()
+        it_host = _host.begin("iteration", t=t)
         key, kg, kh, kl = prng.split(key, 4)
         it_span = tel.trace.begin(
             f"iter{t}", "iteration",
@@ -661,7 +697,8 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
         # --- 1. gradient (straggler-resilient coded matvecs, Alg. 1) ------
         grad_tail = None
         if not coded_gradient:
-            g = objective.gradient(w, data)
+            with _host.span("gradient", tag="exact"):
+                g = objective.gradient(w, data)
         else:
             mv_seq = [0]
 
@@ -704,12 +741,16 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
 
         # Descent guard: only a finite descent direction reaches the line
         # search; anything else degrades to steepest descent.
-        gp = float(g @ p)
+        gp = g @ p
+        with _host.sync("gp"):
+            gp = float(gp)
         if not math.isfinite(gp) or gp >= 0.0:
             p, hg = -g, g
             tel.metrics.counter("newton.safeguard_fallbacks").inc()
 
         # --- 4. distributed line search (Sec. 3.2) -------------------------
+        ls_host = _host.begin("linesearch", candidates=0 if cfg.unit_step
+                              else len(cfg.candidates))
         if cfg.unit_step:
             step = torch.ones((), device=device)
         elif objective.strongly_convex:
@@ -749,15 +790,22 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
                 # Billed and lost: the trial values are the master's own
                 # arithmetic, so the chosen step stands.
                 tel.metrics.counter("newton.fault_fallbacks").inc()
+        _host.end(ls_host)
 
+        tail_host = _host.begin("tail")
         w = w + step * p
 
         hist["iter"].append(t)
-        f_now = float(objective.value(w, data))
+        f_now = objective.value(w, data)
+        with _host.sync("fval"):
+            f_now = float(f_now)
         hist["fval"].append(f_now)
-        hist["gnorm"].append(float(torch.linalg.norm(
-            objective.gradient(w, data))))
-        hist["step"].append(float(step))
+        gnorm = torch.linalg.norm(objective.gradient(w, data))
+        with _host.sync("gnorm"):
+            gnorm = float(gnorm)
+        hist["gnorm"].append(gnorm)
+        with _host.sync("step"):
+            hist["step"].append(float(step))
         hist["time"].append(clock.time if clock is not None else float(t + 1))
         hist["cost"].append(clock.dollars if clock is not None else 0.0)
         hist["sketch_dim"].append(live_cfg.sketch.sketch_dim)
@@ -812,13 +860,17 @@ def oversketched_newton(objective, data: Dataset, w0, cfg: NewtonConfig,
             prev_decrease = prev_f - f_now
         prev_f = f_now
         if cfg.track_test_error and data.x_test is not None:
-            hist["test_error"].append(
-                float(objective.error(w, data.x_test, data.y_test)))
+            err = objective.error(w, data.x_test, data.y_test)
+            with _host.sync("test_error"):
+                err = float(err)
+            hist["test_error"].append(err)
         else:
             hist["test_error"].append(float("nan"))
         # Host seconds of the iteration; the float() reads above wait for
         # the device, so this includes its work.
         hist["wall_s"].append(time.perf_counter() - t_wall)
+        _host.end(tail_host)
+        _host.end(it_host)
     tel.trace.end(run_span,
                   clock.time if clock is not None else float(cfg.iters))
     return NewtonResult(w=w, history=hist)

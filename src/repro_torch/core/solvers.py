@@ -8,14 +8,18 @@ from typing import Callable
 
 import torch
 
+from repro_torch.obs import host
+
 
 def psd_solve(h: torch.Tensor, g: torch.Tensor,
               jitter: float = 1e-9) -> torch.Tensor:
     """Solve H p = g for symmetric PD H via Cholesky with a tiny jitter;
     a batch of systems (K, d, d) shares one g and gives (K, d)."""
     d = h.shape[-1]
-    chol = torch.linalg.cholesky(
-        h + jitter * torch.eye(d, dtype=h.dtype, device=h.device))
+    # torch reads the factorization's status back to the host.
+    with host.TRACER.sync("cholesky"):
+        chol = torch.linalg.cholesky(
+            h + jitter * torch.eye(d, dtype=h.dtype, device=h.device))
     rhs = g.expand(h.shape[:-1]).unsqueeze(-1)
     return torch.cholesky_solve(rhs, chol).squeeze(-1)
 
@@ -23,7 +27,9 @@ def psd_solve(h: torch.Tensor, g: torch.Tensor,
 def psd_pinv_solve(h: torch.Tensor, g: torch.Tensor,
                    rtol: float = 1e-6) -> torch.Tensor:
     """Moore-Penrose solve H^+ g via symmetric eigendecomposition."""
-    evals, evecs = torch.linalg.eigh(h)
+    # torch reads the solver's status back to the host.
+    with host.TRACER.sync("eigh"):
+        evals, evecs = torch.linalg.eigh(h)
     cutoff = rtol * evals.abs().max()
     inv = torch.where(evals.abs() > cutoff, 1.0 / evals,
                       torch.zeros_like(evals))

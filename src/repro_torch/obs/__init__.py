@@ -20,6 +20,9 @@ metric names):
     res = oversketched_newton(obj, data, w0, cfg, model=clock)
     obs.perfetto.dump(obs.to_perfetto(tel.trace.spans), "run.perfetto.json")
     print(obs.phase_table(obs.telemetry_rows(tel)))
+
+Apart from the simulated clock, ``obs.host`` records the program's own
+layers on the host's clock (``host.TRACER``, always on): see its docstring.
 """
 from repro_torch.obs.critical_path import (CriticalPathReport, PhaseSlack,
                                      critical_path, from_dag)
@@ -44,6 +47,8 @@ from repro_torch.obs.console import write_console
 from repro_torch.obs.diff import DiffReport, RowDiff, diff_bench, diff_rows, diff_store
 from repro_torch.obs.slo import SloPolicy, SloTracker
 from repro_torch.obs.span import NullTracer, Span, SpanTracer
+from repro_torch.obs import host
+from repro_torch.obs.host import HostSpan, HostTracer
 from repro_torch.obs.store import (Store, bench_record, config_hash, git_sha,
                              run_record)
 
@@ -96,6 +101,7 @@ NULL = _NullTelemetry()
 __all__ = [
     "Telemetry", "NULL",
     "Span", "SpanTracer", "NullTracer",
+    "host", "HostSpan", "HostTracer",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "NullMetrics",
     "Alert", "Cusum", "HealthMonitors", "RobustZScore", "Rule",
     "default_rules",

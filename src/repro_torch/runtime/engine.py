@@ -102,10 +102,13 @@ class FleetEngine:
     def dollars(self) -> float:
         return self.ledger.dollars(self.cost_model)
 
+    @obs.host.TRACER.traced("fleet")
     def charge(self, elapsed: float, phase_name: Optional[str] = None
                ) -> None:
         """Add externally computed phase time (no workers billed);
         ``phase_name`` labels its telemetry span."""
+        obs.host.TRACER.annotate(phase=phase_name, workers=0,
+                                 policy="charge")
         if self.replay is not None:
             elapsed = self.replay.next_charge()
         elapsed = float(elapsed)
@@ -422,6 +425,7 @@ class FleetEngine:
                 # its neighbours' churn; this one does not.
                 m.gauge("pool.hit_rate").set(self.pool.warm_hits / total)
 
+    @obs.host.TRACER.traced("fleet")
     def run_phase(self, key: torch.Tensor, num_workers: int, *,
                   work_per_worker: float = 1.0,
                   flops_per_worker: Optional[float] = None,
@@ -445,7 +449,10 @@ class FleetEngine:
         attached ``OomSpec`` kills attempts sized below it.  ``phase_name``
         names the phase's span and a ``PhaseExhaustedError``;
         ``phase_deps`` records the span's dependency edges.  Neither reaches
-        the trace recorder or any number."""
+        the trace recorder or any number.  The host's time in it is the
+        ``fleet`` span of ``obs.host.TRACER``."""
+        obs.host.TRACER.annotate(phase=phase_name, workers=num_workers,
+                                 policy=policy)
         tel = self.telemetry
         if self.replay is not None:
             elapsed, mask, entry, advance, row = self.replay.next_phase(
