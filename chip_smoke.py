@@ -2084,12 +2084,12 @@ FIG6_GIANT_ITERS = 18
 def run_fig6_paper(ops, data_mod, prng, fig6, dev) -> tuple:
     """The paper's fig. 6 comparison at the synthetic profile's n and d
     through the port's fig. 6 body, kernels on: each run's launch counts
-    set to 0 just before it and read just after (OSN: the fused Gram once,
-    the coded mat-vec twice and the draw kernel twice an iteration; exact
-    Newton the coded mat-vec twice; GIANT none), its iterations' wall
-    seconds and its peak device memory.  Checks that every value is finite
-    and that each run ends below f(w0).  Returns the phase's row and the
-    summed launch counts."""
+    set to 0 just before it and read just after (OSN: the fused Gram and
+    its grouped gather once, the coded mat-vec twice and the draw kernel
+    twice an iteration; exact Newton the coded mat-vec twice; GIANT none),
+    its iterations' wall seconds and its peak device memory.  Checks that
+    every value is finite and that each run ends below f(w0).  Returns the
+    phase's row and the summed launch counts."""
     import torch
     t0 = time.perf_counter()
     data = data_mod.make_logistic_dataset(
@@ -2100,10 +2100,11 @@ def run_fig6_paper(ops, data_mod, prng, fig6, dev) -> tuple:
     f0 = fig6.LogisticRegression(lam=1e-5).value(
         torch.zeros(data.x.shape[1], device=dev), data).item()
     expect = {"osn": {"sketch_gram_count": FIG6_ITERS,
+                      "cs_gather_grouped": FIG6_ITERS,
                       "coded_block_matvec": 2 * FIG6_ITERS,
                       "draw": 2 * FIG6_ITERS},
               "exact_newton_spec": {"coded_block_matvec": 2 * FIG6_ITERS}}
-    runs, total = {}, {name: 0 for name in ops.KERNELS}
+    runs, total = {}, dict.fromkeys(ops.launch_counts(), 0)
 
     def observe(name, run):
         torch.cuda.synchronize()

@@ -17,21 +17,25 @@
 // atomics for the counts only), then a warp per output row (block, bucket)
 // and 32-column strip sums sigma times its bucket's rows of A in registers
 // and writes the row once.  The grid walks A strip by strip, so its K s
-// re-reads come from L2 and A comes from HBM about once: the apply is bound
-// by L2 bandwidth, at every b.  The host sizes the sort and the scratch
+// re-reads come from L2 and A comes from HBM about once: per bucket the
+// apply is bound by L2 bandwidth.  Where the plan groups blocks (b up to
+// 512), the grouped gather reads each row of a strip into shared memory
+// once for a group of blocks and is bound by shared memory's bandwidth.
+// The host sizes the sort, the scratch and the group
 // (kernels/count_sketch.py, apply_plan).
 #include "sketch_common.cuh"
 
-// `chunks` sort chunks per block, `width` columns per strip; scratch holds
+// `chunks` sort chunks per block, `width` columns per strip, `group`
+// blocks a CTA of the grouped gather (1: per bucket); scratch holds
 // apply_plan's scratch_ints int32 words.
 extern "C" int count_sketch_apply_launch(const int* h, const float* sigma,
                                          const float* a, float* out,
                                          uint32_t* scratch, int k, int s,
                                          int n, int d, int b, int chunks,
-                                         int width, float scale,
-                                         void* stream) {
+                                         int width, int group,
+                                         float scale, void* stream) {
   return (int)sketch::launch_cs_apply(h, sigma, a, out, scratch, k, s, n, d,
-                                      b, {chunks, width},
+                                      b, {chunks, width, group},
                                       s == 1 ? 1.f : scale,
                                       (cudaStream_t)stream);
 }

@@ -15,14 +15,18 @@
 //           memory read-modify-write and no float atomics.  The grid runs
 //           strip by strip, so the CTAs resident at once share one strip
 //           of A (n x width floats) in L2, and A's K s re-reads come from
-//           there.
+//           there.  Where the plan groups blocks (b small enough that a
+//           group's partial sums fit in a CTA's registers),
+//           cs_gather_grouped_kernel instead reads each row of a strip
+//           into shared memory once for a group of live blocks.
 //
 // What bounds the apply on the H100 is where its partial sums live.  A
 // shared-memory tile per block holds them only while b is small, and then
 // every update is a shared load and store, with few warps per SM; past
 // b ~1,700 no tile fits and the partial sums would go to HBM.  The gather
-// keeps them in registers at any b and is bound by the L2 bandwidth of its
-// re-reads of A (a 128-byte line per entry per 32-column strip).
+// keeps them in registers at any b.  Per bucket it is bound by the L2
+// bandwidth of its re-reads of A (a 128-byte line per entry per 32-column
+// strip); grouped, by shared memory's (below).
 //
 //   launch_gram         G (+)= sum_k m_k A_tilde_k^T A_tilde_k over a range
 //                       of blocks: split-row upper-triangle tiles, then a
@@ -36,6 +40,7 @@
 // same bits.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the encoder comes from the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -163,6 +168,80 @@ __global__ void cs_scatter_kernel(const int* __restrict__ h,
   }
 }
 
+// ----------------------------------------------------------- copies
+// Asynchronous copies into shared memory: cp.async (4 bytes, zeros and no
+// read with ok false; 16 bytes) in commit groups, and tensor copies (the
+// TMA unit) that complete on an mbarrier.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(s)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(s),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}\n" ::"r"(s),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, int parity) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(s), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Orders this thread's earlier shared-memory accesses before its later
+// tensor copies' writes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The box of `map` at (column c, row r) into dst, completing on bar.
+__device__ __forceinline__ void tma_load(float4* dst, const CUtensorMap* map,
+                                         int c, int r, uint64_t* bar) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(d),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(b)
+      : "memory");
+}
+
 // ----------------------------------------------------------- gather
 // grid = ceil(d / W) strips x kc blocks x ceil(b / 8) bucket groups, the
 // strip outermost; 8 warps, one bucket each.  The warp's lanes form 32 / W
@@ -232,11 +311,315 @@ inline cudaError_t launch_gather_w(const int* off, const uint2* ent,
   return cudaGetLastError();
 }
 
+// --------------------------------------------------- grouped gather
+// What bounds the per-bucket gather above is L2: every live block reads
+// the whole strip of A into the SMs, a 128-byte line an entry, though each
+// row of A lies in one bucket of every block.  The grouped gather reads
+// each row of a 32-column strip into shared memory once for a group of G
+// live blocks.  grid = ceil(d / 32) strips x ceil(kc / G) groups, the strip
+// outermost; one thread per output row (block, bucket) of the group, G b
+// of them, which keeps that row's 32 partial sums in registers (the plan
+// sizes G so that they fit) and walks its bucket's list in order.  A
+// thread sums sigma times A's row for each entry with one fmaf a column in
+// ascending row order, as the per-bucket gather at width 32 does: the two
+// give the same bits.
+//
+// The strip flows through a ring of GG_RING rows in shared memory,
+// GG_STAGE rows a stage, each stage one tensor copy (TMA, zeros past n and
+// d) that completes on the stage's barrier.  Warps do not wait for each other: a
+// warp takes a step whenever any of its threads' next row has landed,
+// every such thread summing its entry, and moves on as later stages land.
+// It releases a stage once all its threads are past it; the last warp to
+// release a stage issues the copy of the stage that reuses its rows.  A
+// warp waits only when none of its threads can step.  Lane l reads the
+// eight 16-byte quarters of a row in the order i ^ (l & 7): the 8 lanes of
+// each quarter-warp read distinct banks whatever their rows.
+//
+// A thread's entries come through shared memory too, four at a time in
+// two halves: as it takes the last entry of a half it asks for the half
+// after next (cp.async), so a step waits on shared memory only.
+//
+// Each entry costs one 128-byte row read from shared memory and 32 FFMA a
+// thread; A crosses from L2 once per G blocks.  What bounds it is shared
+// memory's bandwidth: a step reads a whole row a lane, and the lanes whose
+// next row has not landed yet waste their share.  Rows are below 2^31 and
+// entries below 2^32 (the host checks K s n).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, gather alone at
+// logistic-oversketch's shape (K = 150, 120 live, n = 300,000, d = 3,000,
+// b = 256): 75 ms per bucket; grouped (G = 4, R = 256) 69 ms with 16-byte
+// cp.async copies of A (the copies held the SM's outstanding requests:
+// ~9 bytes a clock), 210 ms with a bulk copy a row, 49 ms with a tensor
+// copy a stage but a barrier of the whole CTA a stage (half the time spent
+// waiting there for the slowest warp), 44 ms as above with a ring of 1,024
+// rows and eight entries a thread, 41 ms with 1,536 rows and four (and
+// softmax-emnist's shape 1,096 and 1,063 ms against 1,960): a larger ring
+// lets more threads' rows land ahead.  With the entries read from L2, a
+// step waits on its entry (39 ms here, but 1,233 ms on softmax's, whose
+// entries share L2 with fewer strips).  A warp's step takes ~1,700 clocks
+// for 32 warps' 34 shared-memory wavefronts each (1,100 clocks), with half
+// of its 32 threads taking an entry.
+constexpr int GG_THREADS = 1024;  // output rows a CTA, one a thread
+constexpr int GG_MAX_GROUP = 32;  // blocks a group
+constexpr int GG_RING = 1536;     // rows in the ring (192 KB)
+// Rows a stage, one tensor copy: 256, the largest box a tensor copy
+// takes, ran faster than 128 (the fused Gram at the shape above 51.3
+// against 58.0 ms; softmax-emnist's 1,233 against 1,341).
+constexpr int GG_STAGE = 256;
+constexpr int GG_ENTRIES = 4;     // entries a thread holds in shared memory
+constexpr int GG_SMEM = GG_RING * 32 * (int)sizeof(float) +
+                        GG_ENTRIES * GG_THREADS * (int)sizeof(uint2);
+
+template <bool kLayers>
+__global__ void __launch_bounds__(GG_THREADS, 1)
+    cs_gather_grouped_kernel(const int* __restrict__ off,
+                             const uint2* __restrict__ ent,
+                             const float* __restrict__ mask,
+                             float* __restrict__ out, int n, int d, int b,
+                             int s, int k0, int kc, int group, int groups,
+                             float scale,
+                             const __grid_constant__ CUtensorMap map) {
+  constexpr int R = GG_STAGE, STAGES = GG_RING / R;
+  static_assert(GG_RING % R == 0, "stages tile the ring");
+  extern __shared__ __align__(128) float4 gg_ring[];  // GG_RING rows
+  // Thread t's entries 2 i and 2 i + 1 of a pair of halves at
+  // eb[i * GG_THREADS + t], one 16-byte copy.
+  uint4* const eb = reinterpret_cast<uint4*>(gg_ring + GG_RING * 8);
+  __shared__ int blk[GG_MAX_GROUP];
+  __shared__ int blk_count;
+  __shared__ uint64_t full[STAGES];  // stage u landed: phase u / STAGES
+  __shared__ int released[STAGES];   // releases of the slot's stages
+  const int strip = blockIdx.x / groups, gi = blockIdx.x % groups;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < STAGES) {
+    mbar_init(full + threadIdx.x);
+    released[threadIdx.x] = 0;
+  }
+
+  // The group's blocks: the live blocks of [k0, k0 + kc) numbered gi G to
+  // gi G + G - 1 in order.
+  if (threadIdx.x < 32) {
+    const int first = gi * group;
+    int count = 0;
+    for (int base = 0; base < kc; base += 32) {
+      const int j = base + lane;
+      const bool on = j < kc && (mask == nullptr || mask[k0 + j] != 0.f);
+      const unsigned bits = __ballot_sync(FULL_MASK, on);
+      const int pos = count + __popc(bits & ((1u << lane) - 1u)) - first;
+      if (on && pos >= 0 && pos < group) blk[pos] = j;
+      count += __popc(bits);
+    }
+    if (lane == 0) blk_count = min(max(count - first, 0), group);
+  }
+  __syncthreads();
+  const int live = blk_count;
+  if (live == 0) return;  // CTA-uniform
+
+  // Stage u into its ring rows.
+  const int c0 = strip * 32;
+  auto issue = [&](int u) {
+    uint64_t* bar = full + u % STAGES;
+    mbar_expect_tx(bar, R * 32 * (int)sizeof(float));
+    fence_proxy_async();
+    tma_load(gg_ring + ((u * R) % GG_RING) * 8, &map, c0, u * R, bar);
+  };
+  const int stages = (n + R - 1) / R;
+  if (threadIdx.x == 0)
+    for (int u = 0; u < min(STAGES, stages); ++u) issue(u);
+
+  // This thread's output row: bucket q of the group's block g, whose
+  // entries are ent[x .. xe) (indices into the whole list).
+  unsigned x = 0, xe = 0;
+  {
+    const int g = threadIdx.x / b, q = threadIdx.x - g * b;
+    if (g < live) {
+      const int k = k0 + blk[g];
+      const unsigned base = (unsigned)k * s * n;
+      x = base + off[(size_t)k * (b + 1) + q];
+      xe = base + off[(size_t)k * (b + 1) + q + 1];
+    }
+  }
+  // The half of entries h, h + 1 (h even) into its slots, one commit
+  // group.  Past the list's end a copy reads the scratch's next words,
+  // which no step takes.
+  uint4* const mine = eb + threadIdx.x;
+  auto fetch = [&](unsigned h) {
+    cp_async16(mine + ((h >> 1) & 1) * GG_THREADS, ent + h);
+    cp_async_commit();
+  };
+  constexpr int NONE = 0x7fffffff;  // past every row
+  int row = NONE;
+  float sg = 0.f;
+  if (x < xe) {
+    const uint2 e = __ldg(ent + x);
+    row = (int)e.x;
+    sg = __uint_as_float(e.y);
+    fetch(x & ~1u);
+    if ((x | 1u) + 1 < xe) fetch((x | 1u) + 1);
+  }
+  cp_async_wait<0>();
+
+  // Stage u is released by a warp once all its threads are past it; the
+  // last of the CTA's warps to release it copies stage u + STAGES in.  The
+  // warp barrier orders every lane's reads of the stage before lane 0's
+  // fence and count (a release); the last warp's fence after the count (an
+  // acquire) orders all warps' reads before its copy's write.
+  const int warps = blockDim.x >> 5;
+  int t = -1, rel = 0;  // stages < t + 1 have landed; < rel released
+  auto release = [&](int upto) {
+    __syncwarp();
+    for (; rel < upto; ++rel) {
+      if (lane == 0) {
+        __threadfence_block();
+        const int was = atomicAdd(released + rel % STAGES, 1);
+        if (was == (rel / STAGES + 1) * warps - 1 && rel + STAGES < stages) {
+          __threadfence_block();
+          issue(rel + STAGES);
+        }
+      }
+    }
+  };
+
+  float4 acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int sw = lane & 7;
+  for (;;) {
+    while (t + 1 < stages &&
+           mbar_test(full + (t + 1) % STAGES, ((t + 1) / STAGES) & 1))
+      ++t;
+    // Rows below `avail` have landed: the warp steps if any thread can.
+    // (Stepping only with most threads able, or only for rows the ring
+    // must free, left warps waiting: 57-82 ms against 44 on the shape
+    // below.)
+    const bool last = t + 1 == stages;
+    const int avail = last ? NONE : (t + 1) * R;
+    const bool stepped = __any_sync(FULL_MASK, row < avail);
+    if (stepped) {
+      if (row < avail) {
+        const float4* src = gg_ring + (row % GG_RING) * 8;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 v = src[i ^ sw];
+          acc[i].x = fmaf(sg, v.x, acc[i].x);
+          acc[i].y = fmaf(sg, v.y, acc[i].y);
+          acc[i].z = fmaf(sg, v.z, acc[i].z);
+          acc[i].w = fmaf(sg, v.w, acc[i].w);
+        }
+        // The last entry of a half: its slots take the half after next;
+        // the next half's group is then the older of the two in flight.
+        const bool more = (x & 1u) == 1u && x + 3 < xe;
+        if (more) fetch(x + 3);
+        ++x;
+        if (x < xe) {
+          if ((x & 1u) == 0u) {
+            if (more) cp_async_wait<1>();
+            else cp_async_wait<0>();
+          }
+          const uint2 e = reinterpret_cast<const uint2*>(
+              mine + ((x >> 1) & 1) * GG_THREADS)[x & 1];
+          row = (int)e.x;
+          sg = __uint_as_float(e.y);
+        } else {
+          row = NONE;
+        }
+      }
+    } else if (last) {
+      break;  // every stage has landed and no thread has an entry left
+    }
+    // Release the stages all threads are past; with no step to take, all
+    // are, and the warp waits for the next stage.
+    const int least = __reduce_min_sync(FULL_MASK, row);
+    release(min(least == NONE ? stages : least / R, t + 1));
+    if (!stepped) mbar_wait(full + (t + 1) % STAGES, ((t + 1) / STAGES) & 1);
+  }
+  release(stages);
+  cp_async_wait<0>();
+  const int g = threadIdx.x / b, q = threadIdx.x - g * b;
+  if (g >= live) return;
+
+  // acc[i] holds columns 4 (i ^ sw) .. + 3 of the strip.
+  float* o = out + ((size_t)blk[g] * b + q) * d;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = c0 + 4 * (i ^ sw);
+    float4 v = acc[i];
+    if (kLayers) v = make_float4(v.x * scale, v.y * scale, v.z * scale,
+                                 v.w * scale);
+    if (col < d) *reinterpret_cast<float4*>(o + col) = v;
+  }
+}
+
+// The (n x d) row-major A as a tensor map of (32 x rows) boxes, fp32, no
+// swizzle; cuTensorMapEncodeTiled through the runtime's driver entry point.
+inline cudaError_t strip_map(CUtensorMap* map, const float* a, int n, int d,
+                             int rows) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                             void*, const cuuint64_t*, const cuuint64_t*,
+                             const cuuint32_t*, const cuuint32_t*,
+                             CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion,
+                             CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(float)};
+  const cuuint32_t box[2] = {32, (cuuint32_t)rows};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)a, dims,
+                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// The grouped gather takes A and out with 16-byte aligned rows (d % 4 == 0,
+// both 16-byte aligned), as the tensor copies ask; the host plans the
+// per-bucket gather for any other A.
+inline cudaError_t launch_grouped(const int* off, const uint2* ent,
+                                  const float* a, const float* mask,
+                                  float* out, int n, int d, int b, int s,
+                                  int k0, int kc, int group, float scale,
+                                  cudaStream_t stream) {
+  if (d % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return cudaErrorInvalidValue;
+  auto kernel = s == 1 ? cs_gather_grouped_kernel<false>
+                       : cs_gather_grouped_kernel<true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GG_SMEM);
+  if (err != cudaSuccess) return err;
+  const int groups = (kc + group - 1) / group;
+  const long long blocks = (long long)((d + 31) / 32) * groups;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  CUtensorMap map;
+  err = strip_map(&map, a, n, d, GG_STAGE);
+  if (err != cudaSuccess) return err;
+  const int threads = (group * b + 31) / 32 * 32;
+  kernel<<<(unsigned)blocks, threads, GG_SMEM, stream>>>(
+      off, ent, mask, out, n, d, b, s, k0, kc, group, groups, scale, map);
+  return cudaGetLastError();
+}
+
 // How the host planned the apply (kernels/count_sketch.py, apply_plan):
-// `chunks` sort chunks per block and `width` columns per strip.
+// `chunks` sort chunks per block, `width` columns per strip of the
+// per-bucket gather; with `group` > 1 the grouped gather instead, `group`
+// blocks a CTA.
 struct ApplyPlan {
   int chunks;
   int width;
+  int group;
 };
 
 // The scratch, in int32 words: ent 2 K s n, off K (b + 1), cnt K chunks b.
@@ -270,12 +653,20 @@ inline cudaError_t launch_sort(const int* h, const float* sigma,
   return cudaGetLastError();
 }
 
-// The gather of blocks [k0, k0 + kc) into out (kc, b, d).
+// The gather of blocks [k0, k0 + kc) into out (kc, b, d): grouped where
+// the plan groups blocks, else per bucket.
 inline cudaError_t launch_gather(SortScratch sc, const float* a,
                                  const float* mask, float* out, int n, int d,
-                                 int b, int s, int k0, int kc, int width,
+                                 int b, int s, int k0, int kc, ApplyPlan plan,
                                  float scale, cudaStream_t stream) {
-  switch (width) {
+  if (plan.group > 1) {
+    if (plan.group > GG_MAX_GROUP || (long long)plan.group * b > GG_THREADS ||
+        (long long)(k0 + kc) * s * n >= (1LL << 32))
+      return cudaErrorInvalidValue;
+    return launch_grouped(sc.off, sc.ent, a, mask, out, n, d, b, s, k0, kc,
+                          plan.group, scale, stream);
+  }
+  switch (plan.width) {
     case 8:
       return launch_gather_w<8>(sc.off, sc.ent, a, mask, out, n, d, b, s, k0,
                                 kc, scale, stream);
@@ -301,8 +692,8 @@ inline cudaError_t launch_cs_apply(const int* h, const float* sigma,
   cudaError_t err =
       launch_sort(h, sigma, nullptr, sc, k, n, b, s, plan.chunks, stream);
   if (err != cudaSuccess) return err;
-  return launch_gather(sc, a, nullptr, out, n, d, b, s, 0, k, plan.width,
-                       scale, stream);
+  return launch_gather(sc, a, nullptr, out, n, d, b, s, 0, k, plan, scale,
+                       stream);
 }
 
 // ----------------------------------------------------------------- gram
@@ -348,21 +739,6 @@ constexpr int G_STAGES = 3;    // stages in flight
 constexpr int G_THREADS = 256; // 16 x 16 threads, 8 x 8 outputs each
 constexpr int G_SMEM = G_STAGES * 2 * GK * GT * (int)sizeof(float);
 constexpr int G_BAND = 32;     // rows of a tile per reduce CTA
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Upper-triangle tile t of T x T tiles -> (ti, tj), ti <= tj, row-major.
 __device__ __forceinline__ void gram_tile(int t, int T, int& ti, int& tj) {
@@ -588,8 +964,8 @@ inline cudaError_t launch_sketch_gram(const int* h, const float* sigma,
   if (err != cudaSuccess) return err;
   for (int k0 = 0; k0 < k; k0 += chunk) {
     const int kc = chunk < k - k0 ? chunk : k - k0;
-    err = launch_gather(sc, a, mask, scratch, n, d, b, s, k0, kc, plan.width,
-                        scale, stream);
+    err = launch_gather(sc, a, mask, scratch, n, d, b, s, k0, kc, plan, scale,
+                        stream);
     if (err != cudaSuccess) return err;
     err = launch_gram(scratch, mask, g, gscratch, k0, kc, k, b, d, slices,
                       k0 > 0, k0 + kc >= k, stream);

@@ -15,7 +15,9 @@
 // FFMA rate.  Design: sort every live block's codes by bucket once, then
 // walk the blocks in chunks of at most the wrapper's CHUNK_BYTES (all 150
 // blocks at those shapes); for each chunk the sorted gather of
-// sketch_common.cuh writes the live blocks' A_tilde into a scratch buffer
+// sketch_common.cuh (grouped at b = 256: a row of A's strip read once into
+// shared memory for four live blocks) writes the live blocks' A_tilde
+// into a scratch buffer
 // and the masked Gram of sketch_common.cuh (launch_gram, also behind
 // oversketch_gram.cu) folds m_k A_k^T A_k into G (the first chunk
 // overwrites G, the last divides by the survivor count).  A masked block
@@ -28,8 +30,8 @@ extern "C" int sketch_gram_count_launch(const int* h, const float* sigma,
                                         uint32_t* iscratch, float* gscratch,
                                         int k, int n, int d, int b, int chunk,
                                         int slices, int chunks, int width,
-                                        void* stream) {
+                                        int group, void* stream) {
   return (int)sketch::launch_sketch_gram(
       h, sigma, a, mask, g, scratch, iscratch, gscratch, k, 1, n, d, b,
-      chunk, slices, {chunks, width}, 1.f, (cudaStream_t)stream);
+      chunk, slices, {chunks, width, group}, 1.f, (cudaStream_t)stream);
 }

@@ -19,7 +19,8 @@
 // bucket's list in registers, so two layers of one row that land in one
 // bucket add twice, as the reference's slot-summed segment_sum adds them,
 // and the 1/sqrt(s) scale is applied once at write-out.  A's K s re-reads
-// come from L2.
+// come from L2, or, where the plan groups blocks (b = 256: four), from
+// shared memory, a row of A's strip read once for the group.
 #include "sketch_common.cuh"
 
 extern "C" int sketch_gram_sjlt_launch(const int* h, const float* sigma,
@@ -28,8 +29,9 @@ extern "C" int sketch_gram_sjlt_launch(const int* h, const float* sigma,
                                        uint32_t* iscratch, float* gscratch,
                                        int k, int s, int n, int d, int b,
                                        int chunk, int slices, int chunks,
-                                       int width, float scale, void* stream) {
+                                       int width, int group, float scale,
+                                       void* stream) {
   return (int)sketch::launch_sketch_gram(
       h, sigma, a, mask, g, scratch, iscratch, gscratch, k, s, n, d, b,
-      chunk, slices, {chunks, width}, scale, (cudaStream_t)stream);
+      chunk, slices, {chunks, width, group}, scale, (cudaStream_t)stream);
 }

@@ -4,6 +4,9 @@ Each entry point runs its plain version (``ref.py``, or ``prng`` for the
 draws) on the CPU and its hand-written CUDA kernel on a CUDA device.
 ``KERNELS`` maps each kernel's name to its ``CudaKernel``, whose
 ``launches`` counts the launches made through the entry point.
+``INNER`` counts the kernels with no entry point of their own, which run
+inside others' launches: the grouped gather of ``count_sketch_apply`` and
+the fused count-sketch and SJLT Grams.  ``launch_counts`` reports both.
 
 Profiling hook: ``set_profiler(metrics_registry)`` attaches an
 ``obs.MetricsRegistry`` to the eight entry points the reference wraps;
@@ -93,12 +96,13 @@ KERNELS: Dict[str, CudaKernel] = {
                         _sg.SJLT_KERNEL, _sg.SRHT_KERNEL, _srht.FWHT_KERNEL,
                         _srht.TWO_PASS_KERNEL, _normal.KERNEL,
                         _normal.WINDOW_KERNEL, _draw.KERNEL)}
+INNER: Dict[str, _cs.InnerLaunches] = {_cs.GROUPED.name: _cs.GROUPED}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    return {name: k.launches for name, k in {**KERNELS, **INNER}.items()}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
+    for k in (*KERNELS.values(), *INNER.values()):
         k.launches = 0

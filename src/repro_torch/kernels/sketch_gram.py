@@ -24,17 +24,19 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels._check import check_cuda, on_cpu, stream
-from repro_torch.kernels.count_sketch import apply_plan
+from repro_torch.kernels.count_sketch import (GROUPED, apply_plan,
+                                              rows_aligned)
 from repro_torch.kernels.oversketch_matmul import gram_scratch
+from repro_torch.obs.host import TRACER
 
 KERNEL = CudaKernel(
     "sketch_gram_count", "sketch_gram.cu", "sketch_gram_count_launch",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     replaces="src/repro/kernels/sketch_gram.py:275")
 SJLT_KERNEL = CudaKernel(
     "sketch_gram_sjlt", "sketch_gram_sjlt.cu", "sketch_gram_sjlt_launch",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                                   ctypes.c_void_p],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                    ctypes.c_void_p],
     replaces="src/repro/kernels/sketch_gram.py:296")
 SRHT_KERNEL = CudaKernel(
     "sketch_gram_srht", "sketch_gram_srht.cu", "sketch_gram_srht_launch",
@@ -65,7 +67,8 @@ def _sketch_gram(kernel: CudaKernel, h: torch.Tensor, sigma: torch.Tensor,
     k, n = h.shape[0], h.shape[-1]
     d = a.shape[1]
     b = int(block_size)
-    chunk, plan = chunk_blocks(k, b, d), apply_plan(k, s, n, b)
+    chunk = chunk_blocks(k, b, d)
+    plan = apply_plan(k, s, n, b, rows_aligned(a))
     mask = survivors.to(torch.float32)
     g = torch.empty((d, d), dtype=torch.float32, device=a.device)
     scratch = torch.empty((chunk, b, d), dtype=torch.float32, device=a.device)
@@ -80,8 +83,13 @@ def _sketch_gram(kernel: CudaKernel, h: torch.Tensor, sigma: torch.Tensor,
     kernel.launch(h.data_ptr(), sigma.data_ptr(), a.data_ptr(),
                   mask.data_ptr(), g.data_ptr(), scratch.data_ptr(),
                   iscratch.data_ptr(), gscratch.data_ptr(), k, *layers, n, d,
-                  b, chunk, slices, plan.sort_chunks, plan.width, *scale,
-                  stream(a))
+                  b, chunk, slices, plan.sort_chunks, plan.width, plan.group,
+                  *scale, stream(a))
+    if plan.group > 1:
+        GROUPED.launches += -(-k // chunk)
+    # The gather's group, on the innermost open host span: the
+    # ``sketch_gram`` span of ``core.newton._hessian_phase``.
+    TRACER.annotate(group=plan.group)
     return g
 
 

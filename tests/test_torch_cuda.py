@@ -110,7 +110,10 @@ def test_launches_are_counted(cuda):
                                    "sketch_gram_srht": 0,
                                    "fwht": 1, "fwht_two_pass": 1,
                                    "normal": 1, "normal_window": 1,
-                                   "draw": 2}
+                                   "draw": 2,
+                                   # b = 32 groups all 4 blocks: the
+                                   # grouped gather, once a call.
+                                   "cs_gather_grouped": 3}
 
 
 # Past b ~ 1,700 no (b x 32) shared-memory tile fits: the apply's sort
@@ -172,8 +175,10 @@ def test_layered_count_sketch_apply_is_the_sjlt_apply(cuda, k, s, n, d, b):
 
 
 # Block sizes on both sides of b ~ 1,700, past which no (b x 32) shared-
-# memory tile fits: the sorted gather serves them all.
-FORM_SIZES = [256, 1024, 1600, 1800, 2000, 4096]
+# memory tile fits: the sorted gather serves them all.  The plan groups
+# blocks at b = 128 (8 a group), 256 (4) and 512 (2), and gathers per
+# bucket from b = 1,024 on.
+FORM_SIZES = [128, 256, 1024, 1600, 1800, 2000, 4096]
 # (n, d): n not a multiple of a sort chunk, d = 1, d not a multiple of a
 # 32-column strip and not of 4, d a multiple of both.
 GEOMS = [(3001, 45), (700, 1), (128, 33), (1000, 64)]
@@ -245,6 +250,78 @@ def test_fused_grams_skewed_buckets(cuda, b, kind):
     want = ref.sketch_gram_count(hc[:, 0], sc[:, 0], a, b, m)
     assert _rel_err(got, want) < REL_TOL
     assert torch.equal(ops.sketch_gram_count(h1, s1, a, b, m), got)
+
+
+# 13 blocks, 9 live, masked ones between live ones: groups of 8 + 1 at
+# b = 128, 4 + 4 + 1 at 256, 2 + 2 + 2 + 2 + 1 at 512.
+GROUP_MASK = [True, False, True, True, False, False, True, True, True,
+              False, True, True, True]
+
+
+@pytest.mark.parametrize("b", [128, 256, 512, 4096])
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("n,d", [(3001, 45), (1000, 100)])
+def test_grouped_gather_against_plain(cuda, b, s, n, d):
+    """The grouped gather where the plan groups blocks, the per-bucket one
+    where it does not (b = 4,096, or d = 45, whose rows are not 16-byte
+    aligned), each against the plain version and on a second launch bit
+    for bit: n is no multiple of a stage's rows, d no multiple of a
+    32-column strip."""
+    from repro_torch.kernels import count_sketch as cs
+    k = len(GROUP_MASK)
+    h, sigma, a = _skewed(cuda, "out_of_range", k, s, n, d, b, seed=b + s)
+    if s == 1:
+        h, sigma = h[:, 0].contiguous(), sigma[:, 0].contiguous()
+    m = torch.tensor(GROUP_MASK, device=cuda)
+    hc, sc = _in_range(h, sigma, b)
+    grouped = cs.apply_plan(k, s, n, b, cs.rows_aligned(a)).group > 1
+    assert grouped == (b < 1024 and d % 4 == 0)
+    ops.reset_launch_counts()
+    if s == 1:
+        got = ops.sketch_gram_count(h, sigma, a, b, m)
+        want = ref.sketch_gram_count(hc, sc, a, b, m)
+        assert torch.equal(ops.sketch_gram_count(h, sigma, a, b, m), got)
+        a_t = ops.count_sketch_apply(h, sigma, a, b)
+        assert _rel_err(a_t, ref.count_sketch_apply(hc, sc, a, b)) < REL_TOL
+    else:
+        got = ops.sketch_gram_sjlt(h, sigma, a, b, m)
+        want = ref.sketch_gram_sjlt(hc, sc, a, b, m)
+        assert torch.equal(ops.sketch_gram_sjlt(h, sigma, a, b, m), got)
+        a_t = ops.count_sketch_apply(h, sigma, a, b)
+        assert _rel_err(a_t, ref.sjlt_apply(hc, sc, a, b)) < REL_TOL
+    assert _rel_err(got, want) < REL_TOL
+    assert torch.equal(ops.count_sketch_apply(h, sigma, a, b), a_t)
+    assert ops.launch_counts()["cs_gather_grouped"] == 4 * grouped
+
+
+@pytest.mark.parametrize("s", [1, 4])
+def test_grouped_gather_gives_the_per_bucket_bits(cuda, monkeypatch, s):
+    """Both gathers sum each output entry with one fmaf a row in ascending
+    row order: the grouped gather (b = 256, groups of 4) and the per-bucket
+    one, run with a plan of group 1, give the same bits."""
+    import dataclasses
+    from repro_torch.kernels import count_sketch as cs
+    from repro_torch.kernels import sketch_gram
+    k, n, d, b = 10, 5000, 96, 256
+    h, sigma, a = _sjlt_inputs(cuda, k, s, n, d, b, seed=s)
+    if s == 1:
+        h, sigma = h[:, 0].contiguous(), sigma[:, 0].contiguous()
+    m = torch.arange(k, device=cuda) % 4 != 1
+    fused = ops.sketch_gram_count if s == 1 else ops.sketch_gram_sjlt
+    assert cs.apply_plan(k, s, n, b).group == 4
+    grouped = (ops.count_sketch_apply(h, sigma, a, b),
+               fused(h, sigma, a, b, m))
+    plan = cs.apply_plan
+
+    def per_bucket(*args):
+        return dataclasses.replace(plan(*args), group=1)
+    monkeypatch.setattr(cs, "apply_plan", per_bucket)
+    monkeypatch.setattr(sketch_gram, "apply_plan", per_bucket)
+    ops.reset_launch_counts()
+    plain = (ops.count_sketch_apply(h, sigma, a, b), fused(h, sigma, a, b, m))
+    assert ops.launch_counts()["cs_gather_grouped"] == 0
+    assert torch.equal(grouped[0], plain[0])
+    assert torch.equal(grouped[1], plain[1])
 
 
 def test_apply_takes_a_misaligned_a(cuda):

@@ -256,7 +256,7 @@ def test_argument_checks_refuse_wrong_dtype_shape_layout():
 
 
 def test_launch_counts_reset():
-    for k in ops.KERNELS.values():
+    for k in (*ops.KERNELS.values(), *ops.INNER.values()):
         k.launches = 3
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
@@ -265,22 +265,56 @@ def test_launch_counts_reset():
                                 "sketch_gram_sjlt", "sketch_gram_srht",
                                 "fwht", "fwht_two_pass", "normal",
                                 "normal_window", "draw"}
+    assert set(ops.launch_counts()) == {*ops.KERNELS, "cs_gather_grouped"}
 
 
-# (K, s, n, b) -> sort chunks: one per ~8,192 entries, 1 to 64.
-PLANS = [(10, 4, 300_000, 4096, 64), (10, 1, 300_000, 4096, 37),
-         (150, 1, 300_000, 256, 37), (120, 4, 300_000, 256, 64),
-         (3, 1, 1000, 4096, 1), (2, 3, 50_000, 16, 19)]
+# (K, s, n, b) -> sort chunks: one per ~8,192 entries, 1 to 64; and the
+# gather's group: 1,024 threads over b, at most K and 32, and 1 (the
+# per-bucket gather) where no group of two fits.
+PLANS = [(10, 4, 300_000, 4096, 64, 1),    # distributed-avg
+         (10, 1, 300_000, 4096, 37, 1),
+         (150, 1, 300_000, 256, 37, 4),    # logistic-oversketch
+         (120, 4, 300_000, 256, 64, 4),    # the SJLT's live blocks
+         (3, 1, 1000, 4096, 1, 1), (2, 3, 50_000, 16, 19, 2)]
+GROUPS = [(230, 1, 1_800_000, 256, 64, 4),  # softmax-emnist
+          (150, 1, 300_000, 128, 37, 8), (150, 4, 300_000, 512, 64, 2),
+          (150, 1, 300_000, 1024, 37, 1), (3, 1, 1000, 256, 1, 3),
+          (1, 1, 1000, 256, 1, 1), (100, 1, 1000, 16, 1, 32),
+          (5, 2, 1000, 600, 1, 1),
+          (2000, 4, 600_000, 256, 64, 1)]   # K s n past 2^32 entries
 
 
-@pytest.mark.parametrize("k,s,n,b,chunks", PLANS)
-def test_apply_plan_sizes_the_sort(k, s, n, b, chunks):
+@pytest.mark.parametrize("k,s,n,b,chunks,group", PLANS + GROUPS)
+def test_apply_plan_sizes_the_sort(k, s, n, b, chunks, group):
     """The CUDA apply's plan at any b: the sort's chunks, the gather's
-    width, and its scratch: the sorted (row, sigma) pairs, the bucket
-    starts and the per-chunk counts, as int32 words."""
+    width and group, and its scratch: the sorted (row, sigma) pairs, the
+    bucket starts and the per-chunk counts, as int32 words."""
     from repro_torch.kernels import count_sketch as cs
     assert cs.apply_plan(k, s, n, b) == cs.ApplyPlan(
-        chunks, cs.GATHER_WIDTH, 2 * k * s * n + k * (b + 1) + k * chunks * b)
+        chunks, cs.GATHER_WIDTH, group,
+        2 * k * s * n + k * (b + 1) + k * chunks * b)
+
+
+def test_group_limits_are_the_kernels():
+    """The plan's group limits are the grouped gather's own constants,
+    which the launch checks: threads a CTA and blocks a group."""
+    import re
+    from repro_torch.kernels import _build, count_sketch as cs
+    src = (_build.CSRC / "sketch_common.cuh").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (GG_\w+) = (\d+);", src)}
+    assert consts["GG_THREADS"] == cs.GROUP_THREADS
+    assert consts["GG_MAX_GROUP"] == cs.GROUP_MAX
+
+
+def test_apply_plan_groups_only_aligned_rows():
+    """The grouped gather's tensor copies need A's rows 16-byte aligned:
+    d a multiple of 4 and A's start aligned; else the per-bucket gather."""
+    from repro_torch.kernels import count_sketch as cs
+    assert cs.apply_plan(150, 1, 300_000, 256, aligned=False).group == 1
+    assert cs.rows_aligned(torch.zeros(10, 8))
+    assert not cs.rows_aligned(torch.zeros(10, 6))
+    assert not cs.rows_aligned(torch.zeros(81)[1:].view(10, 8))
 
 
 def test_apply_plan_refuses_more_than_int_entries():
