@@ -11,11 +11,11 @@ same quantities out again in float64 after the window.
 
 On the program's path the audit wraps the entries that the main loop
 calls each iteration: ``core.newton._hessian_phase`` (it opens the
-iteration and reads the iterate), ``kernels.ops.sketch_gram_count`` and
-``sketch_gram_srht`` (the draws as the kernel received them and its
-output), and ``core.newton._solve_direction`` (the gradient and the
-direction).  A stand-in solver (``reference/control.py``) calls
-``next_iteration`` and ``take`` itself.
+iteration and reads the iterate), the cell's sketch family's fused kernel
+(``families/<family>.py``: ``ENTRY`` in ``kernels.ops``; the draws as the
+kernel received them and its output), and ``core.newton._solve_direction``
+(the gradient and the direction).  A stand-in solver
+(``reference/control.py``) calls ``next_iteration`` and ``take`` itself.
 """
 from __future__ import annotations
 
@@ -46,29 +46,32 @@ def host(t: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
                       for i in range(0, t.shape[0], PIECE)])
 
 
-def _code_dtype(block_size: int) -> torch.dtype:
-    return torch.uint8 if block_size <= 256 else torch.int32
+def compact_codes(h: torch.Tensor, block_size: int) -> Dict:
+    """Bucket codes in [0, block_size) on the host as small integers, with
+    their range (a code outside it stays visible there)."""
+    dtype = torch.uint8 if block_size <= 256 else torch.int32
+    return {"h": host(h, dtype), "h_range": (int(h.min()), int(h.max()))}
 
 
-def compact_draws(draws: Dict) -> Dict:
-    """The draws on the host: codes and rows as small integers, signs as
-    int8 (a sign that is not +-1 stays visible as another value)."""
-    out = {"family": draws["family"], "block_size": int(draws["block_size"]),
+def compact_draws(draws: Dict, family) -> Dict:
+    """The draws on the host: signs as int8 (a sign that is not +-1 stays
+    visible as another value), the live blocks, and what ``family``'s
+    ``compact`` keeps of its own draws."""
+    out = {"block_size": int(draws["block_size"]),
            "live": host(draws["live"]).bool(),
-           "sigma": host(draws["sigma"], torch.int8)}
-    if draws["family"] == "count":
-        out["h"] = host(draws["h"], _code_dtype(int(draws["block_size"])))
-        out["h_range"] = (int(draws["h"].min()), int(draws["h"].max()))
-    else:
-        out["rows"] = host(draws["rows"], torch.int32)
-    out["sigma_abs"] = (float(draws["sigma"].abs().min()),
-                        float(draws["sigma"].abs().max()))
+           "sigma": host(draws["sigma"], torch.int8),
+           "sigma_abs": (float(draws["sigma"].abs().min()),
+                         float(draws["sigma"].abs().max()))}
+    out.update(family.compact(draws))
     return out
 
 
 class Audit:
-    def __init__(self, plan_: Dict[int, int]):
+    """The audited iterations of a window whose sketch is ``family``'s."""
+
+    def __init__(self, plan_: Dict[int, int], family):
         self.plan = dict(plan_)
+        self.family = family
         self.records: List[Dict] = []
         self.call: Optional[int] = None
         self.iteration = -1
@@ -96,7 +99,7 @@ class Audit:
         if self.current is None:
             return
         if draws is not None and "draws" not in self.current:
-            self.current["draws"] = compact_draws(draws)
+            self.current["draws"] = compact_draws(draws, self.family)
         for k, v in tensors.items():
             self.current.setdefault(k, host(v))
 
@@ -116,23 +119,12 @@ class Audit:
                 return orig(objective, data, w, *args, **kwargs)
             return f
 
-        def count(orig):
-            def f(h, sigma, a, block_size, survivors):
-                out = orig(h, sigma, a, block_size, survivors)
+        def sketch_gram(orig):
+            def f(*args, **kwargs):
+                out = orig(*args, **kwargs)
                 if self.current is not None:
-                    self.take(draws={"family": "count", "h": h,
-                                     "sigma": sigma, "live": survivors,
-                                     "block_size": block_size}, gram=out)
-                return out
-            return f
-
-        def srht(orig):
-            def f(rows, sigma, a, survivors):
-                out = orig(rows, sigma, a, survivors)
-                if self.current is not None:
-                    self.take(draws={"family": "srht", "rows": rows,
-                                     "sigma": sigma, "live": survivors,
-                                     "block_size": rows.shape[1]}, gram=out)
+                    draws, _ = self.family.unpack(*args, **kwargs)
+                    self.take(draws=draws, gram=out)
                 return out
             return f
 
@@ -144,8 +136,7 @@ class Audit:
             return f
 
         self._wrap(newton, "_hessian_phase", hessian)
-        self._wrap(kops, "sketch_gram_count", count)
-        self._wrap(kops, "sketch_gram_srht", srht)
+        self._wrap(kops, self.family.ENTRY, sketch_gram)
         self._wrap(newton, "_solve_direction", direction)
         return self
 

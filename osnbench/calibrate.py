@@ -54,10 +54,11 @@ def main(argv=None) -> int:
     elif args.side != "program":
         raise SystemExit(f"unknown side {args.side!r}")
     for seed in (int(s) for s in args.seeds.split(",") if s):
-        with (faults.plant(fault) if fault else contextlib.nullcontext()):
-            out = run.run_cell(spec.cell(args.workload), seed, args.seconds,
-                               False, dev, t_start=time.time(),
-                               make_solver=make_solver)
+        cell = spec.cell(args.workload)
+        with (faults.plant(fault, cell["family"]) if fault
+              else contextlib.nullcontext()):
+            out = run.run_cell(cell, seed, args.seconds, False, dev,
+                               t_start=time.time(), make_solver=make_solver)
         print(json.dumps({"side": args.side, "seed": seed,
                           "correct": out["correct"],
                           "attempted": out["attempted"],

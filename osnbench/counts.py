@@ -47,11 +47,35 @@ def sketch_gram_intensity(k: int, n: int, d: int, b: int,
     }
 
 
-def sketch_gram_bound_s(k: int, n: int, d: int, b: int, k_live: int) -> float:
-    """The fused count-sketch -> Gram call's roofline time: the larger of
-    its operations over the float32 peak and its bytes over HBM's."""
-    flops, byts = sketch_gram_intensity(k, n, d, b, k_live)["fused"]
+def roofline_s(flops: float, byts: float) -> float:
+    """A call's least time: the larger of its operations over the float32
+    peak and its bytes over HBM's."""
     return max(flops / FP32_FLOPS, byts / HBM_BW)
+
+
+def sketch_gram_bound_s(k: int, n: int, d: int, b: int, k_live: int) -> float:
+    """The fused count-sketch -> Gram call's roofline time."""
+    return roofline_s(*sketch_gram_intensity(k, n, d, b, k_live)["fused"])
+
+
+def sjlt_gram_intensity(k: int, s: int, n: int, d: int, b: int,
+                        k_live: int) -> tuple:
+    """(flops, HBM bytes) of the fused SJLT -> Gram call
+    (``kernels.ops.sketch_gram_sjlt``, ``csrc/sketch_gram_sjlt.cu``) at K
+    blocks of b rows, ``k_live`` of them surviving, each with s signed
+    layers, over an (n, d) fp32 A.  A masked block is neither sorted nor
+    gathered, so only the live blocks' draws count.
+
+    * operations: per live block the apply's 2 s n d (each of the s
+      entries of a row of A signed and added), the 1 / sqrt(s) scale at
+      write-out (b d), and the upper-triangle Gram's b d (d + 1);
+    * bytes: A once, the live blocks' codes and signs (int32 and float32,
+      s n each), A_tilde written and read once, G written once, the mask.
+    """
+    flops = float(k_live) * (2.0 * s * n * d + b * d + b * d * (d + 1))
+    byts = (4.0 * n * d + 8.0 * k_live * s * n + 2 * 4.0 * k_live * b * d
+            + 4.0 * d * d + k)
+    return flops, byts
 
 
 def srht_sketch_flops(n: int, d: int, b: int, k_live: int,
@@ -82,30 +106,6 @@ def direction_flops(solver: str, dim: int) -> float:
     if solver == "pinv":
         return (4.0 / 3.0 + 2.0) * dim ** 3 + 4.0 * dim * dim
     raise ValueError(f"no count for solver {solver!r}")
-
-
-def iteration_flops(objective: str, n: int, d: int, classes: int) -> float:
-    """One Newton iteration's operations outside the sketch -> Gram call
-    and the direction's solve, which the caller counts as they ran (the
-    sketch's depend on the blocks that survived).
-
-    logistic, p = n d: the coded gradient's X w and X^T beta (4p); the
-    Hessian square root's X w and row scaling (3p); the Armijo search's
-    f at w and at every candidate (2p (1 + C)); the logged f and gradient
-    at the new iterate (6p).  softmax, p = n d K, D = d K: the gradient's
-    K mat-vecs each way (4p); the square root's logits (2p) and its
-    (n K, D) product, one multiply and one divide an element (2 n K D);
-    the gradient-norm search's trial gradients (4p C) and the sketched
-    Hessian times g (2 D^2); the logged f and gradient (6p)."""
-    c = CANDIDATES
-    if objective == "logistic":
-        return (4 + 3 + 2 * (1 + c) + 6) * float(n) * d
-    if objective == "softmax":
-        p = float(n) * d * classes
-        dim = d * classes
-        return ((4 + 2 + 4 * c + 6) * p + 2.0 * n * classes * dim
-                + 2.0 * dim * dim)
-    raise ValueError(f"no count for objective {objective!r}")
 
 
 def encode_flops(rows: int, cols: int) -> float:

@@ -3,7 +3,8 @@ comparison that decides ``correct`` catches each one: the CPU tests run
 every fault through ``run.run_cell`` at a small size, and
 ``python -m osnbench.calibrate --side fault:<name>`` reads it on the card
 at the cell's own size.  Each fault patches the port's module attributes
-and ``plant`` undoes it on exit.
+and ``plant`` undoes it on exit.  The Gram's faults patch the cell's sketch
+family's fused kernel (``families/<family>.py``: ``ENTRY``).
 
   state_unchanged  the line search returns step 0: every call returns its
                    start
@@ -62,21 +63,16 @@ def _half_live(survivors: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _gram(change: Callable) -> Callable:
-    """Wraps both sketch -> Gram entries with ``change(orig, a, mask,
+def _gram(change: Callable, family) -> Callable:
+    """Wraps ``family``'s sketch -> Gram entry with ``change(a, mask,
     call)``, where ``call(a, mask)`` runs the original."""
-    def count(orig):
-        def f(h, sigma, a, block_size, survivors):
-            return change(a, survivors,
-                          lambda a2, m2: orig(h, sigma, a2, block_size, m2))
+    def make(orig):
+        def f(*args, **kwargs):
+            draws, a = family.unpack(*args, **kwargs)
+            return change(a, draws["live"], lambda a2, m2: orig(
+                *family.pack(dict(draws, live=m2), a2)))
         return f
-
-    def srht(orig):
-        def f(rows, sigma, a, survivors):
-            return change(a, survivors,
-                          lambda a2, m2: orig(rows, sigma, a2, m2))
-        return f
-    return count, srht
+    return make
 
 
 GRAM_FAULTS = {
@@ -88,7 +84,7 @@ FAULTS = ("state_unchanged", "half_batch", "answer_altered") \
     + tuple(GRAM_FAULTS)
 
 
-def _patches(name: str) -> List[Tuple[object, str, Callable]]:
+def _patches(name: str, family) -> List[Tuple[object, str, Callable]]:
     from osnbench.run import program
     program()                       # the port's package on the path
     from repro_torch import core
@@ -104,18 +100,17 @@ def _patches(name: str) -> List[Tuple[object, str, Callable]]:
     if name == "answer_altered":
         return [(core, "oversketched_newton", _altered)]
     if name in GRAM_FAULTS:
-        count, srht = _gram(GRAM_FAULTS[name])
-        return [(kops, "sketch_gram_count", count),
-                (kops, "sketch_gram_srht", srht)]
+        return [(kops, family.ENTRY, _gram(GRAM_FAULTS[name], family))]
     raise KeyError(f"no fault {name!r}; faults: {', '.join(FAULTS)}")
 
 
 @contextlib.contextmanager
-def plant(name: str):
-    """The fault ``name`` in place for the body of the ``with``."""
+def plant(name: str, family):
+    """The fault ``name`` in place for the body of the ``with``, in a cell
+    whose sketch is ``family``'s."""
     undo: Dict[Tuple[int, str], Tuple[object, str, object]] = {}
     try:
-        for owner, attr, make in _patches(name):
+        for owner, attr, make in _patches(name, family):
             orig = getattr(owner, attr)
             undo[(id(owner), attr)] = (owner, attr, orig)
             setattr(owner, attr, make(orig))

@@ -34,8 +34,8 @@ from pathlib import Path
 
 def _solver(cell, seed, device):
     import torch
-    from osnbench import datagen, run
-    x, y = datagen.make(cell["config"], seed, device)
+    from osnbench import run
+    x, y = cell["objective"].generate(cell["config"], seed, device)
     solve = run.Solver(cell, x, y, device)
     zeros = torch.zeros(solve.dim, dtype=torch.float32, device=device)
     solve(zeros, run.call_seed(seed, -1),

@@ -1,8 +1,9 @@
 """newton_mfu: the whole Newton iteration's share of the card's float32
-peak.  The operations that the window's iterations needed (``counts.py``:
-the coded gradient, the Hessian's square root, each sketch -> Gram call at
-the blocks that survived, each direction solve, the line search, the
-logged f and gradient, each call's product-code encodes) over the window's
+peak.  The operations that the window's iterations needed (the
+objective's ``iteration_flops``: the coded gradient, the Hessian's square
+root, the line search, the logged f and gradient; each sketch -> Gram call
+at the blocks that survived, by its family's ``flops``; ``counts.py``:
+each direction solve, each call's product-code encodes) over the window's
 seconds and 67e12 FLOP/s.  The window is the one a traced run times
 without the profiler (its spans count the work), so the profiler's host
 cost is not in it.  It bounds every kernel's share: a kernel taken off the
@@ -13,22 +14,15 @@ LAYER = "Newton loop"
 UNIT = "%"
 
 
-def sketch_flops(family, k, n, d, b, live):
-    if family == "count":
-        return counts.sketch_gram_intensity(k, n, d, b, live)["fused"][0]
-    return counts.srht_sketch_flops(n, d, b, live)
-
-
 def read(ctx):
     plain = ctx["plain"]
     if not plain["iterations"] or plain["window_s"] <= 0:
         return None
     cfg, rec = ctx["config"], plain["recorder"]
     n, d = int(cfg["n"]), int(cfg["d"])
-    per_iter = counts.iteration_flops(cfg["objective"], n, d,
-                                      int(cfg.get("classes", 1)))
-    ops = (per_iter * plain["iterations"]
-           + sum(sketch_flops(*c) for c in rec.sketch_calls())
+    ops = (ctx["objective"].iteration_flops(cfg) * plain["iterations"]
+           + sum(fam.flops(live, **sizes)
+                 for fam, sizes, live in rec.family_calls())
            + sum(counts.direction_flops(s, dim) for s, dim in rec.solves)
            + 2 * counts.encode_flops(n, d) * plain["calls"])
     return 100.0 * ops / plain["window_s"] / counts.FP32_FLOPS

@@ -5,15 +5,15 @@ can fail: OverSketched Newton in plain PyTorch, with a sketch of its own.
 with a start and a seed, it runs one call's worth of Newton iterations
 and returns the last iterate with a per-iteration log (``fval``,
 ``gnorm``, ``step``, ``wall_s``), as a call of the program does.  Each
-iteration takes the gradient, draws every sketch block of the cell's
-family from its own generator (all live), forms the blocks' Gram
-(``reference/sketch.py``), solves for the direction (Cholesky with the
-regularizer, or the eigh pinv at PINV_RTOL) and takes the program's step
-rule: the Armijo search on a strongly convex f, the gradient-norm search of
-Eq. 6 on a weakly convex one, candidates 4^0 .. 4^-5, beta 0.1.  At the
-iterations the run's audit draws, it hands the audit what the program's
-path hands it: the iterate, the draws, the Gram, the gradient and the
-direction.
+iteration takes the gradient (the objective's ``Problem``), draws every
+sketch block of the cell's family from its own generator (the family's
+``draw``, all live), forms the blocks' Gram (``reference/sketch.py``),
+solves for the direction (Cholesky with the regularizer, or the eigh pinv
+at PINV_RTOL) and takes the program's step rule: the Armijo search on a
+strongly convex f, the gradient-norm search of Eq. 6 on a weakly convex
+one, candidates 4^0 .. 4^-5, beta 0.1.  At the iterations the run's audit
+draws, it hands the audit what the program's path hands it: the iterate,
+the draws, the Gram, the gradient and the direction.
 
 Every matrix product takes its operands through ``rounding``: ``float32``
 keeps them (a sound float32 solver, TF32 off); ``tf32`` rounds each
@@ -53,7 +53,6 @@ def tf32(t: torch.Tensor) -> torch.Tensor:
 
 
 ROUNDINGS: Dict[str, Callable] = {"float32": float32, "tf32": tf32}
-FAMILIES = {"oversketch": "count", "srht": "srht"}   # traffic's name -> draw
 
 
 def _first_ok(ok: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
@@ -61,58 +60,22 @@ def _first_ok(ok: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     return torch.where(ok.any(), cand[idx], cand[-1])
 
 
-class _Logistic:
-    strongly_convex = True
-
-    def __init__(self, x, y, lam, rnd):
-        self.x, self.y, self.lam, self.rnd = rnd(x), y, lam, rnd
-        self.n = x.shape[0]
-
-    def value(self, w):                         # w (C, d) -> (C,)
-        z = -self.y[:, None] * (self.x @ self.rnd(w).T)
-        return (torch.logaddexp(z, torch.zeros_like(z)).mean(0)
-                + 0.5 * self.lam * (w * w).sum(1))
-
-    def gradient(self, w):
-        z = -self.y * (self.x @ self.rnd(w))
-        beta = -self.y * torch.sigmoid(z)
-        return self.x.T @ self.rnd(beta) / self.n + self.lam * w
-
-    def step(self, w, p, g, hg, cand):
-        f0 = self.value(w[None])
-        ft = self.value(w[None] + cand[:, None] * p[None])
-        ok = (ft <= f0 + cand * BETA * (p @ g)) & torch.isfinite(ft)
-        return _first_ok(ok, cand)
+def armijo(prob, w, p, g, hg, cand):
+    """The first candidate with f(w + a p) <= f(w) + a beta p.g (Eq. 5)."""
+    f0 = prob.value(w[None])
+    ft = prob.value(w[None] + cand[:, None] * p[None])
+    ok = (ft <= f0 + cand * BETA * (p @ g)) & torch.isfinite(ft)
+    return _first_ok(ok, cand)
 
 
-class _Softmax:
-    strongly_convex = False
-    lam = 0.0
-
-    def __init__(self, x, y, classes, rnd):
-        self.x, self.y, self.k, self.rnd = rnd(x), y, classes, rnd
-        self.n, self.d = x.shape
-
-    def _logits(self, w):                       # w (C, K d) -> (n, C, K)
-        c = w.shape[0]
-        wk = self.rnd(w).reshape(c * self.k, self.d)
-        return (self.x @ wk.T).view(self.n, c, self.k)
-
-    def value(self, w):
-        lg = self._logits(w)
-        return (torch.logsumexp(lg, -1)
-                - (lg * self.y[:, None, :]).sum(-1)).mean(0)
-
-    def gradient(self, w):
-        p = torch.softmax(self._logits(w[None])[:, 0], -1)
-        return (self.x.T @ self.rnd(p - self.y)).T.reshape(-1) / self.n
-
-    def step(self, w, p, g, hg, cand):
-        trials = torch.stack([(gt * gt).sum() for gt in
-                              (self.gradient(w + a * p) for a in cand)])
-        ok = ((trials <= g @ g + 2.0 * cand * BETA * (p @ hg))
-              & torch.isfinite(trials))
-        return _first_ok(ok, cand)
+def gradient_norm(prob, w, p, g, hg, cand):
+    """The first candidate with ||grad f(w + a p)||^2 <= ||g||^2 +
+    2 a beta p.Hg (Eq. 6)."""
+    trials = torch.stack([(gt * gt).sum() for gt in
+                          (prob.gradient(w + a * p) for a in cand)])
+    ok = ((trials <= g @ g + 2.0 * cand * BETA * (p @ hg))
+          & torch.isfinite(trials))
+    return _first_ok(ok, cand)
 
 
 def direction(h: torch.Tensor, g: torch.Tensor, solver: str) -> torch.Tensor:
@@ -130,11 +93,10 @@ def direction(h: torch.Tensor, g: torch.Tensor, solver: str) -> torch.Tensor:
     raise ValueError(f"no reference for solver {solver!r}")
 
 
-def solver_of(cfg: dict, traffic: dict) -> str:
+def solver_of(objective, traffic: dict) -> str:
+    """The traffic's solver, ``auto`` resolved as the objective says."""
     solver = traffic["solver"]
-    if solver == "auto":
-        solver = "chol" if cfg["objective"] == "logistic" else "pinv"
-    return solver
+    return objective.AUTO_SOLVER if solver == "auto" else solver
 
 
 def total_blocks(traffic: dict) -> int:
@@ -153,18 +115,13 @@ class Control:
         self.cfg, self.tr = cell["config"], cell["traffic"]
         self.x, self.y, self.device = x, y, device
         self.rnd = ROUNDINGS[rounding]
-        if self.cfg["objective"] == "logistic":
-            self.prob = _Logistic(x, y, float(self.cfg["lam"]), self.rnd)
-            self.dim = x.shape[1]
-        elif self.cfg["objective"] == "softmax":
-            k = int(self.cfg["classes"])
-            self.prob = _Softmax(x, y, k, self.rnd)
-            self.dim = x.shape[1] * k
-        else:
-            raise ValueError(
-                f"no reference for objective {self.cfg['objective']!r}")
-        self.solver = solver_of(self.cfg, self.tr)
-        self.family = FAMILIES[self.tr["sketch_family"]]
+        self.cell, obj = cell, cell["objective"]
+        self.prob = obj.Problem(self.cfg, x, y, self.rnd)
+        self.rows = obj.rows_per_sample(self.cfg)
+        self.dim = x.shape[1] * self.rows
+        self.solver = solver_of(obj, self.tr)
+        self.step_rule = armijo if self.prob.strongly_convex \
+            else gradient_norm
         self.audit = None
 
     def attach_audit(self, audit) -> None:
@@ -181,16 +138,16 @@ class Control:
                             device=self.device)
         w = w0.to(device=self.device, dtype=torch.float32).clone()
         hist = {k: [] for k in ("fval", "gnorm", "step", "wall_s")}
-        n_rows = self.x.shape[0] * sketch.rows_per_sample(self.cfg)
+        n_rows = self.x.shape[0] * self.rows
         for _ in range(iters or int(tr["iters"])):
             t0 = time.perf_counter()
             armed = (self.audit is not None
                      and self.audit.next_iteration(w))
             g = prob.gradient(w)
-            draws = sketch.draw(self.family, total_blocks(tr),
-                                int(tr["block_size"]), n_rows, gen,
-                                self.device)
-            gram = sketch.gram(sketch.blocks(self.cfg, self.x, self.y, w,
+            draws = self.cell["family"].draw(total_blocks(tr),
+                                             int(tr["block_size"]), n_rows,
+                                             gen, self.device)
+            gram = sketch.gram(sketch.blocks(self.cell, self.x, self.y, w,
                                              draws, torch.float32, rnd), rnd)
             h = gram + prob.lam * torch.eye(gram.shape[0], device=gram.device)
             p = direction(h, g, self.solver)
@@ -198,7 +155,7 @@ class Control:
                 self.audit.take(draws=draws, gram=gram, g=g, p=p)
             hg = rnd(h) @ rnd(g) if not prob.strongly_convex else None
             del gram
-            step = prob.step(w, p, g, hg, cand)
+            step = self.step_rule(prob, w, p, g, hg, cand)
             w = w + step * p
             hist["fval"].append(float(prob.value(w[None])[0]))
             hist["gnorm"].append(float(torch.linalg.vector_norm(

@@ -4,8 +4,8 @@ window drove, judged against the objective evaluated in float64.
 A call starts at w0 and returns its last iterate w with the f and the
 gradient norm that the solver logged at it.  The reference works f and
 grad f out again in float64, in blocks of rows, from the inputs the
-benchmark made, and reads the program's outputs only to judge them.  Over
-the calls it returns:
+benchmark made (the cell's objective's ``evaluate``), and reads the
+program's outputs only to judge them.  Over the calls it returns:
 
 * ``fval_gap``: |logged f - f(w)| / |f(w)|, the worst call;
 * ``gnorm_gap``: |logged ||g|| - ||grad f(w)|| | / ||grad f(0)||, the worst
@@ -13,8 +13,9 @@ the calls it returns:
   gradient at a solution is all but zero);
 * ``grad_ratio``: ||grad f(w)|| / ||grad f(0)||, the worst call: how far
   the solve got (reported, not compared);
-* ``opt_gap`` (logistic): (||grad f(w)||^2 / (2 lam)) / f(w), the worst
-  call, which bounds f(w) - f* over f(w) for a lam-strongly convex f;
+* ``opt_gap``, where the traffic states or limits it: (||grad f(w)||^2 /
+  (2 lam)) / f(w), the worst call, which bounds f(w) - f* over f(w) for a
+  lam-strongly convex f (lam the objective's ``lam``);
 * ``not_fallen``: the calls whose gradient norm did not fall below the
   one at their start, which the line searches' step rules (Eqs. 5 and 6)
   rule out.
@@ -25,8 +26,9 @@ judges one by one.
 ``audit`` judges the iterations that the run's audit kept from inside the
 window (``osnbench/audit.py``): at each, the reference forms the gradient
 at the program's iterate, the sketched Gram of the Hessian's square root
-at that iterate under the draws the program's kernel received, and the
-direction from both, all in float64, and returns the worst audit's
+at that iterate under the draws the program's kernel received (the cell's
+family's ``q``), and the direction from both, all in float64, and returns
+the worst audit's
 
 * ``grad_gap``: ||g - grad f(w)|| / ||grad f(0)||, the coded gradient;
 * ``gram_gap``: ||H_hat - H_ref||_F / ||H_ref||_F, the sketch -> Gram
@@ -40,10 +42,11 @@ direction from both, all in float64, and returns the worst audit's
   regularizer and p_ref its Cholesky or pinv solve of the gradient the
   program solved with: the direction, measured in H so that a pinv's null
   space does not count;
-* ``audit_bad``: audits whose draws break the sketch's definition (a code
-  outside [0, b), a sign not +-1, a row outside the padded range, draws
-  not one a row of A) or that keep fewer live blocks than the N = m / b
-  that Alg. 2 waits for, or that lack the Gram or the direction.
+* ``audit_bad``: audits whose draws break the sketch's definition (a sign
+  not +-1, draws not one a row of A, or what the family's ``draws_ok``
+  rules out: a code outside [0, b), a row outside the padded range) or
+  that keep fewer live blocks than the N = m / b that Alg. 2 waits for,
+  or that lack the draws, the Gram or the direction.
 
 The draws are the program's own state: the reference follows them, and
 checks them by themselves through ``audit_bad``.
@@ -59,69 +62,29 @@ import torch
 
 from osnbench.reference import control, sketch
 
-ROWS = 1 << 15      # rows of x a block, converted to float64
-
-
-def logistic_eval(x: torch.Tensor, y: torch.Tensor, lam: float,
-                  w: torch.Tensor):
-    """f and grad f at each row of w (C, d), float64:
-    f(w) = mean log(1 + exp(-y x.w)) + lam / 2 ||w||^2."""
-    n = x.shape[0]
-    w = w.to(device=x.device, dtype=torch.float64)
-    f = torch.zeros(w.shape[0], dtype=torch.float64, device=x.device)
-    g = torch.zeros_like(w)
-    for i in range(0, n, ROWS):
-        xb = x[i:i + ROWS].double()
-        yb = y[i:i + ROWS].double()[:, None]
-        z = -yb * (xb @ w.T)                           # (rows, C)
-        f += torch.logaddexp(z, torch.zeros((), dtype=z.dtype,
-                                            device=z.device)).sum(0)
-        g += (-yb * torch.sigmoid(z)).T @ xb
-    return f / n + 0.5 * lam * (w * w).sum(1), g / n + lam * w
-
-
-def softmax_eval(x: torch.Tensor, y: torch.Tensor, classes: int,
-                 w: torch.Tensor):
-    """f and grad f at each row of w (C, K d), class-major, float64:
-    f(W) = mean (logsumexp(x W^T) - y . x W^T), unregularized."""
-    n, d = x.shape
-    c = w.shape[0]
-    w = w.to(device=x.device, dtype=torch.float64)
-    wk = w.reshape(c * classes, d)
-    f = torch.zeros(c, dtype=torch.float64, device=x.device)
-    g = torch.zeros_like(wk)
-    for i in range(0, n, ROWS):
-        xb = x[i:i + ROWS].double()
-        yb = y[i:i + ROWS].double()[:, None, :]
-        logits = (xb @ wk.T).view(-1, c, classes)      # (rows, C, K)
-        f += (torch.logsumexp(logits, -1) - (logits * yb).sum(-1)).sum(0)
-        resid = torch.softmax(logits, -1) - yb
-        g += resid.reshape(-1, c * classes).T @ xb
-    return f / n, g.reshape(c, classes * d) / n
-
-
-def evaluate(cfg: dict, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
-    if cfg["objective"] == "logistic":
-        return logistic_eval(x, y, float(cfg["lam"]), w)
-    if cfg["objective"] == "softmax":
-        return softmax_eval(x, y, int(cfg["classes"]), w)
-    raise ValueError(f"no reference for objective {cfg['objective']!r}")
-
 
 def finite(call: dict) -> bool:
     return (math.isfinite(call["fval"]) and math.isfinite(call["gnorm"])
             and bool(torch.isfinite(call["w"]).all()))
 
 
-def judge(cfg: dict, x: torch.Tensor, y: torch.Tensor, calls: List[dict],
+def _wants_opt_gap(traffic: dict) -> bool:
+    return "opt_gap" in traffic["accuracy"] or "opt_gap" in traffic["limits"]
+
+
+def judge(cell: Dict, x: torch.Tensor, y: torch.Tensor, calls: List[dict],
           batch: int = 16) -> Dict:
     """``calls``: each {"w0": start, "w": iterate, "fval": logged f at w,
-    "gnorm": logged gradient norm at w}, all finite (see ``finite``).
-    Returns the numbers over the calls and each call's accuracy."""
+    "gnorm": logged gradient norm at w}, all finite (see ``finite``), of
+    a run of ``cell``.  Returns the numbers over the calls and each call's
+    accuracy."""
+    cfg, evaluate = cell["config"], cell["objective"].evaluate
     out = {"fval_gap": None, "gnorm_gap": None, "grad_ratio": None,
            "not_fallen": 0, "per_call": [], "g0n": None}
-    if cfg["objective"] == "logistic":
+    opt_gap = _wants_opt_gap(cell["traffic"])
+    if opt_gap:
         out["opt_gap"] = None
+        lam = cell["objective"].lam(cfg)
     if not calls:
         return out
     dim = calls[0]["w"].numel()
@@ -140,8 +103,8 @@ def judge(cfg: dict, x: torch.Tensor, y: torch.Tensor, calls: List[dict],
                    "gnorm_gap": abs(c["gnorm"] - gi) / g0n,
                    "grad_ratio": gi / g0n,
                    "not_fallen": 0 if gi < g_start else 1}
-            if cfg["objective"] == "logistic":
-                one["opt_gap"] = gi * gi / (2.0 * float(cfg["lam"])) / fi
+            if opt_gap:
+                one["opt_gap"] = gi * gi / (2.0 * lam) / fi
             for k, v in one.items():
                 if k == "not_fallen":
                     out[k] += v
@@ -151,39 +114,34 @@ def judge(cfg: dict, x: torch.Tensor, y: torch.Tensor, calls: List[dict],
     return out
 
 
-def _draws_ok(draws: Dict, n_rows: int, n_blocks: int) -> bool:
+def _draws_ok(family, draws: Dict, n_rows: int, n_blocks: int) -> bool:
     sig = draws["sigma"]
-    if sig.shape[1] != n_rows or draws["live"].numel() != sig.shape[0]:
+    if sig.shape[-1] != n_rows or draws["live"].numel() != sig.shape[0]:
         return False
     if draws["sigma_abs"] != (1.0, 1.0) or int(draws["live"].sum()) < n_blocks:
         return False
-    b = int(draws["block_size"])
-    if draws["family"] == "count":
-        lo, hi = draws["h_range"]
-        return 0 <= lo and hi < b and draws["h"].shape == sig.shape
-    n_pad = 1 << max(0, (n_rows - 1).bit_length())
-    rows = draws["rows"]
-    return bool(rows.shape == (sig.shape[0], b) and int(rows.min()) >= 0
-                and int(rows.max()) < n_pad)
+    return family.draws_ok(draws, n_rows)
 
 
-def audit(cfg: dict, traffic: dict, x: torch.Tensor, y: torch.Tensor,
+def audit(cell: Dict, x: torch.Tensor, y: torch.Tensor,
           records: List[dict], g0n: float) -> Dict:
-    """The worst audit's numbers (see the module's doc); ``g0n`` is
-    ||grad f(0)||, worked out here when None."""
+    """The worst audit's numbers (see the module's doc) of a run of
+    ``cell``; ``g0n`` is ||grad f(0)||, worked out here when None."""
+    cfg, traffic, obj = cell["config"], cell["traffic"], cell["objective"]
+    evaluate, rows = obj.evaluate, obj.rows_per_sample(cfg)
     if g0n is None:
-        dim = x.shape[1] * sketch.rows_per_sample(cfg)
-        _, g0 = evaluate(cfg, x, y, torch.zeros((1, dim)))
+        _, g0 = evaluate(cfg, x, y, torch.zeros((1, x.shape[1] * rows)))
         g0n = float(torch.linalg.vector_norm(g0))
     out = {"grad_gap": None, "gram_gap": None, "dir_gap": None,
            "audit_bad": 0, "audits": len(records)}
-    n_rows = x.shape[0] * sketch.rows_per_sample(cfg)
+    n_rows = x.shape[0] * rows
     n_blocks = int(traffic["sketch_dim"]) // int(traffic["block_size"])
-    solver = control.solver_of(cfg, traffic)
-    lam = float(cfg.get("lam", 0.0))
+    solver = control.solver_of(obj, traffic)
+    lam = obj.lam(cfg)
     for rec in records:
         if not all(k in rec for k in ("draws", "gram", "g", "p")) \
-                or not _draws_ok(rec["draws"], n_rows, n_blocks):
+                or not _draws_ok(cell["family"], rec["draws"], n_rows,
+                                 n_blocks):
             out["audit_bad"] += 1
             continue
         w = rec["w"].reshape(-1).to(device=x.device, dtype=torch.float64)
@@ -192,7 +150,7 @@ def audit(cfg: dict, traffic: dict, x: torch.Tensor, y: torch.Tensor,
         gram = rec["gram"].to(g_ref)
         gram_gap, h_ref = None, None
         for cdt in (torch.float64, torch.float32):
-            h_c = sketch.gram(sketch.blocks(cfg, x, y, w, rec["draws"],
+            h_c = sketch.gram(sketch.blocks(cell, x, y, w, rec["draws"],
                                             coef_dtype=cdt))
             gap = float(torch.linalg.matrix_norm(gram - h_c)
                         / torch.linalg.matrix_norm(h_c))

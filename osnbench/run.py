@@ -3,11 +3,12 @@
     python -m osnbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 One run is one cell of ``BENCHMARK.json``: its problem is drawn on the card
-from ``--seed`` (``datagen.py``), one short call of the solver warms every
-shape and kernel (set-up), then the window drives whole calls of
-``repro_torch.core.oversketched_newton`` (``use_kernels=True``, the default
-``StragglerModel`` fleet and DAG schedule) until ``--seconds`` have passed,
-closing at the end of the call in progress.  With ``--trace 1`` the window
+from ``--seed`` (its objective's ``generate``, ``objectives/``), one short
+call of the solver warms every shape and kernel (set-up), then the window
+drives whole calls of ``repro_torch.core.oversketched_newton``
+(``use_kernels=True``, the default ``StragglerModel`` fleet and DAG
+schedule) until ``--seconds`` have passed, closing at the end of the call
+in progress.  With ``--trace 1`` the window
 runs with the layer spans of ``spans.py`` (they count the work), then a
 further span of calls, a third of the window long, runs under
 ``torch.profiler`` for the device's times, and the line carries the
@@ -75,14 +76,9 @@ class Solver:
     def __init__(self, cell: dict, x, y, device):
         core, straggler = program()
         self.core, self.straggler, self.device = core, straggler, device
-        cfg, tr = cell["config"], cell["traffic"]
-        if cfg["objective"] == "logistic":
-            self.objective = core.LogisticRegression(lam=float(cfg["lam"]))
-            self.dim = int(cfg["d"])
-        else:
-            self.objective = core.SoftmaxRegression(
-                num_classes=int(cfg["classes"]))
-            self.dim = int(cfg["d"]) * int(cfg["classes"])
+        cfg, tr, obj = cell["config"], cell["traffic"], cell["objective"]
+        self.objective = obj.program(core, cfg)
+        self.dim = int(cfg["d"]) * obj.rows_per_sample(cfg)
         self.data = core.Dataset(x=x, y=y)
         self.cfg = core.NewtonConfig(
             iters=int(tr["iters"]),
@@ -169,7 +165,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool,
     cuda = torch.device(device).type == "cuda"
     cfg, tr = cell["config"], cell["traffic"]
     warm = tr["start"] == "warm"
-    x, y = datagen.make(cfg, seed, device)
+    x, y = cell["objective"].generate(cfg, seed, device)
     before = datagen.fingerprint(x, y)
     solve = (make_solver or Solver)(cell, x, y, device)
     zeros = torch.zeros(solve.dim, dtype=torch.float32, device=device)
@@ -179,7 +175,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool,
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    aud = audit.Audit(audit.plan(seed, tr))
+    aud = audit.Audit(audit.plan(seed, tr), cell["family"])
     solve.attach_audit(aud)
     plain = spans.Recorder().install() if trace_on else None
     setup_s = time.time() - t_start
@@ -215,8 +211,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool,
     if cuda:
         torch.cuda.empty_cache()
 
-    verdict = judge.judge(cfg, x, y, [c for c in good if judge.finite(c)])
-    verdict.update(judge.audit(cfg, tr, x, y, aud.records, verdict["g0n"]))
+    verdict = judge.judge(cell, x, y, [c for c in good if judge.finite(c)])
+    verdict.update(judge.audit(cell, x, y, aud.records, verdict["g0n"]))
     # The stated accuracy judges each call; a call outside it has failed.
     acc = tr["accuracy"]
     off = sum(1 for one in verdict["per_call"]
@@ -249,7 +245,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool,
         dev.update(busy_s=busy_s, window_s=span_s)
         t_good = [c for c in traced if c is not None]
         p_good = [c for c in calls if c is not None]
-        ctx = {"config": cfg, "traffic": tr, "trace": red, "recorder": rec,
+        ctx = {"config": cfg, "traffic": tr, "objective": cell["objective"],
+               "trace": red, "recorder": rec,
                "calls": len(t_good), "window_s": span_s, "busy_s": busy_s,
                "iterations": sum(len(c["wall_s"]) for c in t_good),
                "plain": {"recorder": plain, "calls": len(p_good),

@@ -12,7 +12,8 @@ until the window has closed.
                product-code encodes of X and X^T)
   gradient     ``CodedMatvecEngine.matvec`` (the coded gradient)
   hessian      ``core.newton._hessian_phase`` (A, the sketch, its Gram)
-  sketch_gram  ``kernels.ops.sketch_gram_count`` / ``sketch_gram_srht``
+  sketch_gram  each sketch family's fused kernel (``families/<family>.py``:
+               ``ENTRY`` in ``kernels.ops``)
   coded_matvec ``kernels.ops.coded_block_matvec``
   direction    ``core.newton._solve_direction``
   linesearch   ``core.linesearch.linesearch_strongly_convex`` /
@@ -27,6 +28,8 @@ from typing import Callable, List
 
 import torch
 
+from osnbench import spec
+
 PREFIX = "osnbench."
 
 
@@ -34,7 +37,7 @@ class Recorder:
     """What the wrappers saw during one traced window."""
 
     def __init__(self):
-        self.sketch_gram: List[tuple] = []    # (family, k, n, d, b, mask)
+        self.sketch_gram: List[tuple] = []    # (family, sizes, mask)
         self.coded: List[tuple] = []          # (workers, b, s, erased)
         self.solves: List[tuple] = []         # (solver, dim)
         self._undo: List[Callable] = []
@@ -57,15 +60,12 @@ class Recorder:
         from repro_torch.kernels import ops as kops
         from repro_torch.scheduler import dag
 
-        def count_sgc(h, sigma, a, block_size, survivors):
-            self.sketch_gram.append(("count", h.shape[0], a.shape[0],
-                                     a.shape[1], int(block_size),
-                                     survivors.clone()))
-
-        def count_srht(rows, sigma, a, survivors):
-            self.sketch_gram.append(("srht", rows.shape[0], a.shape[0],
-                                     a.shape[1], rows.shape[1],
-                                     survivors.clone()))
+        def counter(fam):
+            def count(*args, **kwargs):
+                draws, a = fam.unpack(*args, **kwargs)
+                self.sketch_gram.append((fam, fam.sizes(draws, a),
+                                         draws["live"].clone()))
+            return count
 
         def count_coded(enc, x, erased):
             w, b, s = enc.shape
@@ -83,8 +83,8 @@ class Recorder:
         self._patch(newton, "_solve_direction", "direction", count_solve)
         self._patch(linesearch, "linesearch_strongly_convex", "linesearch")
         self._patch(linesearch, "linesearch_weakly_convex", "linesearch")
-        self._patch(kops, "sketch_gram_count", "sketch_gram", count_sgc)
-        self._patch(kops, "sketch_gram_srht", "sketch_gram", count_srht)
+        for fam in spec.families():
+            self._patch(kops, fam.ENTRY, "sketch_gram", counter(fam))
         self._patch(kops, "coded_block_matvec", "coded_matvec", count_coded)
         self._patch(straggler.SimClock, "phase", "fleet")
         self._patch(dag.DagRun, "dispatch", "fleet")
@@ -95,8 +95,16 @@ class Recorder:
             self._undo.pop()()
 
     def sketch_calls(self) -> List[tuple]:
-        """(family, k, n, d, b, live blocks) of each sketch -> Gram call."""
-        return [(f, k, n, d, b, int(m.sum())) for f, k, n, d, b, m
+        """(family's LABEL, k, n, d, b, live blocks) of each sketch -> Gram
+        call."""
+        return [(fam.LABEL, z["k"], z["n"], z["d"], z["b"], live)
+                for fam, z, live in self.family_calls()]
+
+    def family_calls(self) -> List[tuple]:
+        """(family, sizes, live blocks) of each sketch -> Gram call: the
+        family's module and its ``sizes`` of the call, which its ``flops``
+        and ``bound_s`` take with the live blocks."""
+        return [(fam, sizes, int(m.sum())) for fam, sizes, m
                 in self.sketch_gram]
 
     def coded_calls(self) -> List[tuple]:

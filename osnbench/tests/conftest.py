@@ -15,20 +15,26 @@ for p in (str(REPO), str(REPO / "src")):
 torch.set_num_threads(2)
 
 
+# Each configuration's sizes in the CPU tests, and its mixes' sketch sizes.
+TINY = {"synthetic-logistic": ({"n": 2000, "d": 40},
+                               {"sketch_dim": 512, "block_size": 64,
+                                "coded_block_rows": 128}),
+        "emnist-softmax": ({"n": 1500, "d": 12, "classes": 4},
+                           {"sketch_dim": 384, "block_size": 64,
+                            "coded_block_rows": 128})}
+
+
 @pytest.fixture
 def tiny():
     """A cell of BENCHMARK.json cut to a CPU test's size: the same
-    objective, traffic and limits, the sizes of a few seconds' run."""
+    objective, family, traffic and limits, the sizes of a few seconds'
+    run."""
     from osnbench import spec
 
     def make(name: str) -> dict:
         cell = spec.cell(name)
-        cfg, tr = cell["config"], cell["traffic"]
-        if cfg["objective"] == "logistic":
-            cfg.update(n=2000, d=40)
-            tr.update(sketch_dim=512, block_size=64, coded_block_rows=128)
-        else:
-            cfg.update(n=1500, d=12, classes=4)
-            tr.update(sketch_dim=384, block_size=64, coded_block_rows=128)
+        sizes, sketch = TINY[cell["config"]["name"]]
+        cell["config"].update(sizes)
+        cell["traffic"].update(sketch)
         return cell
     return make

@@ -9,10 +9,11 @@ import time
 import pytest
 import torch
 
-from osnbench import audit, datagen, faults, run
+from osnbench import audit, faults, run
 from osnbench.reference import control, judge, sketch
 
-CELLS = ("logistic-oversketch", "softmax-emnist", "logistic-srht")
+CELLS = ("logistic-oversketch", "softmax-emnist", "logistic-srht",
+         "logistic-sjlt")
 
 
 def _run(cell, seed=2 ** 31 + 3, seconds=0.3, make_solver=None):
@@ -68,45 +69,36 @@ CAUGHT_BY = {"state_unchanged": {"grad_ratio", "opt_gap", "not_fallen"},
 @pytest.mark.parametrize("fault", faults.FAULTS)
 def test_a_broken_timed_path_is_not_correct(tiny, name, fault):
     cell = tiny(name)
-    with faults.plant(fault):
+    with faults.plant(fault, cell["family"]):
         out = _run(cell)
     assert not out["correct"], out["check"]
     want = CAUGHT_BY[fault] & set(out["check"])
     assert want and want <= set(_failing(out)), (want, out["check"])
 
 
-def test_the_faults_are_undone(tiny):
+@pytest.mark.parametrize("name", CELLS)
+def test_the_faults_are_undone(tiny, name):
     from repro_torch import core
     from repro_torch.kernels import ops as kops
-    before = (core.oversketched_newton, kops.sketch_gram_count)
+    family = tiny(name)["family"]
+    before = (core.oversketched_newton, getattr(kops, family.ENTRY))
     for fault in faults.FAULTS:
-        with faults.plant(fault):
+        with faults.plant(fault, family):
             pass
-    assert (core.oversketched_newton, kops.sketch_gram_count) == before
+    assert (core.oversketched_newton, getattr(kops, family.ENTRY)) == before
 
 
-def _explicit_gram(cfg, x, y, w, draws):
-    """The Gram from A and S written out whole, float64."""
+def _explicit_gram(cell, x, y, w, draws):
+    """The Gram from A and S written out whole (the family's ``dense``),
+    float64."""
+    cfg, obj = cell["config"], cell["objective"]
     n, d = x.shape
-    r = sketch.rows_per_sample(cfg)
-    cf = sketch.coef(cfg, x.double(), y.double(), w.double(), n)  # (n, R, R)
+    r = obj.rows_per_sample(cfg)
+    cf = obj.coef(cfg, x.double(), y.double(), w.double(), n)  # (n, R, R)
     a = torch.einsum("nci,nj->ncij", cf, x.double()).reshape(n * r, r * d)
-    b = draws["block_size"]
     grams = []
     for k in torch.nonzero(draws["live"]).flatten().tolist():
-        s = torch.zeros((b, n * r), dtype=torch.float64)
-        if draws["family"] == "count":
-            s[draws["h"][k].long(), torch.arange(n * r)] = \
-                draws["sigma"][k].double()
-        else:
-            n_pad = 1 << (n * r - 1).bit_length()
-            hd = torch.ones((1, 1), dtype=torch.float64)
-            while hd.shape[0] < n_pad:
-                hd = torch.cat([torch.cat([hd, hd], 1),
-                                torch.cat([hd, -hd], 1)], 0)
-            s = (hd[draws["rows"][k].long()][:, :n * r]
-                 * draws["sigma"][k].double() / b ** 0.5)
-        at = s @ a
+        at = cell["family"].dense(draws, k, n * r) @ a
         grams.append(at.T @ at)
     return sum(grams) / len(grams)
 
@@ -114,18 +106,16 @@ def _explicit_gram(cfg, x, y, w, draws):
 @pytest.mark.parametrize("name", CELLS)
 def test_the_reference_gram_is_the_explicit_product(tiny, name):
     cell = tiny(name)
-    cfg, tr = cell["config"], cell["traffic"]
+    cfg = cell["config"]
     cfg.update(n=300, d=6)
-    x, y = datagen.make(cfg, 7, "cpu")
-    dim = 6 * sketch.rows_per_sample(cfg)
-    w = 0.3 * torch.randn(dim, generator=torch.Generator().manual_seed(1))
+    x, y = cell["objective"].generate(cfg, 7, "cpu")
+    r = cell["objective"].rows_per_sample(cfg)
+    w = 0.3 * torch.randn(6 * r, generator=torch.Generator().manual_seed(1))
     gen = torch.Generator().manual_seed(2)
-    family = control.FAMILIES[tr["sketch_family"]]
-    draws = sketch.draw(family, 5, 16, 300 * sketch.rows_per_sample(cfg),
-                        gen, "cpu")
+    draws = cell["family"].draw(5, 16, 300 * r, gen, "cpu")
     draws["live"][1] = False
-    got = sketch.gram(sketch.blocks(cfg, x, y, w, draws))
-    want = _explicit_gram(cfg, x, y, w, draws)
+    got = sketch.gram(sketch.blocks(cell, x, y, w, draws))
+    want = _explicit_gram(cell, x, y, w, draws)
     assert torch.allclose(got, want, rtol=1e-10, atol=1e-14)
 
 
@@ -139,24 +129,34 @@ def test_the_audit_plan_is_drawn_from_the_seed():
     assert audit.plan(5, tr) == audit.plan(5, tr)
 
 
-def test_audit_bad_counts_broken_draws(tiny):
-    cell = tiny("logistic-oversketch")
-    cfg, tr = cell["config"], cell["traffic"]
-    x, y = datagen.make(cfg, 3, "cpu")
+@pytest.mark.parametrize("name", ["logistic-oversketch", "logistic-srht",
+                                  "logistic-sjlt"])
+def test_audit_bad_counts_broken_draws(tiny, name):
+    cell = tiny(name)
+    cfg, tr, fam = cell["config"], cell["traffic"], cell["family"]
+    x, y = cell["objective"].generate(cfg, 3, "cpu")
     gen = torch.Generator().manual_seed(4)
-    draws = sketch.draw("count", control.total_blocks(tr),
-                        int(tr["block_size"]), x.shape[0], gen, "cpu")
+    draws = fam.draw(control.total_blocks(tr), int(tr["block_size"]),
+                     x.shape[0], gen, "cpu")
     w = torch.zeros(x.shape[1])
-    gram = sketch.gram(sketch.blocks(cfg, x, y, w, draws)).float()
+    gram = sketch.gram(sketch.blocks(cell, x, y, w, draws)).float()
     rec = {"w": w, "g": torch.ones(x.shape[1]), "p": -torch.ones(x.shape[1]),
            "gram": gram}
-    ok = judge.audit(cfg, tr, x, y, [dict(rec, draws=audit.compact_draws(
-        draws))], None)
+
+    def judged(d):
+        return judge.audit(cell, x, y, [dict(rec, draws=audit.compact_draws(
+            d, fam))], None)
+    ok = judged(draws)
     assert ok["audit_bad"] == 0 and ok["gram_gap"] < 1e-6
     few = dict(draws, live=torch.zeros_like(draws["live"]))
     few["live"][:3] = True
     bad_sign = dict(draws, sigma=draws["sigma"] * 0.5)
-    for broken in (few, bad_sign):
-        out = judge.audit(cfg, tr, x, y, [dict(rec, draws=audit.compact_draws(
-            broken))], None)
+    short = {k: v[..., :-1] if torch.is_tensor(v) and v.shape[-1] == x.shape[0]
+             else v for k, v in draws.items()}
+    broken = [few, bad_sign, short]
+    if "h" in draws and draws["h"].dim() == 3:      # layered: s fewer
+        broken.append(dict(draws, h=draws["h"][:, :2],
+                           sigma=draws["sigma"][:, :2]))
+    for d in broken:
+        out = judged(d)
         assert out["audit_bad"] == 1 and out["gram_gap"] is None

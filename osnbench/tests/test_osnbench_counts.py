@@ -4,7 +4,7 @@ import itertools
 
 import pytest
 
-from osnbench import counts
+from osnbench import counts, spec
 
 
 def test_sketch_gram_intensity_by_hand():
@@ -65,10 +65,36 @@ def test_direction_by_hand():
 
 def test_iteration_by_hand():
     # logistic p = n d = 20: (4 + 3 + 2 (1 + 6) + 6) p = 27 p
-    assert counts.iteration_flops("logistic", 10, 2, 1) == 540.0
+    logistic = spec.objective("logistic")
+    assert logistic.iteration_flops({"n": 10, "d": 2}) == 540.0
     # softmax p = 60, D = 6: 36 p + 2 n K D + 2 D^2
-    assert counts.iteration_flops("softmax", 10, 2, 3) == 2160 + 360 + 72
+    softmax = spec.objective("softmax")
+    assert softmax.iteration_flops({"n": 10, "d": 2, "classes": 3}) == \
+        2160 + 360 + 72
     assert counts.encode_flops(10, 2) == 40.0
+
+
+def test_sjlt_by_hand():
+    # k = 3 blocks (2 live) of b = 2 rows, s = 2 layers, over (n = 4, d = 3):
+    # a live block 2 s n d = 48 (apply) + b d = 6 (scale) + b d (d + 1) = 24
+    flops, byts = counts.sjlt_gram_intensity(3, 2, 4, 3, 2, 2)
+    assert flops == 2 * (48 + 6 + 24)
+    # A 4 n d = 48, codes and signs 8 live s n = 128, A_tilde 2 4 live b d
+    # = 96, G 4 d^2 = 36, the mask k = 3
+    assert byts == 48 + 128 + 96 + 36 + 3
+    # one layer is the count sketch's work, plus the scale
+    one, _ = counts.sjlt_gram_intensity(3, 1, 4, 3, 2, 2)
+    fused, _ = counts.sketch_gram_intensity(3, 4, 3, 2, 2)["fused"]
+    assert one == fused + 2 * 6
+
+
+@pytest.mark.parametrize("n,d,b,k,live,s", [(5, 3, 2, 3, 2, 4),
+                                            (9, 2, 4, 4, 1, 2)])
+def test_sjlt_flops_match_a_brute_count(n, d, b, k, live, s):
+    flops, _ = counts.sjlt_gram_intensity(k, s, n, d, b, live)
+    # s entries a row, each signed and added; the scale at write-out
+    brute = s * _brute_apply_ops(n, d) + b * d + _brute_gram_ops(b, d)
+    assert flops == live * brute
 
 
 def test_shares_stay_under_the_peak_at_the_kernels_best():
@@ -80,3 +106,8 @@ def test_shares_stay_under_the_peak_at_the_kernels_best():
         bound = counts.sketch_gram_bound_s(k, n, d, b, live)
         assert bound >= flops / counts.FP32_FLOPS
         assert bound >= byts / counts.HBM_BW
+    flops, byts = counts.sjlt_gram_intensity(150, 4, 300_000, 3_000, 256, 120)
+    bound = counts.roofline_s(flops, byts)
+    assert bound == max(flops / counts.FP32_FLOPS, byts / counts.HBM_BW)
+    # the fused SJLT at the cell's shape is bound by its operations
+    assert bound == flops / counts.FP32_FLOPS

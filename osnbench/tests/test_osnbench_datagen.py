@@ -2,7 +2,7 @@
 and shapes, dtypes, labels and the margin sort are as the recipe says."""
 import torch
 
-from osnbench import datagen
+from osnbench import datagen, spec
 
 LOGISTIC = {"objective": "logistic", "n": 500, "d": 7, "cond": 10.0,
             "sorted_layout": True}
@@ -10,17 +10,21 @@ SOFTMAX = {"objective": "softmax", "n": 400, "d": 6, "classes": 4}
 BIG_SEED = 2 ** 33 + 17
 
 
+def make(cfg, seed):
+    return spec.objective(cfg["objective"]).generate(cfg, seed, "cpu")
+
+
 def test_same_seed_same_bytes_other_seed_differs():
     for cfg in (LOGISTIC, SOFTMAX):
-        x1, y1 = datagen.make(cfg, BIG_SEED, "cpu")
-        x2, y2 = datagen.make(cfg, BIG_SEED, "cpu")
-        x3, _ = datagen.make(cfg, BIG_SEED + 1, "cpu")
+        x1, y1 = make(cfg, BIG_SEED)
+        x2, y2 = make(cfg, BIG_SEED)
+        x3, _ = make(cfg, BIG_SEED + 1)
         assert torch.equal(x1, x2) and torch.equal(y1, y2)
         assert not torch.equal(x1, x3)
 
 
 def test_logistic_shapes_scales_labels_and_sort():
-    x, y = datagen.make(LOGISTIC, BIG_SEED, "cpu")
+    x, y = make(LOGISTIC, BIG_SEED)
     assert x.shape == (500, 7) and y.shape == (500,)
     assert x.dtype == y.dtype == torch.float32
     assert set(y.unique().tolist()) <= {-1.0, 1.0}
@@ -34,12 +38,12 @@ def test_logistic_shapes_scales_labels_and_sort():
     margin = x @ w
     assert bool((margin[1:] >= margin[:-1] - 1e-5).all())
     # the unsorted layout holds the same rows
-    xu, yu = datagen.make(dict(LOGISTIC, sorted_layout=False), BIG_SEED, "cpu")
+    xu, yu = make(dict(LOGISTIC, sorted_layout=False), BIG_SEED)
     assert torch.equal(xu[torch.argsort(xu @ w, stable=True)], x)
 
 
 def test_softmax_shapes_and_one_hot_labels():
-    x, y = datagen.make(SOFTMAX, BIG_SEED, "cpu")
+    x, y = make(SOFTMAX, BIG_SEED)
     assert x.shape == (400, 6) and y.shape == (400, 4)
     assert x.dtype == y.dtype == torch.float32
     assert torch.equal(y.sum(1), torch.ones(400))
@@ -54,7 +58,7 @@ def test_derive_takes_any_whole_seed():
 
 
 def test_fingerprint_sees_a_write():
-    x, y = datagen.make(SOFTMAX, BIG_SEED, "cpu")
+    x, y = make(SOFTMAX, BIG_SEED)
     before = datagen.fingerprint(x, y)
     assert datagen.fingerprint(x, y) == before
     x[3, 2] += 1.0

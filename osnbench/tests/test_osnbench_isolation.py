@@ -51,7 +51,11 @@ print(json.dumps({"correct": out["correct"], "bad": run.forbidden_modules(),
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for path in sorted((BENCH / "reference").glob("*.py")):
+    """Nor do the objectives and families, whose reference halves the
+    judge and the control call."""
+    for path in sorted([*(BENCH / "reference").glob("*.py"),
+                        *(BENCH / "objectives").glob("*.py"),
+                        *(BENCH / "families").glob("*.py")]):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             names = []
@@ -64,6 +68,9 @@ def test_the_reference_imports_nothing_of_the_program():
                     "repro_torch", "repro", "jax", "jaxlib"), (path, name)
     res = _py("import sys; sys.path[:0] = ['src', '.'];"
               "import osnbench.reference.judge, osnbench.reference.control;"
+              "from osnbench import spec;"
+              "[spec.cell(w['name']) for w in "
+              "spec.load_benchmark()['workloads']];"
               "print(sorted(m for m in sys.modules if m.split('.')[0] in "
               "('repro_torch', 'repro', 'jax')))")
     assert res.returncode == 0, res.stderr[-2000:]
